@@ -1,0 +1,1 @@
+"""circuits of the PyTorch/CUDA port (counterpart of ``qfedx_tpu/circuits``)."""

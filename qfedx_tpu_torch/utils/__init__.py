@@ -1,0 +1,1 @@
+"""utils of the PyTorch/CUDA port (counterpart of ``qfedx_tpu/utils``)."""
