@@ -1,12 +1,15 @@
 """Hardware-efficient ansatz on the batched slab engine.
 
 Counterpart of ``qfedx_tpu/circuits/ansatz.py`` (``init_ansatz_params``,
-``_ring_ops``, ``hea_scan_ops``, ``hardware_efficient_b``): per-qubit
-RZ(φ)·RX(θ) rotations followed by a CNOT entangler ring, L layers deep.
-On the scan route the L layers are ONE layer-stacked IR trace, fused by
+``_ring_ops``, ``hea_scan_ops``, ``hardware_efficient_b`` and the
+client-folded ``hardware_efficient_cb``): per-qubit RZ(φ)·RX(θ) rotations
+followed by a CNOT entangler ring, L layers deep. On the scan route the
+L layers are ONE layer-stacked IR trace, fused by
 ``fuse.fuse_ops_stacked`` and run by ``fuse.apply_scan`` (the scan-body
 kernel on the card). With the scan route off (QFEDX_FUSE/QFEDX_SCAN_LAYERS
-off, or a single layer) the layers run gate by gate.
+off, or a single layer) the shared-parameter layers run gate by gate;
+the client-folded ones raise, since the reference runs them through the
+per-layer ``fuse_ops`` pass, which is not ported.
 """
 
 from __future__ import annotations
@@ -89,3 +92,27 @@ def hardware_efficient_b(state, n_qubits: int, params: dict):
             state = apply_gate_b(state, n_qubits, gate, q)
         state = _entangle_ring_b(state, n_qubits)
     return state
+
+
+def hardware_efficient_cb(state, n_qubits: int, params: dict):
+    """Client-folded ``hardware_efficient``: params {"rx": (C, L, n),
+    "rz": (C, L, n)}, state the (C·B, 2^n) client-major slab. The layer
+    axis moves to the front — (L, C, n) — so the client axis is each
+    stacked op's coefficient group (the kernel's G = C)."""
+    n_layers = params["rx"].shape[1]
+    if not fuse.scan_active(n_qubits, n_layers):
+        raise NotImplementedError(
+            "the client-folded ansatz off the scan route needs the "
+            "per-layer fuse_ops pass, which is not ported yet"
+        )
+    ops = hea_scan_ops(
+        n_qubits,
+        params["rx"].movedim(0, 1),
+        params["rz"].movedim(0, 1),
+    )
+    return fuse.apply_scan(
+        state,
+        n_qubits,
+        fuse.fuse_ops_stacked(ops, n_qubits, n_layers),
+        batched=True,
+    )

@@ -1,17 +1,23 @@
 """Variational quantum circuit classifier on the batched slab engine.
 
 Counterpart of ``qfedx_tpu/models/vqc.py`` (``make_vqc_classifier``'s
-batched route for angle encoding, and its ``init``/``apply``/``name``):
-encoder → hardware-efficient ansatz → ⟨Z⟩ readout → logits. The forward
-is the reference's batched-slab route — log-depth product state on the
-scan route, the HEA as one stacked fused program (the scan-body kernel
-on the card), ``expect_z_all_b``, then the affine readout.
+batched routes for angle encoding: ``init``/``apply``/``apply_clients``/
+``wrap_delta``/``name``): encoder → hardware-efficient ansatz → ⟨Z⟩
+readout → logits. The forward is the reference's batched-slab route —
+log-depth product state on the scan route, the HEA as one stacked fused
+program (the scan-body kernel on the card, differentiable through
+``ops/scan_body.ScanBodyFn``), ``expect_z_all_b``, then the affine
+readout. ``apply_clients`` is the client-folded twin the federated round
+trains through: C clients' samples as one (C·B, 2^n) slab with per-client
+coefficient groups.
 
 Not ported yet: the vmap (dense) route below the slab widths or with
-QFEDX_BATCHED=0, amplitude and reupload encodings, noise, remat and the
-client-folded ``apply_clients`` — each raises NotImplementedError.
+QFEDX_BATCHED=0, the folded route off the scan route, amplitude and
+reupload encodings, noise (so ``apply_train`` is None) and remat — each
+raises NotImplementedError.
 
-``params_from_jax`` carries the reference's parameter pytree across.
+``params_from_jax`` carries the reference's parameter pytree across,
+shared (L, n) or client-stacked (C, L, n) alike.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from qfedx_tpu_torch.circuits.ansatz import (
     hardware_efficient_b,
+    hardware_efficient_cb,
     init_ansatz_params,
 )
 from qfedx_tpu_torch.circuits.encoders import angle_amplitudes
@@ -36,6 +43,28 @@ from qfedx_tpu_torch.ops.batched import (
     expect_z_all_b,
 )
 from qfedx_tpu_torch.utils import pins
+
+# Parameter leaves that are rotation angles (periodic in 2π). Readout
+# scale/bias are ordinary affine parameters and are not wrapped.
+_ANGLE_LEAVES = frozenset({"rx", "rz", "enc_b"})
+
+
+def wrap_angle(x: torch.Tensor) -> torch.Tensor:
+    """Wrap to [−π, π): (x + π) mod 2π − π (``torch.remainder`` has the
+    floor semantics of ``jnp.mod``)."""
+    return torch.remainder(x + math.pi, 2 * math.pi) - math.pi
+
+
+def wrap_delta(delta: dict) -> dict:
+    """Angle leaves of a parameter update wrapped to [−π, π); the readout
+    passes through."""
+    return {
+        "ansatz": {
+            k: (wrap_angle(v) if k in _ANGLE_LEAVES else v)
+            for k, v in delta["ansatz"].items()
+        },
+        "readout": delta["readout"],
+    }
 
 
 def make_vqc_classifier(
@@ -69,15 +98,15 @@ def make_vqc_classifier(
             "readout": init_readout_params(num_classes, dev),
         }
 
-    def apply(params: dict, x) -> torch.Tensor:
+    def _check_batched():
         if not batched_enabled(n_qubits):
             raise NotImplementedError(
                 "the vmap (dense) route is not ported yet: the port runs "
                 f"the batched engine at n ≥ 10 with QFEDX_BATCHED on "
                 f"(n_qubits={n_qubits})"
             )
-        a = params["ansatz"]
-        x = torch.as_tensor(x, dtype=torch.float32, device=a["rx"].device)
+
+    def _encode(x):
         # The scan route pairs with the log-depth product state; scan-off
         # keeps the sequential encoder, as the reference does.
         enc_fn = (
@@ -85,15 +114,40 @@ def make_vqc_classifier(
             if fuse.scan_active(n_qubits, n_layers)
             else bstate_product
         )
-        state = enc_fn(angle_amplitudes(x * math.pi, basis))
-        state = hardware_efficient_b(state, n_qubits, a)
+        return enc_fn(angle_amplitudes(x * math.pi, basis))
+
+    def apply(params: dict, x) -> torch.Tensor:
+        _check_batched()
+        a = params["ansatz"]
+        x = torch.as_tensor(x, dtype=torch.float32, device=a["rx"].device)
+        state = hardware_efficient_b(_encode(x), n_qubits, a)
         k = params["readout"]["scale"].shape[0]
         z = expect_z_all_b(state, n_qubits)[:, :k]
         return params["readout"]["scale"] * z + params["readout"]["bias"]
 
+    def apply_clients(cparams: dict, x) -> torch.Tensor:
+        """Client-folded forward: params leaves (C, …), x (C, B, n) →
+        logits (C, B, k); the C clients' states run as ONE (C·B, 2^n)
+        slab with per-client grouped gate coefficients."""
+        _check_batched()
+        a = cparams["ansatz"]
+        x = torch.as_tensor(x, dtype=torch.float32, device=a["rx"].device)
+        c, bsz = x.shape[0], x.shape[1]
+        state = _encode(x.reshape((c * bsz,) + tuple(x.shape[2:])))
+        state = hardware_efficient_cb(state, n_qubits, a)
+        k = cparams["readout"]["scale"].shape[-1]
+        z = expect_z_all_b(state, n_qubits)[:, :k].reshape(c, bsz, k)
+        return (
+            cparams["readout"]["scale"][:, None, :] * z
+            + cparams["readout"]["bias"][:, None, :]
+        )
+
     return Model(
         init=init,
         apply=apply,
+        wrap_delta=wrap_delta,
+        apply_train=None,
+        apply_clients=apply_clients,
         name=f"vqc{n_qubits}q{n_layers}l-{encoding}",
     )
 
@@ -101,7 +155,9 @@ def make_vqc_classifier(
 def params_from_jax(tree, device=None) -> dict:
     """The reference's parameter pytree ``{"ansatz": {"rx": (L,n), "rz":
     (L,n)}, "readout": {"scale": (k,), "bias": (k,)}}`` (numpy or
-    array-likes) → the port's dict of f32 tensors on ``device``."""
+    array-likes) → the port's dict of f32 tensors on ``device``. Leaf
+    shapes carry over as they are, so a client-stacked tree ((C, L, n)
+    angles, (C, k) readout) converts the same way."""
     dev = pins.resolve_device(device)
     return {
         group: {

@@ -2,17 +2,31 @@
 // fused layer program over every state block, in ONE launch.
 //
 // Replaces: qfedx_tpu/ops/pallas_body.py::_make_kernel, launched by
-// _run(with_boundaries=False) -> pl.pallas_call (the forward "Launch A").
-// It computes what that launch computes: for each state block b (one
-// (R,128) re/im slab per sample) and each layer l, apply the layer's op
-// sequence (lane / rowmat / mask / glane / growmat / rowperm / rowpair /
-// cnot in its four placements) to the block, layer after layer.
+// _run -> pl.pallas_call in all three of its launches: the forward
+// (Launch A, with_boundaries=False), the forward that also writes the
+// layer-entry boundary states (Launch B, _pallas_scan_fwd), and the same
+// sweep over the adjointed program with the cotangent as the state
+// (Launch C, _pallas_scan_bwd; the adjointing is host-side data, see
+// ops/scan_body.py). It computes what those launches compute: for each
+// state block b (one (R,128) re/im slab per sample) and each layer l,
+// optionally copy the block to boundary slot (l, b), then apply the
+// layer's op sequence (lane / rowmat / mask / glane / growmat / rowperm /
+// rowpair / cnot in its four placements) to the block, layer after layer.
 //
 // Design (simple and right first):
 // - grid = tb blocks, one CTA per state block; the TPU's sequential layer
 //   grid axis becomes a loop over the L layers inside the CTA, with the op
 //   sequence inside that loop and __syncthreads() between ops (row ops
 //   read other rows).
+// - boundaries (bnd_re/bnd_im non-null, each (L, tb, R, 128)): at the top
+//   of layer l the CTA copies its current state -- the input at l = 0,
+//   else whichever ping-pong buffer the previous op wrote, published by
+//   that op's trailing __syncthreads() -- to slot (l, b). The first op of
+//   the layer reads the same buffer and writes the other one, so the copy
+//   needs no barrier of its own. The copy is a template parameter chosen
+//   at launch (null pointers = Launch A), not a runtime test: compiled
+//   into the one kernel, it made the whole sweep ~1.45x slower on an H100
+//   even with null pointers, so Launch A keeps the copy-free instance.
 // - the state ping-pongs between the output block and a scratch block in
 //   global memory (both allocated by the wrapper); the first op reads the
 //   input, and the buffer the first op writes is chosen so that the last
@@ -143,9 +157,11 @@ __device__ void row_product(const float* sre, const float* sim, float* dre,
 
 }  // namespace
 
+template <bool BND>
 __global__ void __launch_bounds__(THREADS)
 scan_body_kernel(const float* in_re, const float* in_im, float* out_re,
                  float* out_im, float* tmp_re, float* tmp_im,
+                 float* bnd_re, float* bnd_im,
                  const int* __restrict__ desc, int n_ops,
                  const float* __restrict__ coeffs,
                  const int* __restrict__ statics, int tb, int n,
@@ -165,6 +181,13 @@ scan_body_kernel(const float* in_re, const float* in_im, float* out_re,
 
   int step = 0;
   for (int l = 0; l < length; ++l) {
+    if (BND) {
+      const size_t loff = ((size_t)l * tb + b) * size;
+      for (int e = threadIdx.x; e < size; e += blockDim.x) {
+        bnd_re[loff + e] = sre[e];
+        bnd_im[loff + e] = sim[e];
+      }
+    }
     for (int o = 0; o < n_ops; ++o, ++step) {
       const int* d = desc + o * DESC_W;
       const int kind = d[D_KIND];
@@ -284,19 +307,26 @@ scan_body_kernel(const float* in_re, const float* in_im, float* out_re,
 }
 
 // Plain C entry (bound with ctypes). Pointers are device pointers; the
-// kernel runs on `stream` and is not synchronised. Returns the CUDA error
-// of the launch (0 = launched).
+// kernel runs on `stream` and is not synchronised. bnd_re/bnd_im are both
+// null (no boundaries) or both (L, tb, R, 128) f32 outputs. Returns the
+// CUDA error of the launch (0 = launched).
 extern "C" int qfx_scan_body_launch(const float* in_re, const float* in_im,
                                     float* out_re, float* out_im,
                                     float* tmp_re, float* tmp_im,
+                                    float* bnd_re, float* bnd_im,
                                     const int* desc, int n_ops,
                                     const float* coeffs, const int* statics,
                                     int tb, int n, int length, int device,
                                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  scan_body_kernel<<<tb, THREADS, 0, (cudaStream_t)stream>>>(
-      in_re, in_im, out_re, out_im, tmp_re, tmp_im, desc, n_ops, coeffs,
-      statics, tb, n, length);
+  if (bnd_re != nullptr)
+    scan_body_kernel<true><<<tb, THREADS, 0, (cudaStream_t)stream>>>(
+        in_re, in_im, out_re, out_im, tmp_re, tmp_im, bnd_re, bnd_im, desc,
+        n_ops, coeffs, statics, tb, n, length);
+  else
+    scan_body_kernel<false><<<tb, THREADS, 0, (cudaStream_t)stream>>>(
+        in_re, in_im, out_re, out_im, tmp_re, tmp_im, bnd_re, bnd_im, desc,
+        n_ops, coeffs, statics, tb, n, length);
   return (int)cudaGetLastError();
 }

@@ -2,11 +2,14 @@
 
 Counterpart of ``qfedx_tpu/ops/pallas_body.py``. The reference runs the
 scanned super-layer body as a Pallas kernel whose grid is (state block,
-layer), the block resident across the layer axis. Here the forward sweep
-(the reference's "Launch A", ``_run(with_boundaries=False)``) is a CUDA
-C++ kernel for ``sm_90a`` in ``csrc/scan_body.cu``: one CTA per state
-block, a loop over the layers inside the CTA, the op sequence inside
-that loop (see the source's header for the design and its bound).
+layer), the block resident across the layer axis, in three launches: the
+forward (Launch A), the forward that also writes each layer's entry
+state (Launch B, the ``custom_vjp`` residuals) and, for the gradient,
+the same kernel over the adjointed program with the cotangent as the
+state (Launch C). Here all three are ONE CUDA C++ kernel for ``sm_90a``
+in ``csrc/scan_body.cu``: one CTA per state block, a loop over the
+layers inside the CTA, the op sequence inside that loop, and an optional
+boundary output (see the source's header for the design and its bound).
 
 Routing is the reference's: ``QFEDX_PALLAS`` pins the route (default on
 — the card's program), and ``fuse.apply_scan`` consults ``route_ok`` per
@@ -16,11 +19,14 @@ n ≥ 16) runs the torch layer loop, exactly where the reference runs
 
 The wrapper ``scan_body`` launches the kernel for CUDA tensors (or
 raises — there is no fallback), and calls the plain PyTorch version
-``scan_body_plain`` only for tensors on the CPU. ``launch_count`` and
-``build_count`` are plain integers: the first counts kernel launches,
-the second every build-and-load of the kernel library into the process.
-The kernel's backward (the reference's Launches B/C) is not ported yet:
-on CUDA a differentiable call raises.
+``scan_body_plain`` only for tensors on the CPU. It records no autograd
+graph: gradients go through ``ScanBodyFn``, whose forward is Launch B and
+whose backward is Launch C plus the coefficient cotangents (torch
+autograd of one layer over the saved boundaries). The Function is the
+same on both devices; only the sweep inside ``scan_body`` changes.
+``launch_count`` counts kernel launches, ``launch_counts`` splits them
+by launch ("fwd" = A, "fwd_bnd" = B, "adj" = C), and ``build_count``
+counts every build-and-load of the kernel library into the process.
 """
 
 from __future__ import annotations
@@ -36,12 +42,14 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from qfedx_tpu_torch.ops.cpx import CArray
 from qfedx_tpu_torch.ops.statevector import _LANE_BITS, _LANES, _SLAB_MIN
 from qfedx_tpu_torch.utils import pins
 
 launch_count = 0
+launch_counts = {"fwd": 0, "fwd_bnd": 0, "adj": 0}
 build_count = 0
 
 _SOURCE = Path(__file__).parent / "csrc" / "scan_body.cu"
@@ -319,7 +327,7 @@ def load_kernel():
         fn = lib.qfx_scan_body_launch
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int]
+            [ctypes.c_void_p] * 9 + [ctypes.c_int]
             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         )
         build_count += 1
@@ -330,14 +338,26 @@ def load_kernel():
 # --- the wrapper and its plain version --------------------------------------
 
 
-def scan_body(packed: torch.Tensor, spec: _KernelSpec, xs) -> torch.Tensor:
-    """One forward sweep of ``spec``'s body over the packed
-    (2, tb, R, 128) f32 state with the stacked coefficients ``xs``;
-    returns the packed final state.
+def reset_counts() -> None:
+    """Set ``launch_count`` and every entry of ``launch_counts`` to 0."""
+    global launch_count
+    launch_count = 0
+    for key in launch_counts:
+        launch_counts[key] = 0
+
+
+def scan_body(packed: torch.Tensor, spec: _KernelSpec, xs,
+              with_boundaries: bool = False, adjoint: bool = False):
+    """One sweep of ``spec``'s body over the packed (2, tb, R, 128) f32
+    state with the stacked coefficients ``xs``; returns the packed final
+    state, and with ``with_boundaries`` also the (L, 2, tb, R, 128)
+    layer-entry states. ``adjoint`` marks a sweep of an adjointed program
+    (Launch C) for the launch counts; it changes nothing else.
 
     CUDA tensors launch the kernel (a launch the runtime refuses raises);
-    CPU tensors take ``scan_body_plain``; anything else raises."""
-    global launch_count
+    CPU tensors take ``scan_body_plain``; anything else raises. Inputs
+    that require grad under grad mode raise: the sweep records no graph,
+    so gradients go through ``ScanBodyFn``."""
     r = 1 << (spec.n - _LANE_BITS)
     if packed.dtype != torch.float32:
         raise TypeError(f"scan_body takes float32 states, got {packed.dtype}")
@@ -347,20 +367,25 @@ def scan_body(packed: torch.Tensor, spec: _KernelSpec, xs) -> torch.Tensor:
             f"{(2, spec.tb, r, _LANES)}"
         )
     _check_coeffs(spec, xs, packed.device)
+    if torch.is_grad_enabled() and (
+        packed.requires_grad or any(p.requires_grad for p in _flatten(xs))
+    ):
+        raise RuntimeError(
+            "scan_body records no autograd graph; differentiate through "
+            "ScanBodyFn (apply_scan_pallas routes there)"
+        )
     if packed.device.type == "cpu":
-        return scan_body_plain(packed, spec, xs)
+        return scan_body_plain(packed, spec, xs, with_boundaries)
     if packed.device.type != "cuda":
         raise ValueError(f"scan_body runs on cuda or cpu, not {packed.device}")
     if not packed.is_contiguous():
         raise ValueError("scan_body needs a contiguous packed state")
-    if torch.is_grad_enabled() and (
-        packed.requires_grad
-        or any(p.requires_grad for c in xs for p in c if p is not None)
-    ):
-        raise NotImplementedError(
-            "the scan-body kernel's backward is not ported yet; call it "
-            "under torch.no_grad()"
-        )
+    key = "adj" if adjoint else ("fwd_bnd" if with_boundaries else "fwd")
+    return _launch(packed, spec, xs, with_boundaries, key)
+
+
+def _launch(packed, spec, xs, with_boundaries: bool, key: str):
+    global launch_count
     lib = load_kernel()
     # The launch is asynchronous on the current stream. The temporaries
     # below (coefficients, scratch) go back to PyTorch's caching allocator
@@ -370,12 +395,21 @@ def scan_body(packed: torch.Tensor, spec: _KernelSpec, xs) -> torch.Tensor:
     coeffs = _pack_coeffs(spec, xs)
     out = torch.empty_like(packed)
     tmp = torch.empty_like(packed)
-    half = spec.tb * r * _LANES * packed.element_size()
+    half = spec.tb * (1 << spec.n) * packed.element_size()
+    bnd = bnd_re = bnd_im = None
+    if with_boundaries:
+        # (2, L, tb, R, 128): each part is the (L, tb, R, 128) block the
+        # kernel writes; the caller sees the (L, 2, tb, R, 128) view.
+        bnd = torch.empty((2, spec.length) + tuple(packed.shape[1:]),
+                          dtype=packed.dtype, device=packed.device)
+        bnd_re = bnd.data_ptr()
+        bnd_im = bnd_re + spec.length * half
     stream = torch.cuda.current_stream(packed.device).cuda_stream
     err = lib.qfx_scan_body_launch(
         packed.data_ptr(), packed.data_ptr() + half,
         out.data_ptr(), out.data_ptr() + half,
         tmp.data_ptr(), tmp.data_ptr() + half,
+        bnd_re, bnd_im,
         desc.data_ptr(), len(spec.ops),
         coeffs.data_ptr(), statics.data_ptr(),
         spec.tb, spec.n, spec.length, packed.device.index or 0, stream,
@@ -383,42 +417,194 @@ def scan_body(packed: torch.Tensor, spec: _KernelSpec, xs) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"scan_body kernel launch failed: CUDA error {err}")
     launch_count += 1
+    launch_counts[key] += 1
+    if with_boundaries:
+        return out, bnd.transpose(0, 1)
     return out
 
 
-def scan_body_plain(packed: torch.Tensor, spec: _KernelSpec, xs
-                    ) -> torch.Tensor:
-    """The kernel's plain PyTorch version: the reference's ``_layer_exec``
-    (the scan route's own per-op executors) looped over the L layers."""
+def _layer_exec(spec: _KernelSpec, packed: torch.Tensor, sliced
+                ) -> torch.Tensor:
+    """ONE layer of the body on a packed (2, tb, R, 128) state with the
+    layer's coefficient slices — the reference's ``_layer_exec``: the scan
+    route's own per-op executors (``fuse._exec_stacked``), so the plain
+    sweep and the coefficient cotangents run the code the torch layer
+    loop runs."""
     from qfedx_tpu_torch.ops import fuse
 
     r = 1 << (spec.n - _LANE_BITS)
     shape = (spec.tb, 1 << spec.n)
     st = CArray(packed[0].reshape(shape), packed[1].reshape(shape))
-    for layer in range(spec.length):
-        it = iter(xs)
-        for op in spec.ops:
-            if op.stacked:
-                coeffs = fuse._cslice(next(it), layer)
-            elif op.kind == "rowperm":
-                coeffs = np.asarray(op.perm)
-            else:
-                coeffs = None
-            st = fuse._exec_stacked(
-                st, spec.n, fuse.StackedOp(op.kind, op.qubits, coeffs, False),
-                spec.batched,
-            )
+    it = iter(sliced)
+    for op in spec.ops:
+        if op.stacked:
+            coeffs = next(it)
+        elif op.kind == "rowperm":
+            coeffs = np.asarray(op.perm)
+        else:
+            coeffs = None
+        st = fuse._exec_stacked(
+            st, spec.n, fuse.StackedOp(op.kind, op.qubits, coeffs, False),
+            spec.batched,
+        )
     return torch.stack([
         st.re.reshape(spec.tb, r, _LANES),
         st.imag_or_zeros().reshape(spec.tb, r, _LANES),
     ])
 
 
+def scan_body_plain(packed: torch.Tensor, spec: _KernelSpec, xs,
+                    with_boundaries: bool = False):
+    """The kernel's plain PyTorch version: ``_layer_exec`` looped over the
+    L layers (with ``with_boundaries``, also the stacked layer-entry
+    states, as ``scan_body`` returns them)."""
+    from qfedx_tpu_torch.ops import fuse
+
+    bnds = []
+    for layer in range(spec.length):
+        if with_boundaries:
+            bnds.append(packed)
+        packed = _layer_exec(
+            spec, packed, [fuse._cslice(c, layer) for c in xs]
+        )
+    if with_boundaries:
+        return packed, torch.stack(bnds)
+    return packed
+
+
+# --- the backward: the same sweep over the adjointed program ---------------
+
+
+def _adjoint_spec(spec: _KernelSpec) -> _KernelSpec:
+    """Launch C's spec: op order reversed, static permutations inverted
+    (CNOTs are involutions — unchanged)."""
+    ops = []
+    for op in reversed(spec.ops):
+        perm = op.perm
+        if op.kind == "rowperm" and perm is not None:
+            inv = np.empty(len(perm), dtype=np.int64)
+            inv[np.asarray(perm)] = np.arange(len(perm))
+            perm = tuple(int(i) for i in inv)
+        ops.append(op._replace(perm=perm))
+    return spec._replace(ops=tuple(ops))
+
+
+def _adjoint_xs(spec: _KernelSpec, xs) -> tuple:
+    """Adjointed coefficient stacks in ``_adjoint_spec``'s order: branch
+    matrices conjugate-transposed (the last two axes only; layer, group
+    and branch axes untouched), masks conjugated, rowpairs transposed on
+    their paired (2,2,2,2) axes, the layer axis flipped."""
+    out = []
+    stacked = [op for op in spec.ops if op.stacked]
+    for op, c in zip(stacked, xs):
+        re, im = c.re, c.im
+        if op.kind == "mask":
+            im = None if im is None else -im
+        elif op.kind == "rowpair":
+            def tp(x):
+                return x.transpose(-4, -2).transpose(-3, -1)
+
+            re = tp(re)
+            im = None if im is None else -tp(im)
+        else:  # lane / rowmat / glane / growmat: M† per branch
+            re = re.transpose(-1, -2)
+            im = None if im is None else -im.transpose(-1, -2)
+        re = torch.flip(re, (0,))
+        im = None if im is None else torch.flip(im, (0,))
+        out.append(CArray(re, im))
+    return tuple(reversed(out))
+
+
+def _flatten(xs) -> list:
+    """Coefficient stacks → flat tensor list (re, then im where present)."""
+    return [p for c in xs for p in (c.re, c.im) if p is not None]
+
+
+def _unflatten(spec: _KernelSpec, flat) -> tuple:
+    it = iter(flat)
+    return tuple(
+        CArray(next(it), next(it) if op.has_im else None)
+        for op in spec.ops if op.stacked
+    )
+
+
+def _coeff_cotangents(spec, bnd, flat, c_out, need) -> list:
+    """dL/dxs[l] = (∂out_l/∂xs[l])ᵀ C[l]: torch autograd of one layer
+    (``_layer_exec``) at its saved entry state ``bnd[l]``, against that
+    layer's output cotangent ``c_out[l]`` — the reference's vjp of the
+    vmapped layer body, as a loop over the L layers."""
+    from qfedx_tpu_torch.ops import fuse
+
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_(bool(nd))
+                  for p, nd in zip(flat, need)]
+        xs = _unflatten(spec, leaves)
+        outs = torch.stack([
+            _layer_exec(spec, bnd[layer],
+                        [fuse._cslice(c, layer) for c in xs])
+            for layer in range(spec.length)
+        ])
+        wanted = [p for p in leaves if p.requires_grad]
+        grads = iter(torch.autograd.grad(
+            outs, wanted, grad_outputs=c_out, allow_unused=True
+        ))
+    out = []
+    for p in leaves:
+        g = next(grads) if p.requires_grad else None
+        if p.requires_grad and g is None:
+            g = torch.zeros_like(p)
+        out.append(g)
+    return out
+
+
+class ScanBodyFn(torch.autograd.Function):
+    """The differentiable sweep — the reference's ``_pallas_scan``
+    ``custom_vjp``. ``apply(spec, packed, *flat)``: ``flat`` is every
+    stacked op's coefficients, re then im where present.
+
+    forward: Launch B (``scan_body(..., with_boundaries=True)``), saving
+    the boundaries. backward: Launch C — the same sweep over
+    ``_adjoint_spec``/``_adjoint_xs`` with the cotangent as the state —
+    gives the state cotangent, and its flipped boundaries are the
+    per-layer output cotangents the coefficient cotangents contract
+    against (``_coeff_cotangents``)."""
+
+    @staticmethod
+    def forward(ctx, spec, packed, *flat):
+        final, bnd = scan_body(packed, spec, _unflatten(spec, flat),
+                               with_boundaries=True)
+        ctx.spec = spec
+        ctx.save_for_backward(bnd, *flat)
+        return final
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, cot):
+        spec = ctx.spec
+        bnd, *flat = ctx.saved_tensors
+        xs = _unflatten(spec, flat)
+        state_cot, cbnd = scan_body(
+            cot.contiguous(), _adjoint_spec(spec), _adjoint_xs(spec, xs),
+            with_boundaries=True, adjoint=True,
+        )
+        need = ctx.needs_input_grad[2:]
+        coeff = [None] * len(flat)
+        if any(need):
+            coeff = _coeff_cotangents(
+                spec, bnd, flat, torch.flip(cbnd, (0,)), need
+            )
+        return (None, state_cot if ctx.needs_input_grad[1] else None,
+                *coeff)
+
+
 def apply_scan_pallas(state: CArray, n: int, program,
                       batched: bool = False) -> CArray:
     """Run a stacked fused program with the body as ONE scan-body sweep
-    (``fuse.apply_scan``'s kernel branch — same pre-op hoisting). Callers
-    route through ``fuse.apply_scan``; this entry assumes ``route_ok``."""
+    (``fuse.apply_scan``'s kernel branch — same pre-op hoisting). Under
+    grad mode with a state or coefficient that requires grad the sweep is
+    ``ScanBodyFn`` (Launches B, then C in the backward); otherwise it is
+    one plain forward (Launch A). Callers route through
+    ``fuse.apply_scan``; this entry assumes ``route_ok``."""
     from qfedx_tpu_torch.ops import fuse
 
     state = CArray(state.re, state.imag_or_zeros())
@@ -432,5 +618,11 @@ def apply_scan_pallas(state: CArray, n: int, program,
         state.re.reshape(spec.tb, r, _LANES),
         state.im.reshape(spec.tb, r, _LANES),
     ])
-    out = scan_body(packed, spec, xs)
+    flat = _flatten(xs)
+    if torch.is_grad_enabled() and (
+        packed.requires_grad or any(p.requires_grad for p in flat)
+    ):
+        out = ScanBodyFn.apply(spec, packed, *flat)
+    else:
+        out = scan_body(packed, spec, xs)
     return CArray(out[0].reshape(shape), out[1].reshape(shape))

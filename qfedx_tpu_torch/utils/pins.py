@@ -99,6 +99,20 @@ def int_list_pin(name: str, default: tuple[int, ...]) -> tuple[int, ...]:
     return out
 
 
+def choice_pin(name: str, choices: tuple[str, ...],
+               default: str | None) -> str | None:
+    """Enumerated-string pin: unset or empty → ``default``, a
+    case-insensitive match of one of ``choices`` → that choice, anything
+    else raises."""
+    env = os.environ.get(name)
+    if not env:
+        return default
+    low = env.lower()
+    if low not in choices:
+        raise ValueError(f"{name}={env!r}: expected one of {choices}")
+    return low
+
+
 def str_pin(name: str, default: str | None = None) -> str | None:
     """The raw string value of pin ``name`` (``default`` when unset)."""
     return os.environ.get(name, default)

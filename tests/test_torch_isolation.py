@@ -42,5 +42,6 @@ def test_port_imports_no_jax_and_no_reference():
     # Every module of the slice was imported (a module that failed to
     # import would have raised above).
     for mod in ("ops.scan_body", "ops.fuse", "models.vqc", "serve.engine",
-                "serve.batcher", "utils.retry"):
+                "serve.batcher", "utils.retry", "utils.trees", "fed.config",
+                "fed.sampling", "fed.client", "fed.round"):
         assert f"qfedx_tpu_torch.{mod}" in report["modules"]

@@ -9,12 +9,24 @@ program with every kernel op kind and all four CNOT placements (shared
 G=1 and, real-valued, per-sample G=tb coefficients), at tb = 4. Tolerance:
 atol 1e-5 in f32 (same products, other summation order).
 
+The kernel's three launches and its gradient: with boundaries, the plain
+version's final state and layer-entry states equal the reference's
+``_run(with_boundaries=True)`` (Launch B); ``_adjoint_spec``/
+``_adjoint_xs`` (Launch C's inputs) equal the reference's exactly; and
+``ScanBodyFn``'s state and coefficient cotangents equal ``jax.grad``
+through the reference's ``_pallas_scan`` custom_vjp in interpret mode
+(atol 2e-5, the reference's own bound in ``tests/test_pallas.py``) and
+plain torch autograd through ``scan_body_plain`` — on the all-kinds
+programs at n=10, G ∈ {1, 2}, real and complex.
+
 The CUDA kernel itself only runs on the card (``chip_smoke.py``); here
 the wrapper is held to its contract: CPU tensors take the plain version
-without counting a launch, non-f32 or misshapen inputs raise, and the
-packed descriptor/coefficient layout the kernel reads is consistent.
+without counting a launch, non-f32 or misshapen inputs raise, inputs
+that require grad go through ``ScanBodyFn``, and the packed
+descriptor/coefficient layout the kernel reads is consistent.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -246,3 +258,168 @@ def test_kernel_layout_packs_every_stacked_op():
         np.testing.assert_array_equal(
             packed[im_off:im_off + block], c.im.reshape(-1).numpy()
         )
+
+
+# --- Launches B and C, and the gradient --------------------------------------
+
+GRAD_ATOL = 2e-5
+KINDS_CASES = [(None, False), (2, False), (None, True), (2, True)]
+KINDS_IDS = ["G1", "G2", "G1-real", "G2-real"]
+
+
+def _kinds_inputs(groups, real, seed=21):
+    """The all-kinds program at n=10, L=2 on both sides: (reference spec,
+    packed, xs), (port spec, packed, xs)."""
+    n = 10
+    rprog, oprog = _kinds_programs(n, 2, groups, seed=seed, real=real)
+    rstate, ostate = _state(n, seed=seed + 1)
+    rspec = rpb._build_spec(rstate, n, rprog, True)
+    ospec = scan_body._build_spec(ostate, n, oprog, True)
+    rpacked = jnp.stack([rstate.re.reshape(TB, 8, 128),
+                         rstate.im.reshape(TB, 8, 128)])
+    opacked = torch.stack([ostate.re.reshape(TB, 8, 128),
+                           ostate.im.reshape(TB, 8, 128)])
+    rxs = tuple(op.coeffs for op in rprog.body if op.stacked)
+    oxs = tuple(op.coeffs for op in oprog.body if op.stacked)
+    return (rspec, rpacked, rxs), (ospec, opacked, oxs)
+
+
+def _close(got, want, atol, what=""):
+    np.testing.assert_allclose(
+        got.detach().numpy(), np.asarray(want), atol=atol, rtol=0,
+        err_msg=what,
+    )
+
+
+@pytest.mark.parametrize("groups,real", KINDS_CASES, ids=KINDS_IDS)
+def test_boundaries_match_reference_launch_b(groups, real):
+    (rspec, rpacked, rxs), (ospec, opacked, oxs) = _kinds_inputs(groups,
+                                                                  real)
+    rfinal, rbnd = rpb._run(rspec, rpacked, rxs, with_boundaries=True)
+    final, bnd = scan_body.scan_body(opacked, ospec, oxs,
+                                     with_boundaries=True)
+    assert tuple(bnd.shape) == tuple(rbnd.shape) == (2, 2, TB, 8, 128)
+    _close(final, rfinal, ATOL, "final state")
+    _close(bnd, rbnd, ATOL, "boundaries")
+    # Without boundaries: the same final state (Launch A).
+    assert torch.equal(scan_body.scan_body(opacked, ospec, oxs), final)
+
+
+@pytest.mark.parametrize("groups,real", KINDS_CASES, ids=KINDS_IDS)
+def test_adjoint_artifacts_match_reference(groups, real):
+    (rspec, _, rxs), (ospec, _, oxs) = _kinds_inputs(groups, real)
+    raspec, oaspec = rpb._adjoint_spec(rspec), scan_body._adjoint_spec(ospec)
+    assert oaspec.ops == raspec.ops
+    assert (oaspec.n, oaspec.length, oaspec.tb) == (
+        raspec.n, raspec.length, raspec.tb)
+    assert [op.kind for op in oaspec.ops] == [
+        op.kind for op in reversed(ospec.ops)]
+    raxs = rpb._adjoint_xs(rspec, rxs)
+    oaxs = scan_body._adjoint_xs(ospec, oxs)
+    assert len(raxs) == len(oaxs)
+    for r, o in zip(raxs, oaxs):
+        assert tuple(o.re.shape) == tuple(r.re.shape)
+        np.testing.assert_array_equal(o.re.numpy(), np.asarray(r.re))
+        assert (o.im is None) == (r.im is None)
+        if r.im is not None:
+            np.testing.assert_array_equal(o.im.numpy(), np.asarray(r.im))
+
+
+def _weights(seed=31):
+    return np.random.default_rng(seed).normal(
+        size=(2, TB, 8, 128)).astype(np.float32)
+
+
+def _port_grads(ospec, opacked, oxs, w, through):
+    """Cotangents of Σ w·out² w.r.t. the packed state and every flat
+    coefficient, through ``ScanBodyFn`` or straight through the plain
+    version's autograd."""
+    packed = opacked.clone().requires_grad_(True)
+    flat = [p.clone().requires_grad_(True) for p in scan_body._flatten(oxs)]
+    if through == "function":
+        out = scan_body.ScanBodyFn.apply(ospec, packed, *flat)
+    else:
+        out = scan_body.scan_body_plain(
+            packed, ospec, scan_body._unflatten(ospec, flat))
+    loss = (torch.as_tensor(w) * out**2).sum()
+    grads = torch.autograd.grad(loss, [packed] + flat)
+    return grads, out.detach()
+
+
+@pytest.mark.parametrize("groups,real", KINDS_CASES, ids=KINDS_IDS)
+def test_function_grads_match_reference(groups, real):
+    """State and coefficient cotangents of ``ScanBodyFn`` ≡ ``jax.grad``
+    through the reference's custom_vjp (interpreted Launches B and C)."""
+    (rspec, rpacked, rxs), (ospec, opacked, oxs) = _kinds_inputs(groups,
+                                                                  real)
+    w = _weights()
+
+    def loss(packed, xs):
+        return jnp.sum(jnp.asarray(w) * rpb._pallas_scan(rspec, packed,
+                                                         xs) ** 2)
+
+    rg_state, rg_xs = jax.grad(loss, argnums=(0, 1))(rpacked, rxs)
+    rflat = [p for c in rg_xs for p in (c.re, c.im) if p is not None]
+    (g_state, *g_flat), _ = _port_grads(ospec, opacked, oxs, w, "function")
+    assert len(g_flat) == len(rflat)
+    _close(g_state, rg_state, GRAD_ATOL, "state cotangent")
+    for i, (g, r) in enumerate(zip(g_flat, rflat)):
+        assert tuple(g.shape) == tuple(r.shape)
+        _close(g, r, GRAD_ATOL, f"coefficient cotangent {i}")
+
+
+@pytest.mark.parametrize("groups,real", KINDS_CASES, ids=KINDS_IDS)
+def test_function_grads_match_plain_autograd(groups, real):
+    """The same cotangents ≡ torch autograd straight through
+    ``scan_body_plain`` (no Function): the pure-torch oracle the card's
+    gradient check uses."""
+    _, (ospec, opacked, oxs) = _kinds_inputs(groups, real)
+    w = _weights()
+    got, out_fn = _port_grads(ospec, opacked, oxs, w, "function")
+    want, out_plain = _port_grads(ospec, opacked, oxs, w, "plain")
+    assert torch.equal(out_fn, out_plain)
+    for i, (g, r) in enumerate(zip(got, want)):
+        _close(g, r, GRAD_ATOL, f"cotangent {i}")
+
+
+def test_differentiable_call_goes_through_the_function(monkeypatch):
+    """A differentiable sweep no longer refuses: ``apply_scan_pallas``
+    under grad runs ``ScanBodyFn`` — the wrapper once with boundaries in
+    the forward and once on the adjoint spec in the backward — and the
+    wrapper itself refuses grad-requiring inputs rather than dropping the
+    graph. CPU tensors count no launches on either call."""
+    _, (ospec, opacked, oxs) = _kinds_inputs(2, False)
+    calls = []
+    real = scan_body.scan_body
+
+    def spy(packed, spec, xs, with_boundaries=False, adjoint=False):
+        calls.append((spec, with_boundaries, adjoint))
+        return real(packed, spec, xs, with_boundaries, adjoint)
+
+    monkeypatch.setattr(scan_body, "scan_body", spy)
+    _, oprog = _kinds_programs(10, 2, 2, seed=21)
+    _, ostate = _state(10, seed=22)
+    body = tuple(
+        fuse.StackedOp(op.kind, op.qubits,
+                       TC(op.coeffs.re.clone().requires_grad_(True),
+                          op.coeffs.im), True)
+        if op.stacked else op
+        for op in oprog.body
+    )
+    coeffs = [op.coeffs.re for op in body if op.stacked]
+    prog = fuse.ScanProgram((), body, 2)
+    before = scan_body.launch_count
+    out = scan_body.apply_scan_pallas(ostate, 10, prog, batched=True)
+    assert out.re.grad_fn is not None
+    assert [(w, a) for _, w, a in calls] == [(True, False)]
+    (out.re.sum() + out.im.square().sum()).backward()
+    assert [(w, a) for _, w, a in calls] == [(True, False), (True, True)]
+    assert calls[1][0] == scan_body._adjoint_spec(calls[0][0])
+    assert all(c.grad is not None and torch.isfinite(c.grad).all()
+               for c in coeffs)
+    assert scan_body.launch_count == before
+    with pytest.raises(RuntimeError, match="ScanBodyFn"):
+        real(opacked.clone().requires_grad_(True), ospec, oxs)
+    with torch.no_grad():
+        real(opacked.clone().requires_grad_(True), ospec, oxs)
+

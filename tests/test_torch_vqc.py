@@ -6,15 +6,25 @@ interpreted); the port's runs the same program with the scan-body
 kernel's plain version on the CPU. Same weights (carried across by
 ``params_from_jax``), same features: logits within 2e-5 (the reference's
 own QFEDX_PALLAS on/off bound).
+
+The training hooks: the client-folded ``apply_clients`` (n=10, L=3, C=2
+clients of 4 samples, per-client weights) gives the reference's logits,
+and the gradients of the folded loss Σ_c mean-CE_c with respect to every
+leaf equal the reference's ``jax.grad`` through its interpreted kernel
+(the port's ``ScanBodyFn`` on the CPU), both within 2e-5; ``wrap_delta``
+wraps angles bit for bit like the reference's.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
 from qfedx_tpu.models.vqc import make_vqc_classifier as ref_make
 from qfedx_tpu.ops import fuse as rfuse
+from qfedx_tpu_torch.fed.client import _cross_entropy
 from qfedx_tpu_torch.models.vqc import make_vqc_classifier, params_from_jax
 
 ATOL = 2e-5
@@ -104,6 +114,11 @@ def test_unported_routes_raise(monkeypatch):
     monkeypatch.setenv("QFEDX_DTYPE", "bf16")
     with pytest.raises(NotImplementedError, match="bf16"):
         model.apply(model.init(0), _features(12))
+    monkeypatch.delenv("QFEDX_DTYPE")
+    monkeypatch.setenv("QFEDX_SCAN_LAYERS", "0")
+    cparams = _client_params(model.init(0), 2)
+    with pytest.raises(NotImplementedError, match="fuse_ops"):
+        model.apply_clients(cparams, _features(12, 8).reshape(2, 4, 12))
 
 
 def test_device_less_entry_points_raise_without_cuda(monkeypatch):
@@ -112,3 +127,98 @@ def test_device_less_entry_points_raise_without_cuda(monkeypatch):
         make_vqc_classifier(12, 3, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax({"readout": {"bias": np.zeros(2)}})
+
+
+# --- the training hooks -------------------------------------------------------
+
+N_FOLD, L_FOLD, C_FOLD = 10, 3, 2
+
+
+def _client_params(params, c):
+    return {g: {k: v[None].repeat((c,) + (1,) * v.ndim) for k, v in d.items()}
+            for g, d in params.items()}
+
+
+def _ref_client_params(seed=5):
+    """Per-client weights: the reference init widened, each client's
+    angles and readout shifted apart."""
+    ref = ref_make(N_FOLD, L_FOLD, 2)
+    p = _ref_params(ref, seed=seed, scale=10.0)
+    rng = np.random.default_rng(seed)
+    return ref, jax.tree.map(
+        lambda a: (a[None] + 0.3 * rng.normal(size=(C_FOLD,) + a.shape))
+        .astype(np.float32), p,
+    )
+
+
+def _fold_batch(seed=6):
+    x = _features(N_FOLD, C_FOLD * 4, seed).reshape(C_FOLD, 4, N_FOLD)
+    y = np.random.default_rng(seed).integers(0, 2, (C_FOLD, 4))
+    return x, y.astype(np.int32)
+
+
+def test_apply_clients_matches_reference():
+    ref, cparams = _ref_client_params()
+    x, _ = _fold_batch()
+    want = np.asarray(jax.jit(ref.apply_clients)(cparams, x))
+    model = make_vqc_classifier(N_FOLD, L_FOLD, 2, device="cpu")
+    got = model.apply_clients(params_from_jax(cparams, device="cpu"), x)
+    assert tuple(got.shape) == (C_FOLD, 4, 2)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=ATOL, rtol=0)
+
+
+def test_folded_loss_grads_match_reference():
+    """∂(Σ_c mean-CE_c)/∂leaf for every leaf: the port's autograd
+    (``ScanBodyFn``'s Launches B/C, plain on the CPU) ≡ the reference's
+    ``jax.grad`` through its interpreted kernel."""
+    ref, cparams = _ref_client_params()
+    x, y = _fold_batch()
+
+    def ref_loss(cp):
+        ce = optax.softmax_cross_entropy_with_integer_labels(
+            ref.apply_clients(cp, x), jnp.asarray(y))
+        return jnp.sum(jnp.mean(ce, axis=1))
+
+    want = jax.jit(jax.grad(ref_loss))(cparams)
+    model = make_vqc_classifier(N_FOLD, L_FOLD, 2, device="cpu")
+    leaves = {g: {k: v.requires_grad_(True) for k, v in d.items()}
+              for g, d in params_from_jax(cparams, device="cpu").items()}
+    ce = _cross_entropy(model.apply_clients(leaves, x), torch.as_tensor(y))
+    ce.mean(dim=1).sum().backward()
+    for g, d in leaves.items():
+        for k, v in d.items():
+            assert v.grad is not None, f"{g}/{k}"
+            np.testing.assert_allclose(
+                v.grad.numpy(), np.asarray(want[g][k]), atol=ATOL, rtol=0,
+                err_msg=f"{g}/{k}",
+            )
+
+
+def test_wrap_delta_matches_reference_bitwise():
+    from qfedx_tpu.models.vqc import wrap_angle as ref_wrap
+    from qfedx_tpu_torch.models.vqc import wrap_angle
+
+    pi = np.float32(np.pi)
+    eps = np.finfo(np.float32).eps
+    base = np.array([-pi, pi, -3 * pi, 3 * pi, 2 * pi, 0.0], np.float32)
+    around = np.concatenate([
+        base, np.nextafter(base, np.float32(np.inf)),
+        np.nextafter(base, np.float32(-np.inf)), base * (1 + 4 * eps),
+        np.random.default_rng(0).uniform(-10, 10, 64).astype(np.float32),
+    ]).astype(np.float32)
+    want = np.asarray(ref_wrap(jnp.asarray(around)))
+    got = wrap_angle(torch.as_tensor(around)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got >= -pi).all() and (got < pi).all()
+    ref = ref_make(N_FOLD, L_FOLD, 2)
+    model = make_vqc_classifier(N_FOLD, L_FOLD, 2, device="cpu")
+    delta = {"ansatz": {"rx": around[:60].reshape(2, 3, 10),
+                        "rz": around[4:64].reshape(2, 3, 10)},
+             "readout": {"scale": around[:4].reshape(2, 2),
+                         "bias": around[2:6].reshape(2, 2)}}
+    want = ref.wrap_delta(jax.tree.map(jnp.asarray, delta))
+    got = model.wrap_delta(params_from_jax(delta, device="cpu"))
+    for g in delta:
+        for k in delta[g]:
+            np.testing.assert_array_equal(got[g][k].numpy(),
+                                          np.asarray(want[g][k]))
