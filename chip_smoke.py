@@ -221,6 +221,25 @@ def event_ms(fn, iters: int = 100, warm: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_only_ms(packed, spec, xs, with_boundaries: bool = False,
+                   iters: int = 200) -> float:
+    """CUDA-event time of the kernel alone: events around a loop of raw
+    launches of ONE prepared launch (coefficients packed and outputs
+    allocated once, before the loop), so no wrapper work — checks,
+    packing, allocation, the ctypes call's host side only — is timed
+    beyond the enqueue itself. Counts no launch."""
+    from qfedx_tpu_torch.ops import scan_body
+
+    prep = scan_body.prepare_launch(packed, spec, xs, with_boundaries)
+
+    def run():
+        err = prep.run()
+        if err != 0:
+            raise RuntimeError(f"raw launch failed: CUDA error {err}")
+
+    return event_ms(run, iters=iters)
+
+
 # --- phases ------------------------------------------------------------------
 
 
@@ -449,7 +468,8 @@ def phase_times(device, engine) -> dict:
             if not err <= KERNEL_ATOL:
                 raise AssertionError(f"kernel disagrees with plain at bucket "
                                      f"{b}: {err:.3e} > {KERNEL_ATOL:g}")
-            ms = event_ms(lambda: scan_body.scan_body(packed, spec, xs))
+            ms = kernel_only_ms(packed, spec, xs)
+            call_ms = event_ms(lambda: scan_body.scan_body(packed, spec, xs))
             plain = event_ms(
                 lambda: scan_body.scan_body_plain(packed, spec, xs), iters=20
             )
@@ -461,11 +481,13 @@ def phase_times(device, engine) -> dict:
         fwd_ms = (time.perf_counter() - t0) / 20 * 1e3
         bms, by = bound_ms(spec, xs)
         flops, nbytes = sweep_work(spec, xs)
-        rows[b] = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
+        rows[b] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain,
+                   "bound_ms": bms,
                    "bound_by": by, "flops": flops, "bytes": nbytes,
                    "forward_ms": fwd_ms, "max_abs_err": err}
         print(f"[time] bucket {b}: max|kernel-plain|={err:.3e}, "
-              f"kernel {ms:.5f} ms, plain {plain:.5f} ms,"
+              f"kernel alone {ms:.5f} ms, wrapper call {call_ms:.5f} ms "
+              f"(CUDA events), plain {plain:.5f} ms,"
               f" bound {bms:.5f} ms ({by}; {flops:.4g} FLOP, "
               f"{nbytes:.4g} B), served forward {fwd_ms:.4f} ms (host "
               f"clock), body=[{','.join(op.kind for op in spec.ops)}]")
@@ -601,11 +623,13 @@ def phase_train_times(device, trained: dict) -> dict:
         for launch, err in (("B", b_err), ("C", c_err)):
             _require(err, KERNEL_ATOL, f"Launch {launch} at the training "
                      "shape disagrees with plain")
-        ms_b = event_ms(lambda: scan_body.scan_body(
+        ms_b = kernel_only_ms(packed, spec, xs, with_boundaries=True)
+        call_b = event_ms(lambda: scan_body.scan_body(
             packed, spec, xs, with_boundaries=True))
         plain_b = event_ms(lambda: scan_body.scan_body_plain(
             packed, spec, xs, True), iters=20)
-        ms_c = event_ms(lambda: scan_body.scan_body(
+        ms_c = kernel_only_ms(cot, aspec, axs, with_boundaries=True)
+        call_c = event_ms(lambda: scan_body.scan_body(
             cot, aspec, axs, with_boundaries=True, adjoint=True))
         plain_c = event_ms(lambda: scan_body.scan_body_plain(
             cot, aspec, axs, True), iters=20)
@@ -618,13 +642,16 @@ def phase_train_times(device, trained: dict) -> dict:
     flops, nbytes = sweep_work(spec, xs, with_boundaries=True)
     bms, by = bound_ms(spec, xs, with_boundaries=True)
     kinds = ",".join(op.kind for op in spec.ops)
-    for launch, ms, plain, err in (("B", ms_b, plain_b, b_err),
-                                   ("C", ms_c, plain_c, c_err)):
-        rows[launch] = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
-                        "bound_by": by, "max_abs_err": err}
+    for launch, ms, call, plain, err in (
+        ("B", ms_b, call_b, plain_b, b_err),
+        ("C", ms_c, call_c, plain_c, c_err),
+    ):
+        rows[launch] = {"ms": ms, "call_ms": call, "plain_ms": plain,
+                        "bound_ms": bms, "bound_by": by, "max_abs_err": err}
         print(f"[time] Launch {launch} at the training shape (tb="
               f"{spec.tb}, G={spec.ops[0].groups}, body=[{kinds}]): "
-              f"max|kernel-plain|={err:.3e}, kernel {ms:.5f} ms, plain "
+              f"max|kernel-plain|={err:.3e}, kernel alone {ms:.5f} ms, "
+              f"wrapper call {call:.5f} ms (CUDA events), plain "
               f"{plain:.5f} ms, bound {bms:.5f} ms ({by}; {flops:.4g} FLOP, "
               f"{nbytes:.4g} B with {spec.length} boundary states)")
     print(f"[time] coefficient cotangents (torch autograd of one layer per "

@@ -384,13 +384,28 @@ def scan_body(packed: torch.Tensor, spec: _KernelSpec, xs,
     return _launch(packed, spec, xs, with_boundaries, key)
 
 
-def _launch(packed, spec, xs, with_boundaries: bool, key: str):
-    global launch_count
+class _Prepared(NamedTuple):
+    """One launch of the kernel with every operand packed and every
+    output allocated: ``run()`` enqueues it (and returns the CUDA error,
+    0 = launched) any number of times without counting a launch, so a
+    timing loop measures the kernel alone; the wrapper counts its own."""
+
+    lib: ctypes.CDLL
+    args: tuple
+    keep: tuple            # tensors the launch reads or writes
+    out: torch.Tensor
+    bnd: torch.Tensor | None
+
+    def run(self) -> int:
+        return self.lib.qfx_scan_body_launch(*self.args)
+
+
+def prepare_launch(packed, spec: _KernelSpec, xs,
+                   with_boundaries: bool = False) -> _Prepared:
+    """Pack ``xs``, allocate the output, scratch and boundary buffers, and
+    bind the launch's arguments (CUDA tensors; no checks beyond
+    ``scan_body``'s)."""
     lib = load_kernel()
-    # The launch is asynchronous on the current stream. The temporaries
-    # below (coefficients, scratch) go back to PyTorch's caching allocator
-    # when this function returns, which only hands their memory to work
-    # queued later on the same stream — after this kernel.
     desc, statics = _device_tables(spec, packed.device)
     coeffs = _pack_coeffs(spec, xs)
     out = torch.empty_like(packed)
@@ -405,7 +420,7 @@ def _launch(packed, spec, xs, with_boundaries: bool, key: str):
         bnd_re = bnd.data_ptr()
         bnd_im = bnd_re + spec.length * half
     stream = torch.cuda.current_stream(packed.device).cuda_stream
-    err = lib.qfx_scan_body_launch(
+    args = (
         packed.data_ptr(), packed.data_ptr() + half,
         out.data_ptr(), out.data_ptr() + half,
         tmp.data_ptr(), tmp.data_ptr() + half,
@@ -414,13 +429,25 @@ def _launch(packed, spec, xs, with_boundaries: bool, key: str):
         coeffs.data_ptr(), statics.data_ptr(),
         spec.tb, spec.n, spec.length, packed.device.index or 0, stream,
     )
+    return _Prepared(lib, args, (packed, desc, statics, coeffs, tmp), out,
+                     bnd)
+
+
+def _launch(packed, spec, xs, with_boundaries: bool, key: str):
+    global launch_count
+    # The launch is asynchronous on the current stream. The temporaries
+    # (coefficients, scratch) go back to PyTorch's caching allocator when
+    # this function returns, which only hands their memory to work queued
+    # later on the same stream — after this kernel.
+    prep = prepare_launch(packed, spec, xs, with_boundaries)
+    err = prep.run()
     if err != 0:
         raise RuntimeError(f"scan_body kernel launch failed: CUDA error {err}")
     launch_count += 1
     launch_counts[key] += 1
     if with_boundaries:
-        return out, bnd.transpose(0, 1)
-    return out
+        return prep.out, prep.bnd.transpose(0, 1)
+    return prep.out
 
 
 def _layer_exec(spec: _KernelSpec, packed: torch.Tensor, sliced
