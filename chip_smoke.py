@@ -7,15 +7,21 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure raises and exits non-zero):
 
 1. print the card's name and power limit; require CUDA;
-2. build the scan-body kernel (``qfedx_tpu_torch/ops/csrc/scan_body.cu``)
-   from the checkout's sources with nvcc, and print the build time;
+2. build the scan-body kernel (``qfedx_tpu_torch/ops/csrc/scan_body.cu``
+   and its headers) from the checkout's sources with nvcc, and print the
+   build time and each instance's registers, local memory and static
+   shared memory;
 3. hold the kernel's three launches against their plain PyTorch versions
-   on the card (same inputs, |err| ≤ KERNEL_ATOL) on seven programs — the
-   all-kinds program (every op kind, all four CNOT placements) at n=12 and
-   n=15 with G ∈ {1, 8}, a real-coefficient variant, and the HEA programs
-   at n=12 and n=15: Launch A (the forward), Launch B (final state and
-   every layer-entry boundary) and Launch C (the sweep over the adjointed
-   program with a cotangent as the state, and its boundaries);
+   on the card (same inputs, |err| ≤ KERNEL_ATOL) on seven programs at
+   tb=8 — the all-kinds program (every op kind, all four CNOT placements)
+   at n=12 and n=15 with G ∈ {1, 8}, a real-coefficient variant, and the
+   HEA programs at n=12 and n=15 — and on seven width/tb cases (tb=1, 16
+   and 32; n=17, the widest width the cluster instance takes, and n=18,
+   which takes the global-memory one), each line naming the instance, K,
+   CTAs, shared memory and resident clusters that ran: Launch A (the
+   forward), Launch B (final state and every layer-entry boundary) and
+   Launch C (the sweep over the adjointed program with a cotangent as the
+   state, and its boundaries);
 4. on the same programs, hold ``ScanBodyFn``'s state and coefficient
    cotangents (Launches B and C inside) against torch autograd straight
    through ``scan_body_plain`` on the card (|err| ≤ GRAD_ATOL);
@@ -25,8 +31,11 @@ Phases (any failure raises and exits non-zero):
    (|err| ≤ LOGIT_ATOL), require Launch A to run at least once per batch
    (and B and C never) and the build count not to rise after warmup, and
    print p50/p95 request latency; then, at each bucket's main-path inputs,
-   hold the kernel against its plain version again and print both
-   CUDA-event times, the bound and the served forward's host-clock time;
+   hold the kernel against its plain version again (on the cluster
+   instance) and print the kernel's own CUDA-event time (raw launches of
+   one prepared launch), the whole wrapper call's, the plain version's,
+   the bound and the served forward's host-clock time, and the kernel's
+   time on the served body cut to one kind at a time;
 6. train the slice — 3 federated rounds of ``fed.round.make_fed_round``
    with the same model and bench.py's fed16q federation shape (2 clients ×
    64 seeded samples, batch 16, 1 local epoch, Adam lr 0.1) — and the same
@@ -35,11 +44,11 @@ Phases (any failure raises and exits non-zero):
    TRAINED_LOGIT_ATOL, exactly 4 Launch-B and 4 Launch-C launches and no
    Launch A per round, no build after the first round; print each round's
    host-clock wall time and client-rounds/s; then, at the training shape
-   (tb = 32, G = 2), print Launch B's and Launch C's CUDA-event times beside
-   their plain versions and bounds, and the time of the torch
-   coefficient-cotangent part;
+   (tb = 32, G = 2), print Launch B's and Launch C's CUDA-event times
+   (kernel alone and wrapper call) beside their plain versions and
+   bounds, and the time of the torch coefficient-cotangent part;
 7. print one JSON line describing each launch of the kernel (launches on
-   its main path, max error, times, bound);
+   its main path, max error, kernel-alone and plain times, bound);
 8. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -225,9 +234,10 @@ def kernel_only_ms(packed, spec, xs, with_boundaries: bool = False,
                    iters: int = 200) -> float:
     """CUDA-event time of the kernel alone: events around a loop of raw
     launches of ONE prepared launch (coefficients packed and outputs
-    allocated once, before the loop), so no wrapper work — checks,
-    packing, allocation, the ctypes call's host side only — is timed
-    beyond the enqueue itself. Counts no launch."""
+    allocated once, before the loop), queued behind a device-side sleep
+    so that the launches run back to back: neither wrapper work (checks,
+    packing, allocation) nor the host's enqueue is timed. Counts no
+    launch."""
     from qfedx_tpu_torch.ops import scan_body
 
     prep = scan_body.prepare_launch(packed, spec, xs, with_boundaries)
@@ -237,7 +247,18 @@ def kernel_only_ms(packed, spec, xs, with_boundaries: bool = False,
         if err != 0:
             raise RuntimeError(f"raw launch failed: CUDA error {err}")
 
-    return event_ms(run, iters=iters)
+    for _ in range(5):
+        run()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)  # ~10 ms of device time to queue under
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 # --- phases ------------------------------------------------------------------
@@ -254,6 +275,24 @@ def phase_build() -> float:
     for line in scan_body.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
+    for name, a in scan_body.instance_attrs().items():
+        print(f"[build] instance {name}: {a['registers']} registers, "
+              f"{a['local_bytes']} bytes local memory (spills and stack), "
+              f"{a['static_smem']} bytes static shared memory (+ the "
+              "dynamic shared memory in each [parity]/[time] line)")
+    # The one-wave rule of ops/scan_body._launch_config rests on this
+    # table: the card's resident clusters of K CTAs at the n=12 sizes.
+    spec = scan_body._KernelSpec(12, N_LAYERS, 1, True, (
+        scan_body._OpSpec("glane", (4,), True, 1, True, None),
+        scan_body._OpSpec("growmat", (11,), True, 1, True, None),
+    ))
+    for k, table in scan_body._RESIDENT.items():
+        cfg = scan_body.LaunchConfig("cluster", k, scan_body._cluster_smem(
+            spec, k))
+        got = scan_body.resident_clusters(cfg)
+        note = "" if got >= table else " — FEWER than the table: more waves"
+        print(f"[build] resident clusters of K={k} ({cfg.smem} B each): "
+              f"{got} on this card, {table} in _RESIDENT{note}")
     return secs
 
 
@@ -275,6 +314,48 @@ def parity_programs(device) -> list:
     return cases
 
 
+def width_and_tb_cases(device) -> list:
+    """(name, n, program, tb) cases beyond the seven at tb=8: the
+    all-kinds program at tb=1 (K at its largest, and K=R at n=10), at
+    tb=16 and tb=32 (K=4 and 2), and at the widest width the cluster
+    instance takes (n=17) and the next one up (n=18, the global-memory
+    instance) — fewer layers there, where R×R coefficients grow."""
+    return [
+        ("all-kinds n=10 G=1", 10, kinds_program(10, 3, None, device, 10), 1),
+        ("all-kinds n=12 G=1", 12, kinds_program(12, 3, None, device, 21), 1),
+        ("all-kinds n=15 G=1", 15, kinds_program(15, 3, None, device, 22), 1),
+        ("all-kinds n=12 G=8", 12, kinds_program(12, 3, 8, device, 23), 32),
+        ("all-kinds n=12 G=8", 12, kinds_program(12, 3, 8, device, 24), 16),
+        ("all-kinds n=17 G=1 L=2", 17,
+         kinds_program(17, 2, None, device, 25), 2),
+        ("all-kinds n=18 G=1 L=1", 18,
+         kinds_program(18, 1, None, device, 26), 2),
+    ]
+
+
+def require_cluster(spec, what: str) -> None:
+    """The main path's width (n=12) must take the cluster instance."""
+    from qfedx_tpu_torch.ops import scan_body
+
+    cfg = scan_body._launch_config(spec)
+    if cfg.instance != "cluster":
+        raise AssertionError(f"{what} runs the {cfg.instance} instance")
+
+
+def config_text(spec) -> str:
+    """Which instance a spec runs, with K, CTAs and shared memory."""
+    from qfedx_tpu_torch.ops import scan_body
+
+    cfg = scan_body._launch_config(spec)
+    if cfg.instance == "global":
+        return f"instance global, {spec.tb} CTAs"
+    resident = scan_body.resident_clusters(cfg)
+    return (f"instance cluster, K={cfg.cluster}, {spec.tb * cfg.cluster} "
+            f"CTAs, {cfg.smem} B dynamic shared memory per CTA, "
+            f"{resident} clusters resident at once "
+            f"({-(-spec.tb // resident)} wave(s))")
+
+
 def _max_err(got, want) -> float:
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
@@ -290,13 +371,17 @@ def phase_kernel_parity(device) -> dict:
     from qfedx_tpu_torch.ops import scan_body
 
     worst = {"A": 0.0, "B": 0.0, "C": 0.0}
-    for i, (name, n, program) in enumerate(parity_programs(device)):
+    cases = [c + (8,) for c in parity_programs(device)]
+    cases += width_and_tb_cases(device)
+    instances = set()
+    for i, (name, n, program, tb) in enumerate(cases):
         packed, spec, xs = kernel_inputs(
-            random_state(n, 8, device, seed=100 + i), n, program
+            random_state(n, tb, device, seed=100 + i), n, program
         )
+        instances.add(scan_body._launch_config(spec).instance)
         aspec = scan_body._adjoint_spec(spec)
         axs = scan_body._adjoint_xs(spec, xs)
-        cot = random_state(n, 8, device, seed=200 + i)
+        cot = random_state(n, tb, device, seed=200 + i)
         cot = torch.stack([cot.re, cot.im]).reshape(packed.shape)
         with torch.no_grad():
             errs = {
@@ -313,7 +398,8 @@ def phase_kernel_parity(device) -> dict:
             }
             torch.cuda.synchronize()
         kinds = ",".join(op.kind for op in spec.ops)
-        print(f"[parity] {name} tb=8 body=[{kinds}] max|kernel-plain|: "
+        print(f"[parity] {name} tb={tb} ({config_text(spec)}) body=[{kinds}]"
+              f" max|kernel-plain|: "
               f"A {errs['A']:.3e}, B (final+boundaries) {errs['B']:.3e}, "
               f"C (adjoint+boundaries) {errs['C']:.3e} "
               f"(atol {KERNEL_ATOL:g})")
@@ -321,6 +407,8 @@ def phase_kernel_parity(device) -> dict:
             _require(err, KERNEL_ATOL,
                      f"Launch {launch} disagrees with plain on {name}")
             worst[launch] = max(worst[launch], err)
+    if instances != {"cluster", "global"}:
+        raise AssertionError(f"parity cases ran instances {instances}")
     return worst
 
 
@@ -459,6 +547,7 @@ def phase_times(device, engine) -> dict:
         )
         state = bstate_product_tree(angle_amplitudes(x * math.pi))
         packed, spec, xs = kernel_inputs(state, N_QUBITS, program)
+        require_cluster(spec, f"the served sweep at bucket {b}")
         with torch.no_grad():
             got = scan_body.scan_body(packed, spec, xs)
             torch.cuda.synchronize()
@@ -490,8 +579,39 @@ def phase_times(device, engine) -> dict:
               f"(CUDA events), plain {plain:.5f} ms,"
               f" bound {bms:.5f} ms ({by}; {flops:.4g} FLOP, "
               f"{nbytes:.4g} B), served forward {fwd_ms:.4f} ms (host "
-              f"clock), body=[{','.join(op.kind for op in spec.ops)}]")
+              f"clock), body=[{','.join(op.kind for op in spec.ops)}], "
+              f"{config_text(spec)}")
     return rows
+
+
+def phase_breakdown(device, engine) -> None:
+    """Where a served sweep's time goes: the kernel alone (CUDA events) on
+    the served program's body cut to one kind at a time — a lane CNOT
+    alone gives the launch, input and output — at each bucket."""
+    from qfedx_tpu_torch.circuits.encoders import angle_amplitudes
+    from qfedx_tpu_torch.ops.batched import bstate_product_tree
+    from qfedx_tpu_torch.ops.fuse import ScanProgram, StackedOp
+
+    params = engine.params
+    program = hea_program(N_QUBITS, N_LAYERS, params["ansatz"]["rx"],
+                          params["ansatz"]["rz"])
+    bodies = [("cnot", (StackedOp("cnot", (7, 10), None, False),))]
+    bodies += [(op.kind, (op,)) for op in program.body]
+    bodies += [("+".join(op.kind for op in program.body), program.body)]
+    for b in BUCKETS:
+        x = torch.as_tensor(
+            np.random.default_rng(b).uniform(0, 1, (b, N_QUBITS)),
+            dtype=torch.float32, device=device,
+        )
+        state = bstate_product_tree(angle_amplitudes(x * math.pi))
+        parts = []
+        with torch.no_grad():
+            for name, body in bodies:
+                packed, spec, xs = kernel_inputs(
+                    state, N_QUBITS, ScanProgram(program.pre, body, N_LAYERS))
+                parts.append(f"[{name}] {kernel_only_ms(packed, spec, xs):.5f}")
+        print(f"[time] breakdown at bucket {b} (kernel alone, {N_LAYERS} "
+              f"layers of one body, ms): {', '.join(parts)}")
 
 
 def fed_data():
@@ -607,6 +727,7 @@ def phase_train_times(device, trained: dict) -> dict:
     state = bstate_product_tree(
         angle_amplitudes(x.reshape(-1, N_QUBITS) * math.pi))
     packed, spec, xs = kernel_inputs(state, N_QUBITS, program)
+    require_cluster(spec, "the training sweep")
     aspec = scan_body._adjoint_spec(spec)
     axs = scan_body._adjoint_xs(spec, xs)
     cot = random_state(N_QUBITS, spec.tb, device, seed=14)
@@ -653,7 +774,8 @@ def phase_train_times(device, trained: dict) -> dict:
               f"max|kernel-plain|={err:.3e}, kernel alone {ms:.5f} ms, "
               f"wrapper call {call:.5f} ms (CUDA events), plain "
               f"{plain:.5f} ms, bound {bms:.5f} ms ({by}; {flops:.4g} FLOP, "
-              f"{nbytes:.4g} B with {spec.length} boundary states)")
+              f"{nbytes:.4g} B with {spec.length} boundary states), "
+              f"{config_text(spec)}")
     print(f"[time] coefficient cotangents (torch autograd of one layer per "
           f"layer over the boundaries) at the training shape: "
           f"{cotan_ms:.5f} ms (CUDA events)")
@@ -729,6 +851,7 @@ def main() -> int:
     grad_err = phase_grad_parity(device)
     served = phase_serve(device)
     times = phase_times(device, served["engine"])
+    phase_breakdown(device, served["engine"])
     trained = phase_train(device)
     train_times = phase_train_times(device, trained)
     main_row = times[BUCKETS[-1]]

@@ -9,77 +9,70 @@
 // (Launch C, _pallas_scan_bwd; the adjointing is host-side data, see
 // ops/scan_body.py). It computes what those launches compute: for each
 // state block b (one (R,128) re/im slab per sample) and each layer l,
-// optionally copy the block to boundary slot (l, b), then apply the
+// optionally write the block to boundary slot (l, b), then apply the
 // layer's op sequence (lane / rowmat / mask / glane / growmat / rowperm /
 // rowpair / cnot in its four placements) to the block, layer after layer.
-//
-// Design (simple and right first):
-// - grid = tb blocks, one CTA per state block; the TPU's sequential layer
-//   grid axis becomes a loop over the L layers inside the CTA, with the op
-//   sequence inside that loop and __syncthreads() between ops (row ops
-//   read other rows).
-// - boundaries (bnd_re/bnd_im non-null, each (L, tb, R, 128)): at the top
-//   of layer l the CTA copies its current state -- the input at l = 0,
-//   else whichever ping-pong buffer the previous op wrote, published by
-//   that op's trailing __syncthreads() -- to slot (l, b). The first op of
-//   the layer reads the same buffer and writes the other one, so the copy
-//   needs no barrier of its own. The copy is a template parameter chosen
-//   at launch (null pointers = Launch A), not a runtime test: compiled
-//   into the one kernel, it made the whole sweep ~1.45x slower on an H100
-//   even with null pointers, so Launch A keeps the copy-free instance.
-// - the state ping-pongs between the output block and a scratch block in
-//   global memory (both allocated by the wrapper); the first op reads the
-//   input, and the buffer the first op writes is chosen so that the last
-//   op of the sweep lands in the output. At n=12 a block is 32 KB (re+im),
-//   so the working set stays in L1/L2.
-// - the op program arrives as an int32 descriptor table (DESC_W ints per
-//   op), the stacked coefficients packed in one f32 buffer laid out
-//   (L, G, gate...) per op (re, then im when present), and the static
-//   rowperm indices in one int32 buffer. A lane CNOT is applied as its
-//   index permutation, glane/growmat compute only the branch each row /
-//   lane selects, and every complex product is f32 FMAs (4 real products,
-//   2 when the coefficients are real).
+// The op program arrives as data: an int32 descriptor table (DESC_W ints
+// per op), the stacked coefficients packed in one f32 buffer laid out
+// (L, G, gate...) per op (re, then im when present), and the static
+// rowperm indices in one int32 buffer. glane/growmat compute only the
+// branch each row / lane selects, a lane CNOT is an index permutation,
+// and every complex product is f32 FMAs with f32 accumulation.
 //
 // Bound on an H100 (f32 CUDA cores, 67 TFLOP/s; HBM 3.35 TB/s): at the
 // served n=12, L=3 HEA body (glane + growmat, complex coefficients) the
 // useful work per block per layer is 8*R*128^2 + 8*R^2*128 FLOP = 5.24
-// MFLOP (R=32), 15.7 MFLOP per block for the sweep, 0.50 GFLOP at bucket
-// 32, against ~2.1 MB of state in+out and 0.84 MB of coefficients: about
-// 170 FLOP per byte, so the sweep is bound by operations (~7.5 us at
-// bucket 32), not bytes. This first version keeps every operand in global
-// memory and one output element per thread per pass; it does not reach
-// that bound — wgmma/TF32 tiles and shared-memory staging are later work.
+// MFLOP (R=32), 15.7 MFLOP per block for the sweep, 0.50 GFLOP at 32
+// blocks, against ~2.1 MB of state in+out and 0.84 MB of coefficients:
+// about 170 FLOP per byte, so the sweep is bound by operations (~7.5 us
+// at 32 blocks), not bytes. Tensor cores are not used: TF32 keeps ~3
+// decimal digits and the parity bounds are 1e-5.
+//
+// Two instances; the wrapper picks one per (width, tb) before the launch
+// (ops/scan_body.py::_launch_config), never after a failure:
+//
+// - the CLUSTER instance (scan_body_cluster.cuh), every width whose state
+//   fits a cluster's shared memory (n <= 17 at K <= 16): a thread-block
+//   cluster of K CTAs per sample, the largest K whose tb clusters the
+//   card keeps resident in one wave (an H100 SXM: K=16 at tb <= 7, 8 at
+//   tb <= 15, 4 at tb <= 30, 2 at tb <= 66). Each CTA holds R/K rows
+//   of the state (rows interleaved over the ranks), ping-ponged between
+//   two shared-memory buffers, for the whole sweep; state leaves shared
+//   memory only for the input read, the output write and (B, C) the
+//   boundary write, which is an async bulk store (TMA engine) issued at
+//   the top of the layer, overlapping its first op and awaited before
+//   that buffer is written again. Lane products stream the 128x128
+//   matrices through a ring of up to 128 KB in 16-row slabs, each slab
+//   loaded once per group of CTAs that need it and multicast to the
+//   group (bulk copies completing on one barrier per stage). Row
+//   products copy the state over distributed shared memory in coalesced
+//   chunks, beside their rows of the matrix. Threads hold register tiles
+//   of up to 8 rows x 1 lane, so each loaded coefficient serves several
+//   rows and each state load (a float4 broadcast) several terms; cluster
+//   barriers stand only where an op reads other CTAs' rows or a stage is
+//   refilled.
+// - the GLOBAL instance (below), every wider width: one CTA per sample,
+//   the state ping-ponged between the output and a scratch block in
+//   global memory, one output element per thread per pass.
+//
+// Both copy the boundary only in their BND=true instance, chosen at
+// launch (Launch A runs the copy-free one): compiled into the one
+// global-memory kernel, the copy made the whole sweep ~1.45x slower on
+// an NVIDIA H100 80GB HBM3 (700 W) even with null pointers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
+#include "scan_body_cluster.cuh"
+#include "scan_body_common.cuh"
+
+using namespace qfx;
+
 namespace {
 
-constexpr int LANES = 128;
-constexpr int LANE_BITS = 7;
-constexpr int DESC_W = 8;
 constexpr int THREADS = 256;
-
-// Descriptor fields.
-constexpr int D_KIND = 0;    // op kind code (below)
-constexpr int D_Q0 = 1;      // first qubit (control for glane/growmat/cnot)
-constexpr int D_Q1 = 2;      // second qubit (rowpair q2, cnot target)
-constexpr int D_RE = 3;      // offset of the re coefficients (floats)
-constexpr int D_IM = 4;      // offset of the im coefficients, -1 = real
-constexpr int D_GROUPS = 5;  // coefficient groups G (G divides tb)
-constexpr int D_GSIZE = 6;   // floats per (layer, group) gate
-constexpr int D_STATIC = 7;  // offset into the int32 statics (rowperm)
-
-enum Kind {
-  K_LANE = 0,
-  K_ROWMAT = 1,
-  K_MASK = 2,
-  K_GLANE = 3,
-  K_GROWMAT = 4,
-  K_ROWPERM = 5,
-  K_ROWPAIR = 6,
-  K_CNOT = 7,
-};
 
 // out[r,k] = sum_j s[r,j] * M[j,k] (M picked per row by `sel`).
 template <bool HAS_IM>
@@ -157,6 +150,7 @@ __device__ void row_product(const float* sre, const float* sim, float* dre,
 
 }  // namespace
 
+// The global-memory instance: one CTA per state block (see the header).
 template <bool BND>
 __global__ void __launch_bounds__(THREADS)
 scan_body_kernel(const float* in_re, const float* in_im, float* out_re,
@@ -306,10 +300,87 @@ scan_body_kernel(const float* in_re, const float* in_im, float* out_re,
   }
 }
 
+
+namespace {
+
+// Returned when the card cannot co-schedule one cluster of the requested
+// size and shared memory (cudaOccupancyMaxActiveClusters gives 0).
+constexpr int ERR_CLUSTER_UNSCHEDULABLE = 100000;
+
+std::mutex config_mutex;
+// Per instance [BND]: the dynamic shared memory its attribute allows, the
+// non-portable cluster size switched on, and per K the largest shared
+// memory whose cluster was checked to fit the card.
+int smem_allowed[2];
+bool nonportable_on[2];
+int cluster_checked[2][MAX_CLUSTER + 1];
+
+template <bool BND>
+int launch_cluster(const float* in_re, const float* in_im, float* out_re,
+                   float* out_im, float* bnd_re, float* bnd_im,
+                   const int* desc, int n_ops, const float* coeffs,
+                   const int* statics, int tb, int n, int length,
+                   int cluster, int smem, cudaStream_t stream) {
+  auto kern = scan_body_cluster_kernel<BND>;
+  // What the state buffers and the descriptor table leave of `smem` is
+  // the stage region (ops/scan_body.py::_cluster_smem sizes it).
+  const int rk = (1 << (n - LANE_BITS)) / cluster;
+  const int units = (smem - 2 * 2 * rk * LANES * 4 - n_ops * DESC_W * 4) /
+                    (UNIT_FLOATS * 4);
+  if (units < 4 || units > MAX_UNITS) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tb * cluster));
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  {
+    std::lock_guard<std::mutex> lock(config_mutex);
+    cudaError_t err;
+    if (smem_allowed[BND] < smem) {
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      smem_allowed[BND] = smem;
+    }
+    if (cluster > 8 && !nonportable_on[BND]) {
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return (int)err;
+      nonportable_on[BND] = true;
+    }
+    if (cluster_checked[BND][cluster] < smem) {
+      int active = 0;
+      err = cudaOccupancyMaxActiveClusters(&active, (const void*)kern, &cfg);
+      if (err != cudaSuccess) return (int)err;
+      if (active < 1) return ERR_CLUSTER_UNSCHEDULABLE;
+      cluster_checked[BND][cluster] = smem;
+    }
+  }
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kern, in_re, in_im, out_re,
+                                       out_im, bnd_re, bnd_im, desc, n_ops,
+                                       coeffs, statics, tb, n, length,
+                                       units);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // Plain C entry (bound with ctypes). Pointers are device pointers; the
 // kernel runs on `stream` and is not synchronised. bnd_re/bnd_im are both
-// null (no boundaries) or both (L, tb, R, 128) f32 outputs. Returns the
-// CUDA error of the launch (0 = launched).
+// null (no boundaries) or both (L, tb, R, 128) f32 outputs. `cluster` = 0
+// launches the global instance (tmp_re/tmp_im: a scratch block like the
+// output); `cluster` = K >= 1 launches the cluster instance with K CTAs
+// per sample and `smem` bytes of dynamic shared memory (tmp unused).
+// Returns the CUDA error of the launch (0 = launched), or
+// ERR_CLUSTER_UNSCHEDULABLE.
 extern "C" int qfx_scan_body_launch(const float* in_re, const float* in_im,
                                     float* out_re, float* out_im,
                                     float* tmp_re, float* tmp_im,
@@ -317,16 +388,81 @@ extern "C" int qfx_scan_body_launch(const float* in_re, const float* in_im,
                                     const int* desc, int n_ops,
                                     const float* coeffs, const int* statics,
                                     int tb, int n, int length, int device,
-                                    void* stream) {
+                                    void* stream, int cluster, int smem) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cluster > 0) {
+    if (cluster > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+    if (bnd_re != nullptr)
+      return launch_cluster<true>(in_re, in_im, out_re, out_im, bnd_re,
+                                  bnd_im, desc, n_ops, coeffs, statics, tb,
+                                  n, length, cluster, smem, st);
+    return launch_cluster<false>(in_re, in_im, out_re, out_im, bnd_re,
+                                 bnd_im, desc, n_ops, coeffs, statics, tb, n,
+                                 length, cluster, smem, st);
+  }
   if (bnd_re != nullptr)
-    scan_body_kernel<true><<<tb, THREADS, 0, (cudaStream_t)stream>>>(
+    scan_body_kernel<true><<<tb, THREADS, 0, st>>>(
         in_re, in_im, out_re, out_im, tmp_re, tmp_im, bnd_re, bnd_im, desc,
         n_ops, coeffs, statics, tb, n, length);
   else
-    scan_body_kernel<false><<<tb, THREADS, 0, (cudaStream_t)stream>>>(
+    scan_body_kernel<false><<<tb, THREADS, 0, st>>>(
         in_re, in_im, out_re, out_im, tmp_re, tmp_im, bnd_re, bnd_im, desc,
         n_ops, coeffs, statics, tb, n, length);
   return (int)cudaGetLastError();
+}
+
+// How many clusters of `cluster` CTAs with `smem` bytes of dynamic shared
+// memory each the card keeps resident at once (cudaOccupancyMaxActive-
+// Clusters), into *active. Returns the CUDA error (0 = filled).
+extern "C" int qfx_scan_body_max_clusters(int cluster, int smem,
+                                          int* active) {
+  auto kern = scan_body_cluster_kernel<false>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  std::lock_guard<std::mutex> lock(config_mutex);
+  cudaError_t err;
+  if (smem_allowed[0] < smem) {  // the attribute only ever grows
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed[0] = smem;
+  }
+  if (cluster > 8 && !nonportable_on[0]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    nonportable_on[0] = true;
+  }
+  return (int)cudaOccupancyMaxActiveClusters(active, (const void*)kern, &cfg);
+}
+
+// Registers, local (spill) bytes and static shared memory of one compiled
+// instance (cluster != 0: the cluster kernel; bnd != 0: its BND one), by
+// cudaFuncGetAttributes. Returns the CUDA error (0 = filled).
+extern "C" int qfx_scan_body_attrs(int cluster, int bnd, int* regs,
+                                   int* local_bytes, int* static_smem) {
+  cudaFuncAttributes a;
+  cudaError_t err;
+  if (cluster)
+    err = bnd ? cudaFuncGetAttributes(&a, scan_body_cluster_kernel<true>)
+              : cudaFuncGetAttributes(&a, scan_body_cluster_kernel<false>);
+  else
+    err = bnd ? cudaFuncGetAttributes(&a, scan_body_kernel<true>)
+              : cudaFuncGetAttributes(&a, scan_body_kernel<false>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  *static_smem = (int)a.sharedSizeBytes;
+  return 0;
 }

@@ -7,9 +7,14 @@ forward (Launch A), the forward that also writes each layer's entry
 state (Launch B, the ``custom_vjp`` residuals) and, for the gradient,
 the same kernel over the adjointed program with the cotangent as the
 state (Launch C). Here all three are ONE CUDA C++ kernel for ``sm_90a``
-in ``csrc/scan_body.cu``: one CTA per state block, a loop over the
-layers inside the CTA, the op sequence inside that loop, and an optional
-boundary output (see the source's header for the design and its bound).
+in ``csrc/scan_body.cu`` (with its headers), a loop over the layers
+inside each sample's CTAs, the op sequence inside that loop, and an
+optional boundary output, in two instances: up to n=17 a cluster of K
+CTAs holds each sample's state in shared memory for the whole sweep,
+wider widths run one CTA per sample over global memory.
+``_launch_config`` picks the instance and K from the width and tb alone,
+before the launch (see the source's header for the design and its
+bound).
 
 Routing is the reference's: ``QFEDX_PALLAS`` pins the route (default on
 — the card's program), and ``fuse.apply_scan`` consults ``route_ok`` per
@@ -52,8 +57,9 @@ launch_count = 0
 launch_counts = {"fwd": 0, "fwd_bnd": 0, "adj": 0}
 build_count = 0
 
-_SOURCE = Path(__file__).parent / "csrc" / "scan_body.cu"
-_BUILD_DIR = Path(__file__).parent / "csrc" / "_build"
+_CSRC = Path(__file__).parent / "csrc"
+_SOURCE = _CSRC / "scan_body.cu"
+_BUILD_DIR = _CSRC / "_build"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -250,6 +256,73 @@ def _device_tables(spec: _KernelSpec, device: torch.device):
     )
 
 
+# The launch configuration. An H100 has 232,448 bytes of shared memory
+# per block; a cluster holds at most 16 CTAs (above 8 with the
+# non-portable attribute). The cluster instance runs one CTA per SM (its
+# shared memory), and an H100 SXM keeps only this many clusters of K such
+# CTAs resident at once (cudaOccupancyMaxActiveClusters, which
+# chip_smoke.py prints beside each launch: a cluster lives inside one GPC,
+# and the GPCs' SM counts do not divide by K); a launch of more clusters
+# runs in a second wave.
+_SMEM_LIMIT = 232_448
+_MAX_CLUSTER = 16
+_RESIDENT = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+
+class LaunchConfig(NamedTuple):
+    """Which instance of the kernel runs a spec, and how."""
+
+    instance: str          # "cluster" or "global"
+    cluster: int           # K, CTAs per sample (1 for "global")
+    smem: int              # dynamic shared memory per CTA, bytes
+
+
+# The cluster instance's stage region (csrc/scan_body_cluster.cuh) comes
+# in units of one 16-row slab of a 128×128 matrix, re and im; it takes 4
+# to 8 units.
+_UNIT_BYTES = 2 * 16 * _LANES * 4
+_MIN_UNITS, _MAX_UNITS = 4, 8
+
+
+def _cluster_smem(spec: _KernelSpec, k: int) -> int | None:
+    """Dynamic shared memory of one CTA of the cluster instance, or None
+    where it does not fit: two ping-pong buffers of its R/K rows (re and
+    im), the descriptor table, and a stage region of as many units as the
+    rest of the block's shared memory holds, 4 to 8 (128 KB)."""
+    rows = (1 << (spec.n - _LANE_BITS)) // k
+    fixed = 2 * 2 * rows * _LANES * 4 + len(spec.ops) * _DESC_W * 4
+    units = min(_MAX_UNITS, (_SMEM_LIMIT - fixed) // _UNIT_BYTES)
+    if units < _MIN_UNITS:
+        return None
+    return fixed + units * _UNIT_BYTES
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_config(spec: _KernelSpec) -> LaunchConfig:
+    """The instance, cluster size K and dynamic shared memory for
+    ``spec``, from its width and tb alone (a pure function: no CUDA call,
+    no retry after a failure).
+
+    K is the largest power of two ≤ min(16, R) whose CTAs' rows fit their
+    shared memory and whose tb clusters the card keeps resident in one
+    wave (``_RESIDENT``: K=16 at tb ≤ 7, 8 at tb ≤ 15, 4 at tb ≤ 30, 2 at
+    tb ≤ 66); where no K fits one wave, the smallest K that fits the
+    memory. A width whose state no cluster of ≤ 16 CTAs holds (n ≥ 18 in
+    f32) takes the global-memory instance."""
+    rows = 1 << (spec.n - _LANE_BITS)
+    fits = [
+        (k, smem) for k in (16, 8, 4, 2, 1)
+        if k <= rows and (smem := _cluster_smem(spec, k)) is not None
+    ]
+    if not fits:
+        return LaunchConfig("global", 1, 0)
+    for k, smem in fits:
+        if spec.tb <= _RESIDENT[k]:
+            return LaunchConfig("cluster", k, smem)
+    k, smem = fits[-1]
+    return LaunchConfig("cluster", k, smem)
+
+
 def _check_coeffs(spec: _KernelSpec, xs, device) -> None:
     stacked = [op for op in spec.ops if op.stacked]
     if len(xs) != len(stacked):
@@ -300,15 +373,31 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _build_inputs() -> list:
+    """Every file the kernel's build reads: ``scan_body.cu`` and the
+    headers (``*.cuh``) beside it."""
+    return [_SOURCE] + sorted(_CSRC.glob("*.cuh"))
+
+
+def _build_tag() -> str:
+    """The shared library's key: a hash of the nvcc flags and of every
+    file the build reads (name and content), so a changed header
+    rebuilds rather than loading a stale library."""
+    h = hashlib.sha256(repr(_NVCC_FLAGS).encode())
+    for path in _build_inputs():
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return h.hexdigest()[:16]
+
+
 def load_kernel():
-    """Build ``csrc/scan_body.cu`` with nvcc (first use; the shared library
-    is keyed by the source's hash under ``csrc/_build``), load it into the
-    process once, and return it."""
+    """Build ``csrc/scan_body.cu`` (with its headers) by nvcc at first use
+    — the shared library is keyed by ``_build_tag`` under ``csrc/_build``
+    — load it into the process once, and return it."""
     global _LIB, build_count, build_log
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
-        tag = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
+        tag = _build_tag()
         lib_path = _BUILD_DIR / f"libscan_body_{tag}.so"
         if not lib_path.exists():
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -329,7 +418,14 @@ def load_kernel():
         fn.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int]
             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 2
         )
+        resident = lib.qfx_scan_body_max_clusters
+        resident.restype = ctypes.c_int
+        resident.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        attrs = lib.qfx_scan_body_attrs
+        attrs.restype = ctypes.c_int
+        attrs.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
         build_count += 1
         _LIB = lib
         return lib
@@ -395,6 +491,7 @@ class _Prepared(NamedTuple):
     keep: tuple            # tensors the launch reads or writes
     out: torch.Tensor
     bnd: torch.Tensor | None
+    config: LaunchConfig
 
     def run(self) -> int:
         return self.lib.qfx_scan_body_launch(*self.args)
@@ -406,11 +503,16 @@ def prepare_launch(packed, spec: _KernelSpec, xs,
     bind the launch's arguments (CUDA tensors; no checks beyond
     ``scan_body``'s)."""
     lib = load_kernel()
+    cfg = _launch_config(spec)
     desc, statics = _device_tables(spec, packed.device)
-    coeffs = _pack_coeffs(spec, xs)
+    coeffs = (_pack_coeffs(spec, xs) if xs  # static ops only: none read
+              else torch.zeros(1, device=packed.device))
     out = torch.empty_like(packed)
-    tmp = torch.empty_like(packed)
     half = spec.tb * (1 << spec.n) * packed.element_size()
+    tmp = tmp_re = tmp_im = None
+    if cfg.instance == "global":  # the cluster keeps its scratch on chip
+        tmp = torch.empty_like(packed)
+        tmp_re, tmp_im = tmp.data_ptr(), tmp.data_ptr() + half
     bnd = bnd_re = bnd_im = None
     if with_boundaries:
         # (2, L, tb, R, 128): each part is the (L, tb, R, 128) block the
@@ -423,14 +525,60 @@ def prepare_launch(packed, spec: _KernelSpec, xs,
     args = (
         packed.data_ptr(), packed.data_ptr() + half,
         out.data_ptr(), out.data_ptr() + half,
-        tmp.data_ptr(), tmp.data_ptr() + half,
+        tmp_re, tmp_im,
         bnd_re, bnd_im,
         desc.data_ptr(), len(spec.ops),
         coeffs.data_ptr(), statics.data_ptr(),
         spec.tb, spec.n, spec.length, packed.device.index or 0, stream,
+        cfg.cluster if cfg.instance == "cluster" else 0, cfg.smem,
     )
     return _Prepared(lib, args, (packed, desc, statics, coeffs, tmp), out,
-                     bnd)
+                     bnd, cfg)
+
+
+_ERR_CLUSTER_UNSCHEDULABLE = 100000  # csrc/scan_body.cu
+
+
+def launch_error(err: int, cfg: LaunchConfig) -> str:
+    """The message a refused launch raises with."""
+    if err == _ERR_CLUSTER_UNSCHEDULABLE:
+        return (f"scan_body: this card cannot co-schedule one cluster of "
+                f"{cfg.cluster} CTAs with {cfg.smem} bytes of shared "
+                "memory each")
+    return f"scan_body kernel launch failed ({cfg}): CUDA error {err}"
+
+
+def resident_clusters(cfg: LaunchConfig) -> int:
+    """How many clusters of ``cfg`` the card keeps resident at once
+    (cudaOccupancyMaxActiveClusters); ``tb`` clusters beyond it run in
+    further waves."""
+    lib = load_kernel()
+    active = ctypes.c_int()
+    err = lib.qfx_scan_body_max_clusters(cfg.cluster, cfg.smem,
+                                         ctypes.byref(active))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error "
+                           f"{err}")
+    return active.value
+
+
+def instance_attrs() -> dict:
+    """Registers, local-memory (spill) bytes and static shared memory of
+    each compiled instance, as the runtime reports them."""
+    lib = load_kernel()
+    out = {}
+    for name, cluster in (("global", 0), ("cluster", 1)):
+        for bnd in (0, 1):
+            vals = [ctypes.c_int() for _ in range(3)]
+            err = lib.qfx_scan_body_attrs(
+                cluster, bnd, *(ctypes.byref(v) for v in vals))
+            if err != 0:
+                raise RuntimeError(f"cudaFuncGetAttributes: CUDA error {err}")
+            out[f"{name}{'_bnd' if bnd else ''}"] = {
+                "registers": vals[0].value, "local_bytes": vals[1].value,
+                "static_smem": vals[2].value,
+            }
+    return out
 
 
 def _launch(packed, spec, xs, with_boundaries: bool, key: str):
@@ -442,7 +590,7 @@ def _launch(packed, spec, xs, with_boundaries: bool, key: str):
     prep = prepare_launch(packed, spec, xs, with_boundaries)
     err = prep.run()
     if err != 0:
-        raise RuntimeError(f"scan_body kernel launch failed: CUDA error {err}")
+        raise RuntimeError(launch_error(err, prep.config))
     launch_count += 1
     launch_counts[key] += 1
     if with_boundaries:

@@ -260,6 +260,119 @@ def test_kernel_layout_packs_every_stacked_op():
         )
 
 
+# --- the launch configuration and the build tag ------------------------------
+
+SMEM_LIMIT = 232_448  # an H100 block's shared memory, bytes
+
+
+def _spec_of(n, tb, kinds=("glane", "growmat")):
+    """A stacked spec of width n over tb blocks (the served HEA body's
+    kinds by default)."""
+    q = {"glane": (1,), "growmat": (n - 2,), "cnot": (0, 1)}
+    ops = tuple(
+        scan_body._OpSpec(k, q[k], k != "cnot", 1, k != "cnot", None)
+        for k in kinds
+    )
+    return scan_body._KernelSpec(n=n, length=3, tb=tb, batched=True, ops=ops)
+
+
+@pytest.mark.parametrize("tb", [1, 2, 8, 32, 64])
+@pytest.mark.parametrize("n", list(range(10, 21)))
+def test_launch_config_fits_the_card(n, tb, monkeypatch):
+    """For every width and tb: K is a power of two that divides R, at most
+    16; the cluster's shared memory fits a block; the instance is the
+    cluster exactly where a ≤16-CTA cluster holds the state (n ≤ 17), so
+    the main path's n=12 and the parity programs' n=15 take it; the tb
+    clusters fit the card's resident clusters of K (one wave) wherever
+    the state allows; and the
+    choice is a pure function of the spec, made without the kernel
+    library or any CUDA call."""
+    def no_cuda(*a, **k):
+        raise AssertionError("_launch_config touched the card")
+
+    monkeypatch.setattr(scan_body, "load_kernel", no_cuda)
+    monkeypatch.setattr(torch.cuda, "is_available", no_cuda)
+    scan_body._launch_config.cache_clear()
+    spec = _spec_of(n, tb)
+    cfg = scan_body._launch_config(spec)
+    rows = 1 << (n - 7)
+    assert cfg.instance in ("cluster", "global")
+    assert 1 <= cfg.cluster <= 16 and rows % cfg.cluster == 0
+    assert cfg.cluster & (cfg.cluster - 1) == 0
+    assert 0 <= cfg.smem <= SMEM_LIMIT
+    if cfg.instance == "cluster":
+        assert cfg.smem == scan_body._cluster_smem(spec, cfg.cluster)
+        fixed = 16 * rows // cfg.cluster * 128 + 8 * 4 * 2
+        units, rest = divmod(cfg.smem - fixed, 16384)
+        assert rest == 0 and 4 <= units <= 8
+        assert units == 8 or cfg.smem + 16384 > SMEM_LIMIT
+    else:
+        assert (cfg.cluster, cfg.smem) == (1, 0)
+    assert (cfg.instance == "cluster") == (n <= 17)
+    if cfg.instance == "cluster" and cfg.cluster < min(16, rows):
+        # A larger K was refused: its clusters did not fit one wave, or
+        # its rows did not fit the shared memory.
+        big = 2 * cfg.cluster
+        assert (scan_body._cluster_smem(spec, big) is None
+                or tb > scan_body._RESIDENT[big])
+    if n in (12, 15):
+        assert cfg.instance == "cluster"
+    if n <= 13:  # the rows fit at every K: one wave of clusters sets K
+        want = {1: 16, 2: 16, 8: 8, 32: 2, 64: 2}[tb]
+        assert cfg.cluster == min(want, rows)
+        assert tb <= scan_body._RESIDENT[cfg.cluster]
+    # Same spec, same answer; another spec of the same (n, tb) and op
+    # count, same answer: nothing else enters the choice.
+    scan_body._launch_config.cache_clear()
+    assert scan_body._launch_config(spec) == cfg
+    assert scan_body._launch_config(_spec_of(n, tb, ("cnot", "glane"))) == cfg
+
+
+def _csrc_copy(tmp_path, monkeypatch):
+    dst = tmp_path / "csrc"
+    dst.mkdir()
+    for path in scan_body._build_inputs():
+        (dst / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(scan_body, "_CSRC", dst)
+    monkeypatch.setattr(scan_body, "_SOURCE", dst / "scan_body.cu")
+    return dst
+
+
+def test_build_inputs_are_every_kernel_source():
+    names = {p.name for p in scan_body._build_inputs()}
+    assert names == {p.name for p in scan_body._CSRC.iterdir()
+                     if p.suffix in (".cu", ".cuh")}
+    assert {"scan_body.cu", "scan_body_common.cuh",
+            "scan_body_cluster.cuh"} <= names
+
+
+@pytest.mark.parametrize("name", ["scan_body.cu", "scan_body_common.cuh",
+                                  "scan_body_cluster.cuh"])
+def test_build_tag_follows_every_source(name, tmp_path, monkeypatch):
+    """Editing any file the build reads changes the library's tag, so a
+    stale shared library is never loaded."""
+    dst = _csrc_copy(tmp_path, monkeypatch)
+    before = scan_body._build_tag()
+    assert scan_body._build_tag() == before
+    path = dst / name
+    path.write_bytes(path.read_bytes() + b"\n// edited\n")
+    assert scan_body._build_tag() != before
+
+
+def test_build_tag_follows_a_new_header(tmp_path, monkeypatch):
+    dst = _csrc_copy(tmp_path, monkeypatch)
+    before = scan_body._build_tag()
+    (dst / "extra.cuh").write_text("#pragma once\n")
+    assert scan_body._build_tag() != before
+
+
+def test_refused_cluster_launch_names_its_config():
+    cfg = scan_body.LaunchConfig("cluster", 16, 131104)
+    msg = scan_body.launch_error(scan_body._ERR_CLUSTER_UNSCHEDULABLE, cfg)
+    assert "16 CTAs" in msg and "131104" in msg
+    assert "CUDA error 1" in scan_body.launch_error(1, cfg)
+
+
 # --- Launches B and C, and the gradient --------------------------------------
 
 GRAD_ATOL = 2e-5
