@@ -47,18 +47,51 @@ Phases (any failure raises and exits non-zero):
    (tb = 32, G = 2), print Launch B's and Launch C's CUDA-event times
    (kernel alone and wrapper call) beside their plain versions and
    bounds, and the time of the torch coefficient-cotangent part;
-7. print one JSON line describing each launch of the kernel (launches on
-   its main path, max error, kernel-alone and plain times, bound);
-8. print the final ``{"ok": true, "device": {...}}`` line.
+7. at the trainer's shapes — the evaluator's tb = 256 (Launch A), the
+   folded local step's tb = 128 with G = 4 (Launches B and C), and the
+   in-chunk evaluation's tb (Launch A at the CLI run's validation set and
+   at the trainer's cap of 2048), where ``_launch_config`` takes clusters
+   of ONE CTA and the card runs the grid in one to sixteen waves — hold
+   the three launches (on the HEA and the all-kinds programs) and
+   ``ScanBodyFn``'s cotangents against their plain versions, each line
+   naming K, CTAs and waves, and time them;
+8. ``[cli-train]``: run ``python -m qfedx_tpu_torch train`` (CLI_ARGV, in
+   this process, so that the counters can be read) on the card and the
+   same argv on the CPU: a complete run directory (config.json, schema-1
+   metrics.jsonl rows, summary.json, checkpoints whose sha256 verify),
+   per-round loss and the final θ card vs CPU within
+   TRAINED_LOGIT_ATOL, accuracy within one evaluation sample, exactly
+   E·S_pad/B Launch-B and as many Launch-C launches per round, Launch A
+   only from evaluation, and no build after round 1; print each round's
+   time_s and client-rounds/s;
+9. ``[cli-chunked]``: the same run with ``--rounds-per-call 3
+   --checkpoint-every 3`` (the in-chunk evaluation: Launch A at the
+   validation set's size), rows equal to the unchunked run's apart from
+   chunk_rounds/time_s/eval_n;
+10. ``[cli-rate]``: the same argv for 1 + RATE_ROUNDS rounds with
+   ``--pipeline-depth 0 --rounds-per-call 1`` (each round synchronous):
+   the same per-round launches, the first rounds' losses equal to the
+   pipelined run's, and the round rate over the rounds after the first;
+11. ``[cli-serve]``: ``serve --run-dir`` on the trained run answers 64
+   requests and one malformed line in order (one ``code: 400``), with
+   logits within LOGIT_ATOL of the CPU port's ``model.apply`` on the
+   restored checkpoint; print p50/p95;
+12. print one JSON line describing each launch of the kernel (launches
+   on the CLI run, and per path; max error; kernel-alone, plain and
+   bound at the CLI run's shape, and at the earlier slices' shapes);
+13. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -74,6 +107,16 @@ N_REQUESTS = 256
 # bench.py's fed16q federation shape (at the kernel's width, n=12).
 FED_CLIENTS, FED_SAMPLES, FED_BATCH, FED_EPOCHS, FED_ROUNDS = 2, 64, 16, 1, 3
 STEPS_PER_ROUND = FED_EPOCHS * FED_SAMPLES // FED_BATCH
+# The trainer's shapes at the CLI's defaults: 4 clients x batch 32 folded
+# (tb = 128, G = 4) for Launches B and C; the evaluator's batch of 256.
+TRAIN_CLIENTS, TRAIN_BATCH, EVAL_BATCH = 4, 32, 256
+CLI_ARGV = ["train", "--model", "vqc", "--qubits", str(N_QUBITS), "--layers",
+            str(N_LAYERS), "--classes", "0,1", "--clients",
+            str(TRAIN_CLIENTS), "--rounds", "3", "--local-epochs", "1",
+            "--checkpoint-every", "1"]
+CLI_ROUNDS = 3
+RATE_ROUNDS = 16  # timed rounds of [cli-rate], after one warm-up round
+N_SERVE_REQUESTS = 64
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -835,6 +878,434 @@ def local_step_split(device, trained: dict, rx, rz, iters: int = 10
     return parts
 
 
+def hea_grouped_program(groups: int, seed: int, device):
+    """The n=12 L=3 HEA program with per-client (L, G, n) angles: the
+    folded local step's program."""
+    rng = np.random.default_rng(seed)
+    rx, rz = (torch.as_tensor(rng.uniform(-2, 2, (N_LAYERS, groups, N_QUBITS)),
+                              dtype=torch.float32, device=device)
+              for _ in range(2))
+    return hea_program(N_QUBITS, N_LAYERS, rx, rz)
+
+
+def in_chunk_eval_tbs(n_val: int) -> list:
+    """Launch A's tb in the trainer's in-chunk evaluation (one
+    ``model.apply`` per round when ``--rounds-per-call`` > 1, the CLI's
+    default): the CLI run's validation set, and the trainer's cap."""
+    from qfedx_tpu_torch.run.trainer import _IN_CHUNK_EVAL_CAP
+
+    return sorted({min(n_val, _IN_CHUNK_EVAL_CAP), _IN_CHUNK_EVAL_CAP})
+
+
+def trainer_shape_cases(device, n_val: int) -> list:
+    """(name, program, tb, launches) at the trainer's shapes: the HEA
+    program at the evaluator's tb = 256 (A), the folded local step's
+    tb = 128 with G = 4 (B, C) and the in-chunk evaluation's tb (A), and
+    the all-kinds program at the first two."""
+    rng = np.random.default_rng(31)
+    rx, rz = (torch.as_tensor(rng.uniform(-2, 2, (N_LAYERS, N_QUBITS)),
+                              dtype=torch.float32, device=device)
+              for _ in range(2))
+    hea = hea_program(N_QUBITS, N_LAYERS, rx, rz)
+    return [
+        ("hea n=12 L=3 G=1 (evaluator)", hea, EVAL_BATCH, "A"),
+        ("hea n=12 L=3 G=4 (local step)", hea_grouped_program(
+            TRAIN_CLIENTS, 32, device), TRAIN_CLIENTS * TRAIN_BATCH, "BC"),
+        ("all-kinds n=12 G=1", kinds_program(12, 3, None, device, 33),
+         EVAL_BATCH, "ABC"),
+        ("all-kinds n=12 G=4", kinds_program(12, 3, TRAIN_CLIENTS, device, 34),
+         TRAIN_CLIENTS * TRAIN_BATCH, "ABC"),
+    ] + [("hea n=12 L=3 G=1 (in-chunk evaluation)", hea, tb, "A")
+         for tb in in_chunk_eval_tbs(n_val)]
+
+
+def phase_trainer_shapes(device, n_val: int) -> dict:
+    """Launches A, B and C and ``ScanBodyFn``'s cotangents against their
+    plain versions at the trainer's shapes (tb = 128, 256, the CLI run's
+    validation set ``n_val`` and the in-chunk evaluation's cap of 2048,
+    where ``_launch_config`` takes clusters of one CTA and the card runs
+    the grid in one to sixteen waves), then their times there. Returns,
+    per launch, the worst error, and the time rows keyed by (launch,
+    tb)."""
+    from qfedx_tpu_torch.ops import scan_body
+
+    worst = {"A": 0.0, "B": 0.0, "C": 0.0}
+    rows = {}
+    for i, (name, program, tb, launches) in enumerate(
+            trainer_shape_cases(device, n_val)):
+        packed, spec, xs = kernel_inputs(
+            random_state(N_QUBITS, tb, device, seed=500 + i), N_QUBITS,
+            program)
+        require_cluster(spec, f"{name} at tb={tb}")
+        aspec = scan_body._adjoint_spec(spec)
+        axs = scan_body._adjoint_xs(spec, xs)
+        cot = random_state(N_QUBITS, tb, device, seed=600 + i)
+        cot = torch.stack([cot.re, cot.im]).reshape(packed.shape)
+        errs = {}
+        with torch.no_grad():
+            if "A" in launches:
+                errs["A"] = _max_err(
+                    [scan_body.scan_body(packed, spec, xs)],
+                    [scan_body.scan_body_plain(packed, spec, xs)])
+            if "B" in launches:
+                errs["B"] = _max_err(
+                    scan_body.scan_body(packed, spec, xs,
+                                        with_boundaries=True),
+                    scan_body.scan_body_plain(packed, spec, xs, True))
+            if "C" in launches:
+                errs["C"] = _max_err(
+                    scan_body.scan_body(cot, aspec, axs, with_boundaries=True,
+                                        adjoint=True),
+                    scan_body.scan_body_plain(cot, aspec, axs, True))
+            torch.cuda.synchronize()
+        print(f"[parity] {name} tb={tb} ({config_text(spec)}) max|kernel-"
+              "plain|: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (atol {KERNEL_ATOL:g})")
+        for launch, err in errs.items():
+            _require(err, KERNEL_ATOL, f"Launch {launch} disagrees with plain "
+                     f"on {name} at tb={tb}")
+            worst[launch] = max(worst[launch], err)
+        if name.startswith("hea"):
+            if "B" in launches:
+                w = torch.as_tensor(np.random.default_rng(700 + i).normal(
+                    size=tuple(packed.shape)), dtype=torch.float32,
+                    device=device)
+                before = dict(scan_body.launch_counts)
+                got = _cotangents(spec, packed, xs, w, "kernel")
+                launched = {k: scan_body.launch_counts[k] - before[k]
+                            for k in before}
+                want = _cotangents(spec, packed, xs, w, "plain")
+                torch.cuda.synchronize()
+                err_state = float((got[0] - want[0]).abs().max())
+                err_coeff = _max_err(got[1:], want[1:])
+                print(f"[grad] {name} tb={tb}: max|kernel-plain| state "
+                      f"cotangent {err_state:.3e}, coefficient cotangents "
+                      f"{err_coeff:.3e} (atol {GRAD_ATOL:g}), launches "
+                      f"{launched}")
+                if launched != {"fwd": 0, "fwd_bnd": 1, "adj": 1}:
+                    raise AssertionError(f"ScanBodyFn launched {launched}")
+                _require(max(err_state, err_coeff), GRAD_ATOL,
+                         f"kernel gradients disagree with plain at {name}")
+            rows.update(time_launches(name, packed, spec, xs, cot, aspec,
+                                      axs, errs, launches))
+    return {"worst": worst, "rows": rows}
+
+
+def time_launches(name, packed, spec, xs, cot, aspec, axs, errs,
+                  launches) -> dict:
+    """Kernel alone, wrapper call, plain version and bound of each of
+    ``launches`` at these inputs; one ``[time]`` line each."""
+    from qfedx_tpu_torch.ops import scan_body
+
+    rows = {}
+    with torch.no_grad():
+        for launch in launches:
+            bnd = launch != "A"
+            s, x, st = (aspec, axs, cot) if launch == "C" else (spec, xs,
+                                                                packed)
+            ms = kernel_only_ms(st, s, x, with_boundaries=bnd)
+            call = event_ms(lambda: scan_body.scan_body(
+                st, s, x, with_boundaries=bnd, adjoint=launch == "C"))
+            plain = event_ms(lambda: scan_body.scan_body_plain(st, s, x, bnd),
+                             iters=10)
+            bms, by = bound_ms(s, x, with_boundaries=bnd)
+            flops, nbytes = sweep_work(s, x, with_boundaries=bnd)
+            rows[launch, s.tb] = {"ms": ms, "call_ms": call,
+                                  "plain_ms": plain, "bound_ms": bms,
+                                  "bound_by": by,
+                                  "max_abs_err": errs[launch]}
+            print(f"[time] Launch {launch} at {name}, tb={s.tb}: kernel "
+                  f"alone {ms:.5f} ms, wrapper call {call:.5f} ms (CUDA "
+                  f"events), plain {plain:.5f} ms, bound {bms:.5f} ms ({by}; "
+                  f"{flops:.4g} FLOP, {nbytes:.4g} B), {config_text(s)}")
+    return rows
+
+
+def _rows(run_dir) -> list:
+    from qfedx_tpu_torch.run.metrics import validate_metrics_record
+
+    return [validate_metrics_record(json.loads(line)) for line in
+            (run_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+class _RoundCounts:
+    """Wraps ``run.trainer.make_fed_round`` so each round's kernel
+    launches and the build count after it are recorded (the launch
+    counters move when a launch is enqueued, so a round's launches are
+    those made inside its call)."""
+
+    def __init__(self):
+        from qfedx_tpu_torch.run import trainer
+
+        self.trainer, self.orig = trainer, trainer.make_fed_round
+        self.rounds: list = []
+
+    def __enter__(self):
+        from qfedx_tpu_torch.ops import scan_body
+
+        def make(*args, **kwargs):
+            fn = self.orig(*args, **kwargs)
+
+            def counted(*a, **k):
+                before = dict(scan_body.launch_counts)
+                out = fn(*a, **k)
+                self.rounds.append((
+                    {key: scan_body.launch_counts[key] - before[key]
+                     for key in before}, scan_body.build_count))
+                return out
+
+            return counted
+
+        self.trainer.make_fed_round = make
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.make_fed_round = self.orig
+
+
+def cli_train(argv, device) -> tuple[dict, dict, list]:
+    """``run.cli.main(argv)`` in this process on ``device`` (None = the
+    card) with the launch counters set to 0 just before; returns the
+    summary, the launches read just after, and each round's launches."""
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run import cli
+
+    with _RoundCounts() as rc:
+        scan_body.reset_counts()
+        summary = cli.main(argv, device=device)
+        launches = dict(scan_body.launch_counts)
+    return summary, launches, rc.rounds
+
+
+def expected_shapes(argv) -> dict:
+    """What the CLI's data gives the kernel: local steps per round
+    (E·S_pad/B) and the evaluation sets' sizes."""
+    from qfedx_tpu_torch.run import cli
+    from qfedx_tpu_torch.run.config import build_data
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    data = build_data(cfg)
+    s_pad = data["cx"].shape[1]
+    return {"steps": cfg.fed.local_epochs * s_pad // cfg.fed.batch_size,
+            "s_pad": s_pad, "n_val": len(data["val"][1]),
+            "n_test": len(data["test"][1]), "clients": data["cx"].shape[0]}
+
+
+def _batches(n: int) -> int:
+    return -(-n // EVAL_BATCH)
+
+
+def phase_cli_train(root, shapes: dict) -> dict:
+    """``python -m qfedx_tpu_torch train`` (in-process) on the card, then
+    the same argv on the CPU: a complete run directory, every row on the
+    schema, the card's rounds against the CPU's, the launches each round
+    makes, and no build after the first round."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run.checkpoint import Checkpointer
+
+    argv = CLI_ARGV + ["--run-root", str(root), "--name", "smoke"]
+    t0 = time.perf_counter()
+    summary, launches, rounds = cli_train(argv, None)
+    wall = time.perf_counter() - t0
+    run = root / "smoke"
+    t0 = time.perf_counter()
+    cpu_summary, _, _ = cli_train(CLI_ARGV + ["--run-root", str(root / "cpu"),
+                                              "--name", "smoke"], "cpu")
+    cpu_wall = time.perf_counter() - t0
+    cpu_run = root / "cpu" / "smoke"
+    print(f"[cli-train] {' '.join(argv)}: card {wall:.2f} s, cpu "
+          f"{cpu_wall:.2f} s (host clock, in-process); {shapes['clients']} "
+          f"clients x S_pad={shapes['s_pad']}, {shapes['steps']} local steps "
+          f"per round at tb={shapes['clients'] * TRAIN_BATCH}; eval sets "
+          f"{shapes['n_val']} (val) / {shapes['n_test']} (test)")
+    for f in ("config.json", "metrics.jsonl", "summary.json"):
+        if not (run / f).is_file():
+            raise AssertionError(f"run directory lacks {f}")
+    ckpt = Checkpointer(run / "checkpoints", every=1)
+    for r in range(1, CLI_ROUNDS + 1):
+        ckpt.verify(r)  # raises on a missing file or a bad sha256
+    rows, cpu_rows = _rows(run), _rows(cpu_run)
+    if [r["round"] for r in rows] != list(range(1, CLI_ROUNDS + 1)):
+        raise AssertionError(f"metrics.jsonl rounds {rows}")
+    for row, cpu in zip(rows, cpu_rows):
+        loss_err = abs(row["loss"] - cpu["loss"])
+        acc_err = abs(row["accuracy"] - cpu["accuracy"])
+        print(f"[cli-train] round {row['round']}: loss card {row['loss']!r} "
+              f"cpu {cpu['loss']!r} |err|={loss_err:.3e} (atol "
+              f"{TRAINED_LOGIT_ATOL:g}), accuracy card {row['accuracy']!r} "
+              f"cpu {cpu['accuracy']!r} (n={row['n']}), time_s "
+              f"{row['time_s']:.4f} (host clock, drain to drain), "
+              f"{shapes['clients'] / row['time_s']:.4f} client-rounds/s")
+        _require(loss_err, TRAINED_LOGIT_ATOL, f"round {row['round']} loss")
+        _require(acc_err, 1.0 / row["n"] + 1e-12,
+                 f"round {row['round']} accuracy, card vs cpu")
+    template = make_vqc_classifier(N_QUBITS, N_LAYERS, 2,
+                                   device="cpu").init(0)
+    theta = ckpt.restore(CLI_ROUNDS, template)
+    cpu_theta = Checkpointer(cpu_run / "checkpoints").restore(CLI_ROUNDS,
+                                                              template)
+    theta_err = _max_err(
+        [v for d in theta.values() for v in d.values()],
+        [v for d in cpu_theta.values() for v in d.values()])
+    print(f"[cli-train] final theta max|card-cpu|={theta_err:.3e} (atol "
+          f"{TRAINED_LOGIT_ATOL:g}); summary card {json.dumps(summary)}; "
+          f"cpu final_accuracy {cpu_summary['final_accuracy']!r}")
+    _require(theta_err, TRAINED_LOGIT_ATOL, "final theta, card vs cpu")
+    steps = shapes["steps"]
+    want_round = {"fwd": 0, "fwd_bnd": steps, "adj": steps}
+    evals = _batches(shapes["n_val"]) * (1 + CLI_ROUNDS) + _batches(
+        shapes["n_test"])
+    want = {"fwd": evals, "fwd_bnd": CLI_ROUNDS * steps,
+            "adj": CLI_ROUNDS * steps}
+    print(f"[cli-train] launches {launches} (expected {want}: "
+          f"{steps} B + {steps} C per round, A = evaluation batches of "
+          f"{EVAL_BATCH}); per round {[c for c, _ in rounds]}; builds after "
+          f"each round {[b for _, b in rounds]}")
+    if [c for c, _ in rounds] != [want_round] * CLI_ROUNDS:
+        raise AssertionError(f"rounds launched {rounds}, each should "
+                             f"launch {want_round}")
+    if launches != want:
+        raise AssertionError(f"the run launched {launches}, expected {want}")
+    if len({b for _, b in rounds}) != 1 or scan_body.build_count != rounds[
+            0][1]:
+        raise AssertionError("the kernel library was built after round 1")
+    times = [r["time_s"] for r in rows]
+    print(f"[cli-train] {CLI_ROUNDS} rounds: time_s {times} (the "
+          "reference's drain-to-drain increments: with the loop pipelined "
+          "one chunk deep, round 1 holds the first use and round 2's "
+          "dispatch and the last round only its drain, so these resolve no "
+          "rate; [cli-rate] measures it)")
+    return {"run": run, "rows": rows, "launches": launches, "times": times,
+            "clients": shapes["clients"], "steps": steps,
+            "theta_err": theta_err, "shapes": shapes}
+
+
+def phase_cli_chunked(root, unchunked: dict) -> dict:
+    """The same run with ``--rounds-per-call 3 --checkpoint-every 3``: one
+    chunk of three rounds, each evaluated in the chunk (Launch A at the
+    validation set's size); rows equal the unchunked run's apart from
+    ``chunk_rounds``, ``time_s`` and ``eval_n``."""
+    argv = CLI_ARGV[:-2] + ["--checkpoint-every", "3", "--rounds-per-call",
+                            "3", "--run-root", str(root), "--name",
+                            "smoke-chunked"]
+    _, launches, rounds = cli_train(argv, None)
+    rows = _rows(root / "smoke-chunked")
+    shapes, steps = unchunked["shapes"], unchunked["steps"]
+    for row, ref in zip(rows, unchunked["rows"]):
+        loss_err = abs(row["loss"] - ref["loss"])
+        acc_err = abs(row["accuracy"] - ref["accuracy"])
+        print(f"[cli-chunked] round {row['round']}: chunk_rounds "
+              f"{row['chunk_rounds']}, eval_n {row['eval_n']}, loss "
+              f"|chunked-unchunked|={loss_err:.3e}, accuracy "
+              f"|chunked-unchunked|={acc_err:.3e}, time_s "
+              f"{row['time_s']:.4f}")
+        _require(loss_err, 1e-6, f"chunked round {row['round']} loss")
+        _require(acc_err, 1e-6, f"chunked round {row['round']} accuracy")
+        if (row["chunk_rounds"], row["eval_n"]) != (3, shapes["n_val"]):
+            raise AssertionError(f"chunked row {row}")
+        if row["rejected_updates"] != ref["rejected_updates"]:
+            raise AssertionError(f"chunked row {row} vs {ref}")
+    want = {"fwd": _batches(shapes["n_val"]) + CLI_ROUNDS + _batches(
+        shapes["n_test"]), "fwd_bnd": CLI_ROUNDS * steps,
+        "adj": CLI_ROUNDS * steps}
+    print(f"[cli-chunked] launches {launches} (expected {want}: the "
+          f"in-chunk evaluation is one Launch A per round at tb="
+          f"{shapes['n_val']})")
+    if launches != want or len(rows) != CLI_ROUNDS:
+        raise AssertionError(f"chunked run launched {launches}")
+    ckpts = sorted(p.name for p in (root / "smoke-chunked" /
+                                    "checkpoints").glob("*.npz"))
+    if ckpts != ["ckpt_000003.npz"]:
+        raise AssertionError(f"chunked checkpoints {ckpts}")
+    return {"launches": launches}
+
+
+def phase_cli_rate(root, unchunked: dict) -> dict:
+    """The round rate of the CLI run: the same argv for 1 + RATE_ROUNDS
+    rounds with ``--pipeline-depth 0 --rounds-per-call 1``, so each row's
+    ``time_s`` is one round from its dispatch to its stats on the host
+    (the evaluation and checkpoint come after); the first round is the
+    warm-up, and the rate is the other rounds' clients over their summed
+    times. Its first rounds must equal the pipelined run's."""
+    argv = list(CLI_ARGV)
+    argv[argv.index("--rounds") + 1] = str(1 + RATE_ROUNDS)
+    argv[argv.index("--checkpoint-every") + 1] = str(1 + RATE_ROUNDS)
+    argv += ["--rounds-per-call", "1", "--pipeline-depth", "0",
+             "--run-root", str(root), "--name", "smoke-rate"]
+    t0 = time.perf_counter()
+    _, launches, rounds = cli_train(argv, None)
+    wall = time.perf_counter() - t0
+    rows = _rows(root / "smoke-rate")
+    steps, clients = unchunked["steps"], unchunked["clients"]
+    want_round = {"fwd": 0, "fwd_bnd": steps, "adj": steps}
+    if [c for c, _ in rounds] != [want_round] * (1 + RATE_ROUNDS):
+        raise AssertionError(f"rate run's rounds launched {rounds}")
+    if len({b for _, b in rounds}) != 1:
+        raise AssertionError("the kernel library was built after round 1")
+    for row, ref in zip(rows, unchunked["rows"]):
+        _require(abs(row["loss"] - ref["loss"]), 1e-6,
+                 f"round {row['round']} loss at pipeline depth 0 vs 1")
+    times = [r["time_s"] for r in rows]
+    timed = sorted(times[1:])
+    rate = clients * len(timed) / sum(timed)
+    print(f"[cli-rate] {' '.join(argv)}: warm-up round {times[0]:.5f} s; "
+          f"{len(timed)} rounds (host clock, dispatch to stats, synchronous) "
+          f"sum {sum(timed):.5f} s, min {timed[0]:.5f} median "
+          f"{timed[len(timed) // 2]:.5f} max {timed[-1]:.5f} s per round, "
+          f"{rate:.4f} client-rounds/s; whole run {wall:.2f} s with data, "
+          "evaluation and checkpoints")
+    return {"times": times, "rate": rate, "launches": launches}
+
+
+def phase_cli_serve(root, run_dir) -> dict:
+    """``serve --run-dir`` (in-process) on the trained run: 64 requests
+    and one malformed line, answered in order; the logits against the CPU
+    port's ``model.apply`` on the restored checkpoint."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run import cli
+    from qfedx_tpu_torch.run.checkpoint import Checkpointer
+
+    x = np.random.default_rng(17).uniform(0, 1, (N_SERVE_REQUESTS, N_QUBITS))
+    x = x.astype(np.float32)
+    lines = [json.dumps({"id": f"q{i}", "features": v.tolist()})
+             for i, v in enumerate(x)]
+    lines.insert(10, "{malformed")
+    (root / "requests.jsonl").write_text("\n".join(lines) + "\n")
+    out = root / "responses.jsonl"
+    scan_body.reset_counts()
+    summary = cli.main(["serve", "--run-dir", str(run_dir), "--input",
+                        str(root / "requests.jsonl"), "--output", str(out)])
+    launches = dict(scan_body.launch_counts)
+    resp = [json.loads(line) for line in out.read_text().splitlines()]
+    want_ids = [f"q{i}" for i in range(N_SERVE_REQUESTS)]
+    want_ids.insert(10, 10)
+    if [r["id"] for r in resp] != want_ids:
+        raise AssertionError("responses out of order")
+    bad = [r for r in resp if "error" in r]
+    if len(bad) != 1 or bad[0]["code"] != 400 or bad[0]["id"] != 10:
+        raise AssertionError(f"error responses {bad}")
+    model = make_vqc_classifier(N_QUBITS, N_LAYERS, 2, device="cpu")
+    params, _ = Checkpointer(run_dir / "checkpoints").restore_latest(
+        model.init(0))
+    with torch.no_grad():
+        ref = model.apply(params, x).numpy()
+    got = np.array([r["logits"] for r in resp if "logits" in r])
+    err = float(np.abs(got - ref).max())
+    print(f"[cli-serve] {summary['served']} served, {summary['responses']} "
+          f"responses, rejected {summary['rejected']}, shed "
+          f"{summary['shed']}, batches {summary['batches']}, latency p50="
+          f"{summary['p50_ms']} ms p95={summary['p95_ms']} ms; logits "
+          f"max|card-cpu|={err:.3e} (atol {LOGIT_ATOL:g}); launches "
+          f"{launches}")
+    _require(err, LOGIT_ATOL, "served logits of the trained run vs cpu")
+    if launches["fwd"] < summary["batches"] or launches["fwd_bnd"] or \
+            launches["adj"]:
+        raise AssertionError(f"serving launched {launches}")
+    return {"launches": launches, "logit_err": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -854,50 +1325,72 @@ def main() -> int:
     phase_breakdown(device, served["engine"])
     trained = phase_train(device)
     train_times = phase_train_times(device, trained)
-    main_row = times[BUCKETS[-1]]
+    cli_shapes = expected_shapes(CLI_ARGV)
+    shapes = phase_trainer_shapes(device, cli_shapes["n_val"])
+    root = Path(tempfile.mkdtemp(prefix="qfedx-smoke-"))
+    try:
+        cli_run = phase_cli_train(root, cli_shapes)
+        chunked = phase_cli_chunked(root, cli_run)
+        rate = phase_cli_rate(root, cli_run)
+        cli_served = phase_cli_serve(root, cli_run["run"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     source = "qfedx_tpu_torch/ops/csrc/scan_body.cu"
     kernel = "qfedx_tpu/ops/pallas_body.py:401"
+    by_path = {
+        "serve": {"fwd": served["launches"], "fwd_bnd": 0, "adj": 0},
+        "train": trained["launches"],
+        "cli-train": cli_run["launches"],
+        "cli-chunked": chunked["launches"],
+        "cli-rate": rate["launches"],
+        "cli-serve": cli_served["launches"],
+    }
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")
+
+    def entry(name, launch, key, replaces, earlier, earlier_shape, tb):
+        # ms/plain_ms/bound_ms at the main path's shape (the CLI run's,
+        # tb); the other shapes held here and the earlier slices' stay
+        # under "shapes".
+        row = shapes["rows"][launch, tb]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": f"{kernel} via _run :491 from {replaces}",
+            "launches": cli_run["launches"][key],
+            "max_abs_err": max(shapes["worst"][launch],
+                               earlier["max_abs_err"], worst[launch]),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by")},
+            "library_ms": None,
+            "launches_by_path": {p: c[key] for p, c in by_path.items()},
+            "shapes": {**{f"tb={t}": {k: r[k] for k in keys}
+                          for (l, t), r in shapes["rows"].items()
+                          if l == launch},
+                       earlier_shape: {k: earlier[k] for k in keys
+                                       if k in earlier}},
+        }
+
     kernels = {"kernels": [
-        {
-            "name": "scan_body Launch A (forward)",
-            "route": "cuda",
-            "source": source,
-            "replaces": f"{kernel} via _run :491 from _pallas_scan :618",
-            "launches": served["launches"],
-            "max_abs_err": max([worst["A"]] + [r["max_abs_err"]
-                                               for r in times.values()]),
-            "ms": main_row["ms"],
-            "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"],
-            "library_ms": None,
-        },
-        {
-            "name": "scan_body Launch B (forward with boundaries)",
-            "route": "cuda",
-            "source": source,
-            "replaces": f"{kernel} via _run :491 from _pallas_scan_fwd :624",
-            "launches": trained["launches"]["fwd_bnd"],
-            "max_abs_err": max(worst["B"], train_times["B"]["max_abs_err"]),
-            **{k: train_times["B"][k]
-               for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            "library_ms": None,
-        },
-        {
-            "name": "scan_body Launch C (adjoint sweep)",
-            "route": "cuda",
-            "source": source,
-            "replaces": f"{kernel} via _run :491 from _pallas_scan_bwd :629",
-            "launches": trained["launches"]["adj"],
-            "max_abs_err": max(worst["C"], train_times["C"]["max_abs_err"]),
-            **{k: train_times["C"][k]
-               for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            "library_ms": None,
-        },
+        entry("scan_body Launch A (forward)", "A", "fwd", "_pallas_scan :618",
+              dict(times[BUCKETS[-1]], max_abs_err=max(
+                  r["max_abs_err"] for r in times.values())),
+              f"bucket {BUCKETS[-1]}", EVAL_BATCH),
+        entry("scan_body Launch B (forward with boundaries)", "B", "fwd_bnd",
+              "_pallas_scan_fwd :624", train_times["B"], "tb=32 G=2",
+              TRAIN_CLIENTS * TRAIN_BATCH),
+        entry("scan_body Launch C (adjoint sweep)", "C", "adj",
+              "_pallas_scan_bwd :629", train_times["C"], "tb=32 G=2",
+              TRAIN_CLIENTS * TRAIN_BATCH),
     ]}
     print(f"[summary] gradient max|kernel-plain| {grad_err:.3e}; trained "
           f"logits max|card-cpu| {trained['logit_err']:.3e}; round loss "
-          f"max|card-cpu| {trained['loss_err']:.3e}")
+          f"max|card-cpu| {trained['loss_err']:.3e}; CLI run theta "
+          f"max|card-cpu| {cli_run['theta_err']:.3e}; CLI round rate "
+          f"{rate['rate']:.4f} client-rounds/s; served logits of the "
+          "trained run "
+          f"max|card-cpu| {cli_served['logit_err']:.3e}")
     print(card_line())
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,11 @@ from qfedx_tpu_torch.serve.batcher import (
     RequestError,
     ShuttingDown,
 )
-from qfedx_tpu_torch.serve.engine import ServeConfig, ServeEngine
+from qfedx_tpu_torch.serve.engine import (
+    ServeConfig,
+    ServeEngine,
+    engine_from_run_dir,
+)
 from qfedx_tpu_torch.serve.forward import cached_routes, persistent_forward
 
 __all__ = [
@@ -19,5 +23,6 @@ __all__ = [
     "ServeEngine",
     "ShuttingDown",
     "cached_routes",
+    "engine_from_run_dir",
     "persistent_forward",
 ]

@@ -15,15 +15,22 @@ Counterpart of ``qfedx_tpu/serve/engine.py`` (``ServeConfig``,
 3. **Transient device errors retry** under the shared seeded-jitter
    policy (``utils/retry``), the device→host fetch inside the attempt.
 
-Not ported yet: the telemetry/flight/watch/tune/fault hooks, and
-``engine_from_run_dir`` with the ``serve`` CLI (they need the run
-config and checkpoint modules).
+``engine_from_run_dir`` restores a tracked run directory (its
+``config.json`` and newest last-good checkpoint, written by either
+package) into an engine; ``python -m qfedx_tpu_torch serve --run-dir``
+(``run/cli.py``) serves it.
+
+Not ported yet: the telemetry/flight/watch/tune/fault hooks (ROADMAP
+Queue 1 item 14).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -205,3 +212,82 @@ class ServeEngine:
         ez = np.exp(z)
         probs = ez / ez.sum(axis=-1, keepdims=True)
         return {"probs": probs, "pred": logits.argmax(axis=-1)}
+
+
+# -- checkpoint restore ------------------------------------------------------
+
+
+def infer_num_classes(cfg) -> int:
+    """num_classes implied by an ExperimentConfig without touching data:
+    an explicit class subset wins, else the dataset's full class count."""
+    from qfedx_tpu_torch.data.datasets import SPECS
+
+    if cfg.data.classes is not None:
+        return len(cfg.data.classes)
+    return SPECS[cfg.data.dataset].num_classes
+
+
+def feature_shape_for(cfg) -> tuple[int, ...]:
+    """Per-request feature shape implied by an ExperimentConfig, as
+    ``run/config.build_data`` shapes the features: one angle per qubit
+    for the angle-encoded VQC, the one model the port builds."""
+    m = cfg.model
+    if (m.model, m.encoding) != ("vqc", "angle"):
+        raise NotImplementedError(
+            f"model={m.model!r} with encoding={m.encoding!r} is not ported "
+            "yet (ROADMAP Queue 1 item 11); the port serves the angle VQC"
+        )
+    return (m.n_qubits,)
+
+
+def engine_from_run_dir(
+    run_dir: str | os.PathLike,
+    round_idx: int | None = None,
+    config: ServeConfig | None = None,
+    device=None,
+) -> tuple[ServeEngine, dict[str, Any]]:
+    """Restore a trained run into a ServeEngine on ``device`` (None = the
+    card): the model from the run's ``config.json``, the parameters from
+    checkpoint ``round_idx`` (or the newest last-good one). Returns the
+    engine and an info dict (restored round, model and run metadata)."""
+    from qfedx_tpu_torch.run.checkpoint import Checkpointer
+    from qfedx_tpu_torch.run.config import (
+        build_model,
+        experiment_config_from_dict,
+    )
+
+    pins.refuse_unported("Queue 1 item 14", "QFEDX_FAULTS", "QFEDX_TRACE",
+                         "QFEDX_FLIGHT", "QFEDX_WATCH", "QFEDX_TUNE")
+    run_dir = Path(run_dir)
+    cfg_path = run_dir / "config.json"
+    if not cfg_path.exists():
+        raise FileNotFoundError(
+            f"{cfg_path} not found — serve needs a tracked run directory "
+            "(one written by ExperimentRun / the train subcommand)"
+        )
+    exp = experiment_config_from_dict(json.loads(cfg_path.read_text()))
+    num_classes = infer_num_classes(exp)
+    model = build_model(exp, num_classes, device=device)
+    template = model.init(exp.seed)
+    ckpt = Checkpointer(run_dir / "checkpoints", every=1)
+    if round_idx is not None:
+        params = ckpt.restore(round_idx, template)
+        restored = round_idx
+    else:
+        got = ckpt.restore_latest(template)
+        if got is None:
+            raise FileNotFoundError(
+                f"no checkpoints under {run_dir / 'checkpoints'} — train "
+                "with --checkpoint-every, or pass --round to pick one"
+            )
+        params, restored = got
+    engine = ServeEngine(
+        model, params, feature_shape_for(exp), config=config, device=device
+    )
+    info = {
+        "round": restored,
+        "model": model.name,
+        "num_classes": num_classes,
+        "run_dir": str(run_dir),
+    }
+    return engine, info

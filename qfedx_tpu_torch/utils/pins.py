@@ -116,3 +116,34 @@ def choice_pin(name: str, choices: tuple[str, ...],
 def str_pin(name: str, default: str | None = None) -> str | None:
     """The raw string value of pin ``name`` (``default`` when unset)."""
     return os.environ.get(name, default)
+
+
+def depth_pin(name: str, default: int, on_value: int = 1) -> int:
+    """Integer-depth pin with the on/off grammar as a prefix: ``0``/``off``
+    → 0, ``1``/``on`` → ``on_value``, a bare integer → that depth,
+    anything else raises (QFEDX_PIPELINE)."""
+    env = os.environ.get(name)
+    if env is None:
+        return default
+    as_bool = parse_onoff(env)
+    if as_bool is not None:
+        return on_value if as_bool else 0
+    if env.isdigit():
+        return int(env)
+    raise ValueError(
+        f"{name}={env!r}: expected '0'/'off', '1'/'on' or an integer depth"
+    )
+
+
+def refuse_unported(item: str, *names: str) -> None:
+    """Raise NotImplementedError naming ROADMAP ``item`` when any of the
+    pins ``names`` is set to anything but empty, ``0`` or ``off``: the
+    reference reads them to switch on a path the port does not have yet,
+    and the port must not silently run without it."""
+    on = [n for n in names
+          if os.environ.get(n, "") and parse_onoff(os.environ[n]) is not False]
+    if on:
+        raise NotImplementedError(
+            f"{', '.join(on)} switch on a path that is not ported yet "
+            f"(ROADMAP {item})"
+        )

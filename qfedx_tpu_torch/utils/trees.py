@@ -53,3 +53,9 @@ def global_norm_sq(tree: Tree) -> torch.Tensor:
 def global_norm(tree: Tree) -> torch.Tensor:
     """ℓ2 norm across the whole tree."""
     return torch.sqrt(global_norm_sq(tree))
+
+
+def tree_bytes(tree: Tree) -> int:
+    """Total parameter bytes at each leaf's own dtype: the per-direction
+    wire volume of a federated round."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))

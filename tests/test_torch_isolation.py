@@ -43,5 +43,9 @@ def test_port_imports_no_jax_and_no_reference():
     # import would have raised above).
     for mod in ("ops.scan_body", "ops.fuse", "models.vqc", "serve.engine",
                 "serve.batcher", "utils.retry", "utils.trees", "fed.config",
-                "fed.sampling", "fed.client", "fed.round"):
+                "fed.sampling", "fed.client", "fed.round", "fed.evaluate",
+                "data.idx", "data._iris", "data.synthetic", "data.datasets",
+                "data.partition", "data.pipeline", "run.config",
+                "run.metrics", "run.checkpoint", "run.trainer", "run.cli",
+                "__main__"):
         assert f"qfedx_tpu_torch.{mod}" in report["modules"]
