@@ -76,16 +76,36 @@ Phases (any failure raises and exits non-zero):
    requests and one malformed line in order (one ``code: 400``), with
    logits within LOGIT_ATOL of the CPU port's ``model.apply`` on the
    restored checkpoint; print p50/p95;
-12. print one JSON line describing each launch of the kernel (launches
-   on the CLI run, and per path; max error; kernel-alone, plain and
-   bound at the CLI run's shape, and at the earlier slices' shapes);
-13. print the final ``{"ok": true, "device": {...}}`` line.
+12. the bf16 route (``QFEDX_DTYPE=bf16``; the kernel's bf16 instances):
+   ``[bf16-parity]`` holds Launches A, B and C in bf16 against the bf16
+   plain version (relative norm ≤ BF16_RTOL) on the cases of phase 3 plus the
+   trainer's tb = 128 (G = 4) and tb = 256, each line naming the
+   instance, K and shared memory; ``[bf16-grad]`` holds ``ScanBodyFn``'s
+   cotangents against plain autograd in bf16 (relative norm ≤
+   BF16_GRAD_RTOL); ``[bf16-serve]`` serves the 256 requests of phase 5
+   under the pin (logits against the CPU port in bf16, every launch A on
+   the bf16 instance, and the largest difference from the f32 logits);
+   ``[time] bf16`` lines time A at the buckets and tb = 256 and B and C
+   at tb = 128 beside the f32 kernel and the bound (2 B per element,
+   FLOP at the bf16 tensor-core rate);
+   ``[bf16-cli-train]`` runs CLI_ARGV under the pin on the card and the
+   CPU (6 B + 6 C per round and A only in evaluation, all on the bf16
+   instance, no build after round 1, losses within BF16_LOSS_ATOL, the final
+   accuracy within 0.12 of the f32 run's); ``[bf16-cli-serve]`` serves
+   that run's checkpoint;
+13. print one JSON line describing each launch of the kernel, f32 and
+   bf16 instances (launches on the CLI run, and per path; max error;
+   kernel-alone, plain and bound at the CLI run's shape, and at the
+   earlier slices' shapes);
+14. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -98,6 +118,18 @@ import torch
 
 KERNEL_ATOL = 1e-5  # kernel vs plain, f32: same products, other sum order
 GRAD_ATOL = 2e-5  # cotangents vs plain autograd (the reference's bound)
+# bf16 (QFEDX_DTYPE=bf16): the kernel and its plain version round at the
+# same points, but an f32 sum taken in another order can land on the other
+# side of a bf16 rounding, and that one-ulp step (2^-8 relative) travels
+# on through the sweep. A state is held by the relative norm of the
+# difference over every output of a launch: an amplitude's typical size
+# falls as 2^(-n/2), so an absolute bound fit for n = 12 would pass a zero
+# output at n = 18, while a zero or wrong-op output reads ~1 here at any
+# width. Logits and losses are O(0.1-1) at every width: absolute bounds.
+BF16_RTOL = 2e-2  # bf16 kernel vs bf16 plain, ||kernel-plain|| / ||plain||
+BF16_LOGIT_ATOL = 1e-3  # served logits card vs cpu, both bf16
+BF16_LOSS_ATOL = 1e-4  # per-round mean loss card vs cpu, both bf16
+BF16_GRAD_RTOL = 0.05  # bf16 cotangents vs plain autograd, relative norm
 LOGIT_ATOL = 2e-5  # served logits vs the CPU run (the reference's bound)
 LOSS_ATOL = 1e-5  # per-round mean loss, card vs the CPU port
 TRAINED_LOGIT_ATOL = 1e-4  # logits after 3 Adam rounds, card vs CPU
@@ -117,8 +149,10 @@ CLI_ARGV = ["train", "--model", "vqc", "--qubits", str(N_QUBITS), "--layers",
 CLI_ROUNDS = 3
 RATE_ROUNDS = 16  # timed rounds of [cli-rate], after one warm-up round
 N_SERVE_REQUESTS = 64
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
+# bf16 on the tensor cores (bf16 operands, f32 accumulation), HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -194,13 +228,17 @@ def hea_program(n: int, length: int, rx, rz):
     return fuse.fuse_ops_stacked(hea_scan_ops(n, rx, rz), n, length)
 
 
-def random_state(n: int, tb: int, device, seed: int):
+def random_state(n: int, tb: int, device, seed: int,
+                 dtype=torch.float32):
     from qfedx_tpu_torch.ops.cpx import CArray
 
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(tb, 1 << n)) + 1j * rng.normal(size=(tb, 1 << n))
     x /= np.linalg.norm(x, axis=1, keepdims=True)
-    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device).to(
+            dtype)
+
     return CArray(t(x.real), t(x.imag))
 
 
@@ -229,7 +267,8 @@ def sweep_work(spec, xs, with_boundaries: bool = False
     the op sequence (a glane/growmat counts only the branch each row or
     lane selects; gathers and CNOTs are free), and each input byte read
     once plus each output byte written once — with boundaries, the L
-    layer-entry states written too."""
+    layer-entry states written too. States and coefficients count at the
+    launch's element size (4 B in f32, 2 B in bf16)."""
     r = 1 << (spec.n - 7)
     size = r * 128
     per_layer = 0
@@ -244,8 +283,10 @@ def sweep_work(spec, xs, with_boundaries: bool = False
         elif op.kind == "rowpair":
             per_layer += 4 * mac * size
     flops = float(per_layer) * spec.length * spec.tb
-    state_bytes = 2 * spec.tb * size * 4
-    coeff_bytes = sum(p.numel() * 4 for c in xs for p in c if p is not None)
+    elem = 2 if spec.dtype == "bfloat16" else 4
+    state_bytes = 2 * spec.tb * size * elem
+    coeff_bytes = sum(p.numel() * elem for c in xs for p in c
+                      if p is not None)
     perm_bytes = sum(len(op.perm) * 4 for op in spec.ops if op.perm)
     bnd_bytes = spec.length * state_bytes if with_boundaries else 0
     return flops, float(2 * state_bytes + coeff_bytes + perm_bytes
@@ -253,8 +294,14 @@ def sweep_work(spec, xs, with_boundaries: bool = False
 
 
 def bound_ms(spec, xs, with_boundaries: bool = False) -> tuple[float, str]:
+    """The least time of the sweep on the card: its FLOP at the card's
+    peak for the operands' type (a bf16 launch's products are bf16
+    operands accumulated in f32, which the tensor cores do at the bf16
+    rate, whatever the instance runs them on) or its bytes at the HBM
+    rate, whichever is longer."""
     flops, nbytes = sweep_work(spec, xs, with_boundaries)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    peak = PEAK_BF16_FLOPS if spec.dtype == "bfloat16" else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -325,17 +372,20 @@ def phase_build() -> float:
               "dynamic shared memory in each [parity]/[time] line)")
     # The one-wave rule of ops/scan_body._launch_config rests on this
     # table: the card's resident clusters of K CTAs at the n=12 sizes.
-    spec = scan_body._KernelSpec(12, N_LAYERS, 1, True, (
-        scan_body._OpSpec("glane", (4,), True, 1, True, None),
-        scan_body._OpSpec("growmat", (11,), True, 1, True, None),
-    ))
-    for k, table in scan_body._RESIDENT.items():
-        cfg = scan_body.LaunchConfig("cluster", k, scan_body._cluster_smem(
-            spec, k))
-        got = scan_body.resident_clusters(cfg)
-        note = "" if got >= table else " — FEWER than the table: more waves"
-        print(f"[build] resident clusters of K={k} ({cfg.smem} B each): "
-              f"{got} on this card, {table} in _RESIDENT{note}")
+    # In bf16 the ring's units are half the bytes, so a CTA asks for less.
+    for dtype in ("float32", "bfloat16"):
+        spec = scan_body._KernelSpec(12, N_LAYERS, 1, True, (
+            scan_body._OpSpec("glane", (4,), True, 1, True, None),
+            scan_body._OpSpec("growmat", (11,), True, 1, True, None),
+        ), dtype)
+        for k, table in scan_body._RESIDENT.items():
+            cfg = scan_body.LaunchConfig("cluster", k, scan_body._cluster_smem(
+                spec, k), dtype)
+            got = scan_body.resident_clusters(cfg)
+            note = ("" if got >= table
+                    else " — FEWER than the table: more waves")
+            print(f"[build] {dtype} resident clusters of K={k} ({cfg.smem} B "
+                  f"each): {got} on this card, {table} in _RESIDENT{note}")
     return secs
 
 
@@ -390,10 +440,12 @@ def config_text(spec) -> str:
     from qfedx_tpu_torch.ops import scan_body
 
     cfg = scan_body._launch_config(spec)
+    dt = "" if cfg.dtype == "float32" else f" {cfg.dtype}"
     if cfg.instance == "global":
-        return f"instance global, {spec.tb} CTAs"
+        return f"instance global{dt}, {spec.tb} CTAs"
     resident = scan_body.resident_clusters(cfg)
-    return (f"instance cluster, K={cfg.cluster}, {spec.tb * cfg.cluster} "
+    return (f"instance cluster{dt}, K={cfg.cluster}, "
+            f"{spec.tb * cfg.cluster} "
             f"CTAs, {cfg.smem} B dynamic shared memory per CTA, "
             f"{resident} clusters resident at once "
             f"({-(-spec.tb // resident)} wave(s))")
@@ -408,51 +460,99 @@ def _require(err: float, atol: float, what: str) -> None:
         raise AssertionError(f"{what}: {err:.3e} > {atol:g}")
 
 
-def phase_kernel_parity(device) -> dict:
-    """Launches A, B and C against their plain versions; returns the
-    worst error of each."""
+def _rel_err(got, want) -> float:
+    """||got - want|| / ||want|| over every tensor of the two lists."""
+    num = sum(float((g.float() - w.float()).square().sum())
+              for g, w in zip(got, want))
+    den = sum(float(w.float().square().sum()) for w in want)
+    return math.sqrt(num / den)
+
+
+def _is_bf16(dtype) -> bool:
+    return dtype == torch.bfloat16
+
+
+def _tag(base: str, dtype) -> str:
+    return f"[bf16-{base}]" if _is_bf16(dtype) else f"[{base}]"
+
+
+def bf16_trainer_cases(device) -> list:
+    """The trainer's shapes, held in bf16 beside the seven programs and
+    the width/tb cases: the folded local step's tb = 128 (G = 4) and the
+    evaluator's tb = 256, on the all-kinds and the HEA programs."""
+    return [
+        ("all-kinds n=12 G=4", 12,
+         kinds_program(12, 3, TRAIN_CLIENTS, device, 41),
+         TRAIN_CLIENTS * TRAIN_BATCH),
+        ("hea n=12 L=3 G=4 (local step)", 12,
+         hea_grouped_program(TRAIN_CLIENTS, 42, device),
+         TRAIN_CLIENTS * TRAIN_BATCH),
+        ("all-kinds n=12 G=1", 12, kinds_program(12, 3, None, device, 43),
+         EVAL_BATCH),
+    ]
+
+
+def phase_kernel_parity(device, dtype=torch.float32) -> dict:
+    """Launches A, B and C against their plain versions, in ``dtype`` (in
+    bf16 also at the trainer's shapes): max abs error ≤ KERNEL_ATOL in
+    f32, relative norm ≤ BF16_RTOL in bf16. Returns the worst max abs
+    error of each launch (and in bf16 the worst relative norm, "rel")."""
     from qfedx_tpu_torch.ops import scan_body
 
+    bf = _is_bf16(dtype)
     worst = {"A": 0.0, "B": 0.0, "C": 0.0}
+    worst_rel = 0.0
     cases = [c + (8,) for c in parity_programs(device)]
     cases += width_and_tb_cases(device)
+    if _is_bf16(dtype):
+        cases += bf16_trainer_cases(device)
     instances = set()
     for i, (name, n, program, tb) in enumerate(cases):
         packed, spec, xs = kernel_inputs(
-            random_state(n, tb, device, seed=100 + i), n, program
+            random_state(n, tb, device, seed=100 + i, dtype=dtype), n,
+            program
         )
         instances.add(scan_body._launch_config(spec).instance)
         aspec = scan_body._adjoint_spec(spec)
         axs = scan_body._adjoint_xs(spec, xs)
-        cot = random_state(n, tb, device, seed=200 + i)
+        cot = random_state(n, tb, device, seed=200 + i, dtype=dtype)
         cot = torch.stack([cot.re, cot.im]).reshape(packed.shape)
         with torch.no_grad():
-            errs = {
-                "A": _max_err([scan_body.scan_body(packed, spec, xs)],
-                              [scan_body.scan_body_plain(packed, spec, xs)]),
-                "B": _max_err(
-                    scan_body.scan_body(packed, spec, xs,
-                                        with_boundaries=True),
-                    scan_body.scan_body_plain(packed, spec, xs, True)),
-                "C": _max_err(
-                    scan_body.scan_body(cot, aspec, axs,
-                                        with_boundaries=True, adjoint=True),
-                    scan_body.scan_body_plain(cot, aspec, axs, True)),
+            outs = {
+                "A": ([scan_body.scan_body(packed, spec, xs)],
+                      [scan_body.scan_body_plain(packed, spec, xs)]),
+                "B": (scan_body.scan_body(packed, spec, xs,
+                                          with_boundaries=True),
+                      scan_body.scan_body_plain(packed, spec, xs, True)),
+                "C": (scan_body.scan_body(cot, aspec, axs,
+                                          with_boundaries=True, adjoint=True),
+                      scan_body.scan_body_plain(cot, aspec, axs, True)),
             }
             torch.cuda.synchronize()
+        errs = {k: _max_err(*o) for k, o in outs.items()}
         kinds = ",".join(op.kind for op in spec.ops)
-        print(f"[parity] {name} tb={tb} ({config_text(spec)}) body=[{kinds}]"
-              f" max|kernel-plain|: "
-              f"A {errs['A']:.3e}, B (final+boundaries) {errs['B']:.3e}, "
-              f"C (adjoint+boundaries) {errs['C']:.3e} "
-              f"(atol {KERNEL_ATOL:g})")
-        for launch, err in errs.items():
-            _require(err, KERNEL_ATOL,
-                     f"Launch {launch} disagrees with plain on {name}")
-            worst[launch] = max(worst[launch], err)
+        line = (f"{_tag('parity', dtype)} {name} tb={tb} "
+                f"({config_text(spec)}) body=[{kinds}] max|kernel-plain|: "
+                f"A {errs['A']:.3e}, B (final+boundaries) {errs['B']:.3e}, "
+                f"C (adjoint+boundaries) {errs['C']:.3e}")
+        if bf:
+            rels = {k: _rel_err(*o) for k, o in outs.items()}
+            peak = float(outs["A"][1][0].abs().max())
+            print(f"{line}; max|plain| {peak:.3e}; ||kernel-plain||/||plain||"
+                  f": A {rels['A']:.3e}, B {rels['B']:.3e}, C "
+                  f"{rels['C']:.3e} (rtol {BF16_RTOL:g})")
+        else:
+            rels = errs
+            print(f"{line} (atol {KERNEL_ATOL:g})")
+        for launch, err in rels.items():
+            _require(err, BF16_RTOL if bf else KERNEL_ATOL,
+                     f"{spec.dtype} Launch {launch} disagrees with plain on "
+                     f"{name} at tb={tb}")
+            worst[launch] = max(worst[launch], errs[launch])
+            worst_rel = max(worst_rel, rels[launch])
     if instances != {"cluster", "global"}:
         raise AssertionError(f"parity cases ran instances {instances}")
-    return worst
+    return dict(worst, rel=worst_rel) if bf else worst
 
 
 def _cotangents(spec, packed, xs, w, through: str) -> list:
@@ -471,33 +571,51 @@ def _cotangents(spec, packed, xs, w, through: str) -> list:
     return list(torch.autograd.grad((w * out**2).sum(), [state] + flat))
 
 
-def phase_grad_parity(device) -> float:
+def phase_grad_parity(device, dtype=torch.float32) -> float:
+    """``ScanBodyFn``'s cotangents against plain autograd on the seven
+    programs: max abs error in f32 (≤ GRAD_ATOL), relative norm in bf16
+    (≤ BF16_GRAD_RTOL; the cotangent fed to Launch C is bf16 there)."""
     from qfedx_tpu_torch.ops import scan_body
 
+    bf = _is_bf16(dtype)
     worst = 0.0
     for i, (name, n, program) in enumerate(parity_programs(device)):
         packed, spec, xs = kernel_inputs(
-            random_state(n, 8, device, seed=300 + i), n, program
+            random_state(n, 8, device, seed=300 + i, dtype=dtype), n, program
         )
         w = torch.as_tensor(
             np.random.default_rng(400 + i).normal(size=tuple(packed.shape)),
             dtype=torch.float32, device=device,
         )
         before = dict(scan_body.launch_counts)
+        before_dt = dict(scan_body.dtype_counts)
         got = _cotangents(spec, packed, xs, w, "kernel")
         launched = {k: scan_body.launch_counts[k] - before[k]
                     for k in before}
+        by_dtype = {k: scan_body.dtype_counts[k] - before_dt[k]
+                    for k in before_dt}
         want = _cotangents(spec, packed, xs, w, "plain")
         torch.cuda.synchronize()
-        err_state = float((got[0] - want[0]).abs().max())
-        err_coeff = _max_err(got[1:], want[1:])
-        print(f"[grad] {name} tb=8: max|kernel-plain| state cotangent "
-              f"{err_state:.3e}, coefficient cotangents {err_coeff:.3e} "
-              f"(atol {GRAD_ATOL:g}), launches {launched}")
+        if bf:
+            err_state = _rel_err(got[:1], want[:1])
+            err_coeff = _rel_err(got[1:], want[1:])
+            what = f"relative norm, rtol {BF16_GRAD_RTOL:g}"
+        else:
+            err_state = float((got[0] - want[0]).abs().max())
+            err_coeff = _max_err(got[1:], want[1:])
+            what = f"atol {GRAD_ATOL:g}"
+        print(f"{_tag('grad', dtype)} {name} tb=8: |kernel-plain| state "
+              f"cotangent {err_state:.3e}, coefficient cotangents "
+              f"{err_coeff:.3e} ({what}), launches {launched}"
+              + (f", by dtype {by_dtype}" if bf else ""))
         if launched != {"fwd": 0, "fwd_bnd": 1, "adj": 1}:
             raise AssertionError(f"ScanBodyFn on {name} launched {launched}")
-        _require(max(err_state, err_coeff), GRAD_ATOL,
-                 f"kernel gradients disagree with plain autograd on {name}")
+        if by_dtype[spec.dtype] != 2:
+            raise AssertionError(f"ScanBodyFn on {name} ran {by_dtype}")
+        _require(max(err_state, err_coeff),
+                 BF16_GRAD_RTOL if bf else GRAD_ATOL,
+                 f"{spec.dtype} kernel gradients disagree with plain "
+                 f"autograd on {name}")
         worst = max(worst, err_state, err_coeff)
     return worst
 
@@ -566,7 +684,9 @@ def phase_serve(device) -> dict:
     if not err <= LOGIT_ATOL:
         raise AssertionError(f"served logits disagree with the CPU run: "
                              f"{err:.3e}")
-    return {"launches": launches, "engine": engine, "logit_err": err}
+    return {"launches": launches, "engine": engine, "logit_err": err,
+            "logits": logits, "p50": float(np.percentile(lat_ms, 50)),
+            "p95": float(np.percentile(lat_ms, 95))}
 
 
 def phase_times(device, engine) -> dict:
@@ -1063,10 +1183,11 @@ class _RoundCounts:
         self.trainer.make_fed_round = self.orig
 
 
-def cli_train(argv, device) -> tuple[dict, dict, list]:
+def cli_train(argv, device) -> tuple[dict, dict, list, dict]:
     """``run.cli.main(argv)`` in this process on ``device`` (None = the
     card) with the launch counters set to 0 just before; returns the
-    summary, the launches read just after, and each round's launches."""
+    summary, the launches read just after, each round's launches, and the
+    launches by instance dtype."""
     from qfedx_tpu_torch.ops import scan_body
     from qfedx_tpu_torch.run import cli
 
@@ -1074,7 +1195,8 @@ def cli_train(argv, device) -> tuple[dict, dict, list]:
         scan_body.reset_counts()
         summary = cli.main(argv, device=device)
         launches = dict(scan_body.launch_counts)
-    return summary, launches, rc.rounds
+        by_dtype = dict(scan_body.dtype_counts)
+    return summary, launches, rc.rounds, by_dtype
 
 
 def expected_shapes(argv) -> dict:
@@ -1106,12 +1228,13 @@ def phase_cli_train(root, shapes: dict) -> dict:
 
     argv = CLI_ARGV + ["--run-root", str(root), "--name", "smoke"]
     t0 = time.perf_counter()
-    summary, launches, rounds = cli_train(argv, None)
+    summary, launches, rounds, _ = cli_train(argv, None)
     wall = time.perf_counter() - t0
     run = root / "smoke"
     t0 = time.perf_counter()
-    cpu_summary, _, _ = cli_train(CLI_ARGV + ["--run-root", str(root / "cpu"),
-                                              "--name", "smoke"], "cpu")
+    cpu_summary, _, _, _ = cli_train(
+        CLI_ARGV + ["--run-root", str(root / "cpu"), "--name", "smoke"],
+        "cpu")
     cpu_wall = time.perf_counter() - t0
     cpu_run = root / "cpu" / "smoke"
     print(f"[cli-train] {' '.join(argv)}: card {wall:.2f} s, cpu "
@@ -1178,7 +1301,7 @@ def phase_cli_train(root, shapes: dict) -> dict:
           "rate; [cli-rate] measures it)")
     return {"run": run, "rows": rows, "launches": launches, "times": times,
             "clients": shapes["clients"], "steps": steps,
-            "theta_err": theta_err, "shapes": shapes}
+            "theta_err": theta_err, "shapes": shapes, "summary": summary}
 
 
 def phase_cli_chunked(root, unchunked: dict) -> dict:
@@ -1189,7 +1312,7 @@ def phase_cli_chunked(root, unchunked: dict) -> dict:
     argv = CLI_ARGV[:-2] + ["--checkpoint-every", "3", "--rounds-per-call",
                             "3", "--run-root", str(root), "--name",
                             "smoke-chunked"]
-    _, launches, rounds = cli_train(argv, None)
+    _, launches, rounds, _ = cli_train(argv, None)
     rows = _rows(root / "smoke-chunked")
     shapes, steps = unchunked["shapes"], unchunked["steps"]
     for row, ref in zip(rows, unchunked["rows"]):
@@ -1234,7 +1357,7 @@ def phase_cli_rate(root, unchunked: dict) -> dict:
     argv += ["--rounds-per-call", "1", "--pipeline-depth", "0",
              "--run-root", str(root), "--name", "smoke-rate"]
     t0 = time.perf_counter()
-    _, launches, rounds = cli_train(argv, None)
+    _, launches, rounds, _ = cli_train(argv, None)
     wall = time.perf_counter() - t0
     rows = _rows(root / "smoke-rate")
     steps, clients = unchunked["steps"], unchunked["clients"]
@@ -1258,10 +1381,11 @@ def phase_cli_rate(root, unchunked: dict) -> dict:
     return {"times": times, "rate": rate, "launches": launches}
 
 
-def phase_cli_serve(root, run_dir) -> dict:
+def phase_cli_serve(root, run_dir, dtype=torch.float32) -> dict:
     """``serve --run-dir`` (in-process) on the trained run: 64 requests
     and one malformed line, answered in order; the logits against the CPU
-    port's ``model.apply`` on the restored checkpoint."""
+    port's ``model.apply`` on the restored checkpoint (in bf16 under the
+    pin, which the caller sets: every launch on the bf16 instance)."""
     from qfedx_tpu_torch.models.vqc import make_vqc_classifier
     from qfedx_tpu_torch.ops import scan_body
     from qfedx_tpu_torch.run import cli
@@ -1278,6 +1402,7 @@ def phase_cli_serve(root, run_dir) -> dict:
     summary = cli.main(["serve", "--run-dir", str(run_dir), "--input",
                         str(root / "requests.jsonl"), "--output", str(out)])
     launches = dict(scan_body.launch_counts)
+    by_dtype = dict(scan_body.dtype_counts)
     resp = [json.loads(line) for line in out.read_text().splitlines()]
     want_ids = [f"q{i}" for i in range(N_SERVE_REQUESTS)]
     want_ids.insert(10, 10)
@@ -1293,17 +1418,272 @@ def phase_cli_serve(root, run_dir) -> dict:
         ref = model.apply(params, x).numpy()
     got = np.array([r["logits"] for r in resp if "logits" in r])
     err = float(np.abs(got - ref).max())
-    print(f"[cli-serve] {summary['served']} served, {summary['responses']} "
+    atol = BF16_LOGIT_ATOL if _is_bf16(dtype) else LOGIT_ATOL
+    print(f"{_tag('cli-serve', dtype)} {summary['served']} served, "
+          f"{summary['responses']} "
           f"responses, rejected {summary['rejected']}, shed "
           f"{summary['shed']}, batches {summary['batches']}, latency p50="
           f"{summary['p50_ms']} ms p95={summary['p95_ms']} ms; logits "
-          f"max|card-cpu|={err:.3e} (atol {LOGIT_ATOL:g}); launches "
-          f"{launches}")
-    _require(err, LOGIT_ATOL, "served logits of the trained run vs cpu")
+          f"max|card-cpu|={err:.3e} (atol {atol:g}); launches "
+          f"{launches}, by dtype {by_dtype}")
+    _require(err, atol, "served logits of the trained run vs cpu")
     if launches["fwd"] < summary["batches"] or launches["fwd_bnd"] or \
             launches["adj"]:
         raise AssertionError(f"serving launched {launches}")
-    return {"launches": launches, "logit_err": err}
+    want_dt = "bfloat16" if _is_bf16(dtype) else "float32"
+    if by_dtype[want_dt] != launches["fwd"]:
+        raise AssertionError(f"serving ran instances {by_dtype}")
+    return {"launches": launches, "logit_err": err,
+            "p50": summary["p50_ms"], "p95": summary["p95_ms"]}
+
+
+# --- bf16 states (QFEDX_DTYPE=bf16) ------------------------------------------
+
+
+@contextlib.contextmanager
+def bf16_pin():
+    """``QFEDX_DTYPE=bf16`` for the block (the port reads the pin at every
+    call), restored after."""
+    before = os.environ.get("QFEDX_DTYPE")
+    os.environ["QFEDX_DTYPE"] = "bf16"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("QFEDX_DTYPE", None)
+        else:
+            os.environ["QFEDX_DTYPE"] = before
+
+
+def phase_bf16_serve(device, f32_served: dict) -> dict:
+    """``[bf16-serve]``: the served slice of ``phase_serve`` (same weights,
+    the same 256 requests in the same waves) under the pin: every launch
+    Launch A on the bf16 instance, no build after warmup, logits within
+    BF16_LOGIT_ATOL of the same port on the CPU in bf16; prints the largest
+    difference from the card's f32 logits."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.serve import MicroBatcher, ServeConfig, ServeEngine
+
+    with bf16_pin():
+        model = make_vqc_classifier(N_QUBITS, N_LAYERS, N_CLASSES,
+                                    init_scale=1.0)
+        params = model.init(0)
+        engine = ServeEngine(
+            model, params, (N_QUBITS,),
+            config=ServeConfig(buckets=BUCKETS, deadline_ms=2.0,
+                               max_queue=512),
+        )
+        warm = engine.warmup()
+        if warm["route_resolved"]["dtype"] != "bfloat16":
+            raise AssertionError(f"bf16 warmup resolved {warm}")
+        builds_after_warmup = scan_body.build_count
+        x = np.random.default_rng(11).uniform(0, 1, (N_REQUESTS, N_QUBITS))
+        x = x.astype(np.float32)
+        scan_body.reset_counts()
+        batcher = MicroBatcher(engine).start()
+        futures = []
+        for lo, hi in ((0, 1), (1, 6), (6, N_REQUESTS)):
+            wave = [batcher.submit(x[i]) for i in range(lo, hi)]
+            for f in wave:
+                f.result(timeout=60)
+            futures += wave
+        batcher.close(drain=True)
+        launches = dict(scan_body.launch_counts)
+        by_dtype = dict(scan_body.dtype_counts)
+        builds = scan_body.build_count - builds_after_warmup
+        logits = np.stack([f.result()["logits"] for f in futures])
+        lat_ms = np.array([(f.done_t - f.submit_t) * 1e3 for f in futures])
+        cpu_model = make_vqc_classifier(N_QUBITS, N_LAYERS, N_CLASSES,
+                                        init_scale=1.0, device="cpu")
+        cpu_params = {g: {k: v.cpu() for k, v in d.items()}
+                      for g, d in params.items()}
+        with torch.no_grad():
+            ref = cpu_model.apply(cpu_params, x).numpy()
+    err = float(np.abs(logits - ref).max())
+    f32_diff = float(np.abs(logits - f32_served["logits"]).max())
+    p50, p95 = np.percentile(lat_ms, 50), np.percentile(lat_ms, 95)
+    print(f"[bf16-serve] {N_REQUESTS} requests, batches="
+          f"{batcher.stats['batches']}, launches {launches}, by dtype "
+          f"{by_dtype}, builds after warmup={builds}; latency p50={p50:.4f} "
+          f"ms p95={p95:.4f} ms (f32 run: p50={f32_served['p50']:.4f} ms "
+          f"p95={f32_served['p95']:.4f} ms)")
+    print(f"[bf16-serve] logits max|card-cpu| (both bf16)={err:.3e} (atol "
+          f"{BF16_LOGIT_ATOL:g}); max|card bf16 - card f32|={f32_diff:.3e} "
+          f"(the reference's bf16-vs-f32 bound on <Z> is 3e-2)")
+    total = sum(launches.values())
+    if total < batcher.stats["batches"] or launches["fwd"] != total:
+        raise AssertionError(f"bf16 serving launched {launches}")
+    if by_dtype != {"float32": 0, "bfloat16": total}:
+        raise AssertionError(f"bf16 serving ran instances {by_dtype}")
+    if builds:
+        raise AssertionError("the kernel library was built after warmup")
+    if logits.shape != (N_REQUESTS, N_CLASSES) or not np.isfinite(
+            logits).all():
+        raise AssertionError(f"bad bf16 logits: shape {logits.shape}")
+    _require(err, BF16_LOGIT_ATOL, "bf16 served logits, card vs cpu")
+    return {"launches": launches["fwd"], "logit_err": err,
+            "f32_diff": f32_diff, "params": params}
+
+
+def phase_bf16_times(device, params, f32_times: dict, f32_rows: dict
+                     ) -> dict:
+    """``[time]`` in bf16: Launch A at each bucket's served inputs and at
+    the evaluator's tb = 256, Launches B and C at the local step's
+    tb = 128 (G = 4) — kernel alone, wrapper call, plain version and the
+    bound (2 B per element, FLOP at the bf16 tensor-core rate) — each
+    beside the f32 kernel's time at the
+    same shape (from the f32 phases of this run)."""
+    from qfedx_tpu_torch.circuits.encoders import angle_amplitudes
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.ops.batched import bstate_product_tree
+
+    rows = {}
+    with bf16_pin(), torch.no_grad():
+        program = hea_program(N_QUBITS, N_LAYERS, params["ansatz"]["rx"],
+                              params["ansatz"]["rz"])
+        for b in BUCKETS:
+            x = torch.as_tensor(
+                np.random.default_rng(b).uniform(0, 1, (b, N_QUBITS)),
+                dtype=torch.float32, device=device,
+            )
+            state = bstate_product_tree(angle_amplitudes(x * math.pi))
+            packed, spec, xs = kernel_inputs(state, N_QUBITS, program)
+            require_cluster(spec, f"the bf16 served sweep at bucket {b}")
+            if spec.dtype != "bfloat16":
+                raise AssertionError(f"bucket {b} sweep is {spec.dtype}")
+            got = [scan_body.scan_body(packed, spec, xs)]
+            want = [scan_body.scan_body_plain(packed, spec, xs)]
+            err, rel = _max_err(got, want), _rel_err(got, want)
+            _require(rel, BF16_RTOL, f"bf16 kernel vs plain at bucket {b}")
+            ms = kernel_only_ms(packed, spec, xs)
+            call = event_ms(lambda: scan_body.scan_body(packed, spec, xs))
+            plain = event_ms(
+                lambda: scan_body.scan_body_plain(packed, spec, xs), iters=20)
+            bms, by = bound_ms(spec, xs)
+            flops, nbytes = sweep_work(spec, xs)
+            rows["A", f"bucket {b}"] = {
+                "ms": ms, "call_ms": call, "plain_ms": plain,
+                "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+            print(f"[time] bf16 bucket {b}: max|kernel-plain|={err:.3e}, "
+                  f"||kernel-plain||/||plain||={rel:.3e} (rtol "
+                  f"{BF16_RTOL:g}), "
+                  f"kernel alone {ms:.5f} ms (f32 {f32_times[b]['ms']:.5f} "
+                  f"ms), wrapper call {call:.5f} ms, plain {plain:.5f} ms, "
+                  f"bound {bms:.5f} ms ({by}; {flops:.4g} FLOP, {nbytes:.4g}"
+                  f" B), {config_text(spec)}")
+        rng = np.random.default_rng(31)
+        rx, rz = (torch.as_tensor(rng.uniform(-2, 2, (N_LAYERS, N_QUBITS)),
+                                  dtype=torch.float32, device=device)
+                  for _ in range(2))
+        cases = [("hea n=12 L=3 G=1 (evaluator)",
+                  hea_program(N_QUBITS, N_LAYERS, rx, rz), EVAL_BATCH, "A"),
+                 ("hea n=12 L=3 G=4 (local step)",
+                  hea_grouped_program(TRAIN_CLIENTS, 32, device),
+                  TRAIN_CLIENTS * TRAIN_BATCH, "BC")]
+        for i, (name, prog, tb, launches) in enumerate(cases):
+            packed, spec, xs = kernel_inputs(
+                random_state(N_QUBITS, tb, device, seed=800 + i,
+                             dtype=torch.bfloat16), N_QUBITS, prog)
+            require_cluster(spec, f"bf16 {name}")
+            aspec = scan_body._adjoint_spec(spec)
+            axs = scan_body._adjoint_xs(spec, xs)
+            cot = random_state(N_QUBITS, tb, device, seed=900 + i,
+                               dtype=torch.bfloat16)
+            cot = torch.stack([cot.re, cot.im]).reshape(packed.shape)
+            errs = {}
+            for launch in launches:
+                bnd = launch != "A"
+                st, sp, x_ = (cot, aspec, axs) if launch == "C" else (
+                    packed, spec, xs)
+                got = scan_body.scan_body(st, sp, x_, with_boundaries=bnd,
+                                          adjoint=launch == "C")
+                want = scan_body.scan_body_plain(st, sp, x_, bnd)
+                got, want = (got, want) if bnd else ([got], [want])
+                errs[launch] = _max_err(got, want)
+                rel = _rel_err(got, want)
+                print(f"[time] bf16 Launch {launch} at {name}: "
+                      f"||kernel-plain||/||plain||={rel:.3e} (rtol "
+                      f"{BF16_RTOL:g})")
+                _require(rel, BF16_RTOL,
+                         f"bf16 Launch {launch} vs plain at {name}")
+            timed = time_launches(f"bf16 {name}", packed, spec, xs, cot,
+                                  aspec, axs, errs, launches)
+            for (launch, t), row in timed.items():
+                f32_ms = f32_rows[launch, t]["ms"]
+                print(f"[time] bf16 Launch {launch} at tb={t}: kernel alone "
+                      f"{row['ms']:.5f} ms vs f32 {f32_ms:.5f} ms "
+                      f"(bf16/f32 = {row['ms'] / f32_ms:.3f}), bound "
+                      f"{row['bound_ms']:.5f} ms vs f32 "
+                      f"{f32_rows[launch, t]['bound_ms']:.5f} ms (bf16 "
+                      f"kernel/bound = {row['ms'] / row['bound_ms']:.1f})")
+                rows[launch, f"tb={t}"] = row
+    return rows
+
+
+def phase_bf16_cli_train(root, shapes: dict, f32_run: dict) -> dict:
+    """``[bf16-cli-train]``: CLI_ARGV under the pin on the card and on the
+    CPU: each round exactly E·S_pad/B Launch-B and as many Launch-C
+    launches, Launch A only from evaluation, every launch on the bf16
+    instance, no build after round 1; per-round loss card vs CPU within
+    BF16_LOSS_ATOL; the final accuracy within the reference's convergence band
+    (``tests/test_bf16.py::test_convergence_parity_bf16``: 0.12 on an
+    accelerator) of the same run in f32 (``[cli-train]``)."""
+    from qfedx_tpu_torch.ops import scan_body
+
+    argv = CLI_ARGV + ["--run-root", str(root), "--name", "smoke-bf16"]
+    with bf16_pin():
+        t0 = time.perf_counter()
+        summary, launches, rounds, by_dtype = cli_train(argv, None)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_summary, _, _, _ = cli_train(
+            CLI_ARGV + ["--run-root", str(root / "cpu"), "--name",
+                        "smoke-bf16"], "cpu")
+        cpu_wall = time.perf_counter() - t0
+    run = root / "smoke-bf16"
+    rows, cpu_rows = _rows(run), _rows(root / "cpu" / "smoke-bf16")
+    print(f"[bf16-cli-train] QFEDX_DTYPE=bf16 {' '.join(argv)}: card "
+          f"{wall:.2f} s, cpu {cpu_wall:.2f} s (host clock, in-process)")
+    if [r["round"] for r in rows] != list(range(1, CLI_ROUNDS + 1)):
+        raise AssertionError(f"bf16 metrics.jsonl rounds {rows}")
+    for row, cpu, f32 in zip(rows, cpu_rows, f32_run["rows"]):
+        loss_err = abs(row["loss"] - cpu["loss"])
+        print(f"[bf16-cli-train] round {row['round']}: loss card "
+              f"{row['loss']!r} cpu {cpu['loss']!r} |err|={loss_err:.3e} "
+              f"(atol {BF16_LOSS_ATOL:g}), f32 card {f32['loss']!r}; accuracy "
+              f"card {row['accuracy']!r} cpu {cpu['accuracy']!r} f32 card "
+              f"{f32['accuracy']!r} (n={row['n']}); time_s "
+              f"{row['time_s']:.4f}")
+        _require(loss_err, BF16_LOSS_ATOL,
+                 f"bf16 round {row['round']} loss")
+    steps = shapes["steps"]
+    want_round = {"fwd": 0, "fwd_bnd": steps, "adj": steps}
+    evals = _batches(shapes["n_val"]) * (1 + CLI_ROUNDS) + _batches(
+        shapes["n_test"])
+    want = {"fwd": evals, "fwd_bnd": CLI_ROUNDS * steps,
+            "adj": CLI_ROUNDS * steps}
+    print(f"[bf16-cli-train] launches {launches} (expected {want}), by "
+          f"dtype {by_dtype}; per round {[c for c, _ in rounds]}; builds "
+          f"after each round {[b for _, b in rounds]}")
+    if [c for c, _ in rounds] != [want_round] * CLI_ROUNDS:
+        raise AssertionError(f"bf16 rounds launched {rounds}")
+    if launches != want:
+        raise AssertionError(f"the bf16 run launched {launches}")
+    if by_dtype != {"float32": 0, "bfloat16": sum(want.values())}:
+        raise AssertionError(f"the bf16 run ran instances {by_dtype}")
+    if len({b for _, b in rounds}) != 1 or scan_body.build_count != rounds[
+            0][1]:
+        raise AssertionError("the kernel library was built after round 1")
+    acc, acc_f32 = summary["final_accuracy"], f32_run["summary"][
+        "final_accuracy"]
+    print(f"[bf16-cli-train] final accuracy bf16 {acc!r} (cpu bf16 "
+          f"{cpu_summary['final_accuracy']!r}), f32 {acc_f32!r}: band "
+          "bf16 >= f32 - 0.12")
+    if not acc >= acc_f32 - 0.12:
+        raise AssertionError(f"bf16 final accuracy {acc} below the f32 "
+                             f"run's {acc_f32} - 0.12")
+    return {"run": run, "launches": launches}
 
 
 def main() -> int:
@@ -1327,12 +1707,21 @@ def main() -> int:
     train_times = phase_train_times(device, trained)
     cli_shapes = expected_shapes(CLI_ARGV)
     shapes = phase_trainer_shapes(device, cli_shapes["n_val"])
+    bf16 = torch.bfloat16
+    bf16_worst = phase_kernel_parity(device, bf16)
+    bf16_grad_err = phase_grad_parity(device, bf16)
+    bf16_served = phase_bf16_serve(device, served)
+    bf16_times = phase_bf16_times(device, bf16_served["params"], times,
+                                  shapes["rows"])
     root = Path(tempfile.mkdtemp(prefix="qfedx-smoke-"))
     try:
         cli_run = phase_cli_train(root, cli_shapes)
         chunked = phase_cli_chunked(root, cli_run)
         rate = phase_cli_rate(root, cli_run)
         cli_served = phase_cli_serve(root, cli_run["run"])
+        bf16_cli = phase_bf16_cli_train(root, cli_shapes, cli_run)
+        with bf16_pin():
+            bf16_cli_served = phase_cli_serve(root, bf16_cli["run"], bf16)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     source = "qfedx_tpu_torch/ops/csrc/scan_body.cu"
@@ -1372,6 +1761,35 @@ def main() -> int:
                                        if k in earlier}},
         }
 
+    bf16_paths = {
+        "bf16-serve": {"fwd": bf16_served["launches"], "fwd_bnd": 0,
+                       "adj": 0},
+        "bf16-cli-train": bf16_cli["launches"],
+        "bf16-cli-serve": bf16_cli_served["launches"],
+    }
+
+    def bf16_entry(name, launch, key, replaces, tb):
+        # The bf16 instance at the bf16 CLI run's shape; the buckets'
+        # served shapes under "shapes".
+        row = bf16_times[launch, f"tb={tb}"]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": f"{kernel} via _run :491 from {replaces} "
+                        "(its bf16 instance: _run :498, _emit :279-282)",
+            "launches": bf16_cli["launches"][key],
+            "max_abs_err": max(bf16_worst[launch],
+                               *(r["max_abs_err"] for (lk, _), r in
+                                 bf16_times.items() if lk == launch)),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by")},
+            "library_ms": None,
+            "launches_by_path": {p: c[key] for p, c in bf16_paths.items()},
+            "shapes": {s: {k: r[k] for k in keys}
+                       for (lk, s), r in bf16_times.items() if lk == launch},
+        }
+
     kernels = {"kernels": [
         entry("scan_body Launch A (forward)", "A", "fwd", "_pallas_scan :618",
               dict(times[BUCKETS[-1]], max_abs_err=max(
@@ -1383,6 +1801,13 @@ def main() -> int:
         entry("scan_body Launch C (adjoint sweep)", "C", "adj",
               "_pallas_scan_bwd :629", train_times["C"], "tb=32 G=2",
               TRAIN_CLIENTS * TRAIN_BATCH),
+        bf16_entry("scan_body Launch A bf16 (forward)", "A", "fwd",
+                   "_pallas_scan :618", EVAL_BATCH),
+        bf16_entry("scan_body Launch B bf16 (forward with boundaries)", "B",
+                   "fwd_bnd", "_pallas_scan_fwd :624",
+                   TRAIN_CLIENTS * TRAIN_BATCH),
+        bf16_entry("scan_body Launch C bf16 (adjoint sweep)", "C", "adj",
+                   "_pallas_scan_bwd :629", TRAIN_CLIENTS * TRAIN_BATCH),
     ]}
     print(f"[summary] gradient max|kernel-plain| {grad_err:.3e}; trained "
           f"logits max|card-cpu| {trained['logit_err']:.3e}; round loss "
@@ -1391,6 +1816,14 @@ def main() -> int:
           f"{rate['rate']:.4f} client-rounds/s; served logits of the "
           "trained run "
           f"max|card-cpu| {cli_served['logit_err']:.3e}")
+    print(f"[summary] bf16: kernel max|kernel-plain| A "
+          f"{bf16_worst['A']:.3e} B {bf16_worst['B']:.3e} C "
+          f"{bf16_worst['C']:.3e} (relative norm {bf16_worst['rel']:.3e});"
+          f" gradient relative norm "
+          f"{bf16_grad_err:.3e}; served logits max|card-cpu| "
+          f"{bf16_served['logit_err']:.3e} (vs the f32 logits "
+          f"{bf16_served['f32_diff']:.3e}); trained run served "
+          f"max|card-cpu| {bf16_cli_served['logit_err']:.3e}")
     print(card_line())
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Complex arithmetic as real (re, im) float32 pairs.
+"""Complex arithmetic as real (re, im) float pairs.
 
 Counterpart of ``qfedx_tpu/ops/cpx.py``. A statevector is a ``CArray``:
 a NamedTuple of two real tensors with the reference's layouts
@@ -7,8 +7,11 @@ multiplies real matrices, so the pair form is what it consumes; and
 ``im=None`` marks a known-real value (RY rotations, CNOTs, the
 angle-encoded product state) whose cross terms every op skips.
 
-Only f32 states are in scope for the port: ``QFEDX_DTYPE=bf16`` raises
-``NotImplementedError`` instead of silently running f32.
+States are f32 by default; ``QFEDX_DTYPE=bf16`` (or ``bfloat16``) makes
+them bf16 — the reference's bf16-state / f32-accumulate recipe: gate
+coefficients and parameters stay f32 (``RDTYPE``) and are cast where
+they are applied, every product accumulates in f32 and rounds to bf16,
+and readout reductions take the state to f32 first.
 """
 
 from __future__ import annotations
@@ -24,13 +27,14 @@ RDTYPE = torch.float32
 
 
 def state_dtype() -> torch.dtype:
-    """dtype of statevector slabs (QFEDX_DTYPE). f32 only: a bf16 pin
-    raises until the bf16 route is ported."""
-    if pins.str_pin("QFEDX_DTYPE", "float32") in ("bf16", "bfloat16"):
-        raise NotImplementedError(
-            "QFEDX_DTYPE=bf16 is not ported yet; the port runs f32 states"
-        )
-    return torch.float32
+    """dtype of statevector slabs: QFEDX_DTYPE=bf16|bfloat16 gives
+    ``torch.bfloat16``, anything else (the default) ``torch.float32`` —
+    the reference's grammar. Read at every call."""
+    return (
+        torch.bfloat16
+        if pins.str_pin("QFEDX_DTYPE", "float32") in ("bf16", "bfloat16")
+        else torch.float32
+    )
 
 
 class CArray(NamedTuple):

@@ -13,11 +13,23 @@
 // layer's op sequence (lane / rowmat / mask / glane / growmat / rowperm /
 // rowpair / cnot in its four placements) to the block, layer after layer.
 // The op program arrives as data: an int32 descriptor table (DESC_W ints
-// per op), the stacked coefficients packed in one f32 buffer laid out
-// (L, G, gate...) per op (re, then im when present), and the static
-// rowperm indices in one int32 buffer. glane/growmat compute only the
-// branch each row / lane selects, a lane CNOT is an index permutation,
-// and every complex product is f32 FMAs with f32 accumulation.
+// per op), the stacked coefficients packed in one buffer of the launch's
+// element type laid out (L, G, gate...) per op (re, then im when
+// present), and the static rowperm indices in one int32 buffer.
+// glane/growmat compute only the branch each row / lane selects, a lane
+// CNOT is an index permutation, and every complex product is f32 FMAs
+// with f32 accumulation.
+//
+// Every instance comes in two element types (template parameter T), as
+// the reference's kernel is generic in the state's dtype: f32, and bf16
+// (QFEDX_DTYPE=bf16), which reads and writes bf16 state, boundaries and
+// coefficients in global memory, accumulates every product in f32 and
+// rounds each op's result to bf16 where the reference's _emit rounds it
+// (pallas_body.py:268-398): each of a complex product's four real
+// products, then their bf16 difference and sum; a mask's products; a
+// rowpair's running sum term by term; copies are exact. The bf16 instance
+// keeps f32 arithmetic on f32 CUDA cores (no bf16 tensor cores yet), so
+// its bound is the f32 one with half the bytes.
 //
 // Bound on an H100 (f32 CUDA cores, 67 TFLOP/s; HBM 3.35 TB/s): at the
 // served n=12, L=3 HEA body (glane + growmat, complex coefficients) the
@@ -26,7 +38,8 @@
 // blocks, against ~2.1 MB of state in+out and 0.84 MB of coefficients:
 // about 170 FLOP per byte, so the sweep is bound by operations (~7.5 us
 // at 32 blocks), not bytes. Tensor cores are not used: TF32 keeps ~3
-// decimal digits and the parity bounds are 1e-5.
+// decimal digits and the parity bounds are 1e-5. In bf16 the bytes halve
+// and the FLOP term stays.
 //
 // Two instances; the wrapper picks one per (width, tb) before the launch
 // (ops/scan_body.py::_launch_config), never after a failure:
@@ -75,26 +88,40 @@ namespace {
 constexpr int THREADS = 256;
 
 // out[r,k] = sum_j s[r,j] * M[j,k] (M picked per row by `sel`).
-template <bool HAS_IM>
-__device__ void lane_product(const float* sre, const float* sim, float* dre,
-                             float* dim, const float* __restrict__ mre,
-                             const float* __restrict__ mim, int size,
+template <class T, bool HAS_IM>
+__device__ void lane_product(const T* sre, const T* sim, T* dre, T* dim,
+                             const T* __restrict__ mre,
+                             const T* __restrict__ mim, int size,
                              int sel_shift, bool select_rows) {
   for (int e = threadIdx.x; e < size; e += blockDim.x) {
     const int r = e >> LANE_BITS;
     const int k = e & (LANES - 1);
     size_t moff = 0;
     if (select_rows) moff = (size_t)((r >> sel_shift) & 1) * LANES * LANES;
-    const float* xr = sre + (size_t)r * LANES;
-    const float* xi = sim + (size_t)r * LANES;
-    const float* ar = mre + moff + k;
+    const T* xr = sre + (size_t)r * LANES;
+    const T* xi = sim + (size_t)r * LANES;
+    const T* ar = mre + moff + k;
     float accr = 0.f, acci = 0.f;
-    if (HAS_IM) {
-      const float* ai = mim + moff + k;
+    if (HAS_IM && IS_BF16<T>) {  // four products, each rounded apart
+      const T* ai = mim + moff + k;
+      float ii = 0.f, ri = 0.f;
 #pragma unroll 8
       for (int j = 0; j < LANES; ++j) {
-        const float a = ar[j * LANES], b = ai[j * LANES];
-        const float u = xr[j], v = xi[j];
+        const float a = to_f32(ar[j * LANES]), b = to_f32(ai[j * LANES]);
+        const float u = to_f32(xr[j]), v = to_f32(xi[j]);
+        accr = fmaf(u, a, accr);
+        ii = fmaf(v, b, ii);
+        acci = fmaf(v, a, acci);
+        ri = fmaf(u, b, ri);
+      }
+      accr = cre_of<T>(accr, ii);
+      acci = cim_of<T>(acci, ri);
+    } else if (HAS_IM) {
+      const T* ai = mim + moff + k;
+#pragma unroll 8
+      for (int j = 0; j < LANES; ++j) {
+        const float a = to_f32(ar[j * LANES]), b = to_f32(ai[j * LANES]);
+        const float u = to_f32(xr[j]), v = to_f32(xi[j]);
         accr = fmaf(u, a, accr);
         accr = fmaf(-v, b, accr);
         acci = fmaf(v, a, acci);
@@ -103,34 +130,49 @@ __device__ void lane_product(const float* sre, const float* sim, float* dre,
     } else {
 #pragma unroll 8
       for (int j = 0; j < LANES; ++j) {
-        const float a = ar[j * LANES];
-        accr = fmaf(xr[j], a, accr);
-        acci = fmaf(xi[j], a, acci);
+        const float a = to_f32(ar[j * LANES]);
+        accr = fmaf(to_f32(xr[j]), a, accr);
+        acci = fmaf(to_f32(xi[j]), a, acci);
       }
     }
-    dre[e] = accr;
-    dim[e] = acci;
+    dre[e] = from_f32<T>(accr);
+    dim[e] = from_f32<T>(acci);
   }
 }
 
 // out[r,k] = sum_s M[r,s] * x[s,k] (M picked per lane by `sel`).
-template <bool HAS_IM>
-__device__ void row_product(const float* sre, const float* sim, float* dre,
-                            float* dim, const float* __restrict__ mre,
-                            const float* __restrict__ mim, int rows,
-                            int size, int sel_shift, bool select_lanes) {
+template <class T, bool HAS_IM>
+__device__ void row_product(const T* sre, const T* sim, T* dre, T* dim,
+                            const T* __restrict__ mre,
+                            const T* __restrict__ mim, int rows, int size,
+                            int sel_shift, bool select_lanes) {
   for (int e = threadIdx.x; e < size; e += blockDim.x) {
     const int r = e >> LANE_BITS;
     const int k = e & (LANES - 1);
     size_t moff = (size_t)r * rows;
     if (select_lanes) moff += (size_t)((k >> sel_shift) & 1) * rows * rows;
-    const float* ar = mre + moff;
+    const T* ar = mre + moff;
     float accr = 0.f, acci = 0.f;
-    if (HAS_IM) {
-      const float* ai = mim + moff;
+    if (HAS_IM && IS_BF16<T>) {  // four products, each rounded apart
+      const T* ai = mim + moff;
+      float ii = 0.f, ri = 0.f;
       for (int s = 0; s < rows; ++s) {
-        const float a = ar[s], b = ai[s];
-        const float u = sre[s * LANES + k], v = sim[s * LANES + k];
+        const float a = to_f32(ar[s]), b = to_f32(ai[s]);
+        const float u = to_f32(sre[s * LANES + k]);
+        const float v = to_f32(sim[s * LANES + k]);
+        accr = fmaf(u, a, accr);
+        ii = fmaf(v, b, ii);
+        acci = fmaf(v, a, acci);
+        ri = fmaf(u, b, ri);
+      }
+      accr = cre_of<T>(accr, ii);
+      acci = cim_of<T>(acci, ri);
+    } else if (HAS_IM) {
+      const T* ai = mim + moff;
+      for (int s = 0; s < rows; ++s) {
+        const float a = to_f32(ar[s]), b = to_f32(ai[s]);
+        const float u = to_f32(sre[s * LANES + k]);
+        const float v = to_f32(sim[s * LANES + k]);
         accr = fmaf(u, a, accr);
         accr = fmaf(-v, b, accr);
         acci = fmaf(v, a, acci);
@@ -138,26 +180,25 @@ __device__ void row_product(const float* sre, const float* sim, float* dre,
       }
     } else {
       for (int s = 0; s < rows; ++s) {
-        const float a = ar[s];
-        accr = fmaf(sre[s * LANES + k], a, accr);
-        acci = fmaf(sim[s * LANES + k], a, acci);
+        const float a = to_f32(ar[s]);
+        accr = fmaf(to_f32(sre[s * LANES + k]), a, accr);
+        acci = fmaf(to_f32(sim[s * LANES + k]), a, acci);
       }
     }
-    dre[e] = accr;
-    dim[e] = acci;
+    dre[e] = from_f32<T>(accr);
+    dim[e] = from_f32<T>(acci);
   }
 }
 
 }  // namespace
 
 // The global-memory instance: one CTA per state block (see the header).
-template <bool BND>
+template <class T, bool BND>
 __global__ void __launch_bounds__(THREADS)
-scan_body_kernel(const float* in_re, const float* in_im, float* out_re,
-                 float* out_im, float* tmp_re, float* tmp_im,
-                 float* bnd_re, float* bnd_im,
+scan_body_kernel(const T* in_re, const T* in_im, T* out_re, T* out_im,
+                 T* tmp_re, T* tmp_im, T* bnd_re, T* bnd_im,
                  const int* __restrict__ desc, int n_ops,
-                 const float* __restrict__ coeffs,
+                 const T* __restrict__ coeffs,
                  const int* __restrict__ statics, int tb, int n,
                  int length) {
   const int b = blockIdx.x;
@@ -166,12 +207,12 @@ scan_body_kernel(const float* in_re, const float* in_im, float* out_re,
   const int size = rows << LANE_BITS;
   const size_t boff = (size_t)b * size;
 
-  float* buf_re[2] = {out_re + boff, tmp_re + boff};
-  float* buf_im[2] = {out_im + boff, tmp_im + boff};
+  T* buf_re[2] = {out_re + boff, tmp_re + boff};
+  T* buf_im[2] = {out_im + boff, tmp_im + boff};
   // The last of the length*n_ops ops must write the output buffer.
   const int first = ((length * n_ops) & 1) ? 0 : 1;
-  const float* sre = in_re + boff;
-  const float* sim = in_im + boff;
+  const T* sre = in_re + boff;
+  const T* sim = in_im + boff;
 
   int step = 0;
   for (int l = 0; l < length; ++l) {
@@ -188,11 +229,11 @@ scan_body_kernel(const float* in_re, const float* in_im, float* out_re,
       const int groups = d[D_GROUPS];
       const size_t gsize = (size_t)d[D_GSIZE];
       const size_t cidx = ((size_t)l * groups + (size_t)b * groups / tb) * gsize;
-      const float* cre = coeffs + d[D_RE] + cidx;
-      const float* cim = d[D_IM] >= 0 ? coeffs + d[D_IM] + cidx : nullptr;
+      const T* cre = coeffs + d[D_RE] + cidx;
+      const T* cim = d[D_IM] >= 0 ? coeffs + d[D_IM] + cidx : nullptr;
       const int dst = (first + step) & 1;
-      float* dre = buf_re[dst];
-      float* dim = buf_im[dst];
+      T* dre = buf_re[dst];
+      T* dim = buf_im[dst];
       const int q0 = d[D_Q0], q1 = d[D_Q1];
 
       switch (kind) {
@@ -201,9 +242,11 @@ scan_body_kernel(const float* in_re, const float* in_im, float* out_re,
           const bool sel = kind == K_GLANE;
           const int shift = rbits - 1 - q0;
           if (cim)
-            lane_product<true>(sre, sim, dre, dim, cre, cim, size, shift, sel);
+            lane_product<T, true>(sre, sim, dre, dim, cre, cim, size, shift,
+                                  sel);
           else
-            lane_product<false>(sre, sim, dre, dim, cre, cim, size, shift, sel);
+            lane_product<T, false>(sre, sim, dre, dim, cre, cim, size, shift,
+                                   sel);
           break;
         }
         case K_ROWMAT:
@@ -211,23 +254,28 @@ scan_body_kernel(const float* in_re, const float* in_im, float* out_re,
           const bool sel = kind == K_GROWMAT;
           const int shift = n - 1 - q0;
           if (cim)
-            row_product<true>(sre, sim, dre, dim, cre, cim, rows, size, shift,
-                              sel);
+            row_product<T, true>(sre, sim, dre, dim, cre, cim, rows, size,
+                                 shift, sel);
           else
-            row_product<false>(sre, sim, dre, dim, cre, cim, rows, size, shift,
-                               sel);
+            row_product<T, false>(sre, sim, dre, dim, cre, cim, rows, size,
+                                  shift, sel);
           break;
         }
         case K_MASK: {
           for (int e = threadIdx.x; e < size; e += blockDim.x) {
-            const float u = sre[e], v = sim[e], a = cre[e];
-            if (cim) {
-              const float w = cim[e];
-              dre[e] = fmaf(u, a, -v * w);
-              dim[e] = fmaf(v, a, u * w);
+            const float u = to_f32(sre[e]), v = to_f32(sim[e]);
+            const float a = to_f32(cre[e]);
+            if (cim && IS_BF16<T>) {
+              const float w = to_f32(cim[e]);
+              dre[e] = from_f32<T>(cre_of<T>(u * a, v * w));
+              dim[e] = from_f32<T>(cim_of<T>(v * a, u * w));
+            } else if (cim) {
+              const float w = to_f32(cim[e]);
+              dre[e] = from_f32<T>(fmaf(u, a, -v * w));
+              dim[e] = from_f32<T>(fmaf(v, a, u * w));
             } else {
-              dre[e] = u * a;
-              dim[e] = v * a;
+              dre[e] = from_f32<T>(u * a);
+              dim[e] = from_f32<T>(v * a);
             }
           }
           break;
@@ -255,18 +303,28 @@ scan_body_kernel(const float* in_re, const float* in_im, float* out_re,
             for (int dd = 0; dd < 4; ++dd) {
               const int rr = r ^ ((dd & 2) ? m1 : 0) ^ ((dd & 1) ? m2 : 0);
               const int src = (rr << LANE_BITS) | k;
-              const float u = sre[src], v = sim[src];
-              const float a = cre[o * 4 + (o ^ dd)];
-              accr = fmaf(u, a, accr);
-              acci = fmaf(v, a, acci);
+              const float u = to_f32(sre[src]), v = to_f32(sim[src]);
+              const float a = to_f32(cre[o * 4 + (o ^ dd)]);
+              if (IS_BF16<T>) {  // bf16 sums, term by term (_emit)
+                accr = rnd<T>(accr + rnd<T>(u * a));
+                acci = rnd<T>(acci + rnd<T>(v * a));
+              } else {
+                accr = fmaf(u, a, accr);
+                acci = fmaf(v, a, acci);
+              }
               if (cim) {
-                const float w = cim[o * 4 + (o ^ dd)];
-                accr = fmaf(-v, w, accr);
-                acci = fmaf(u, w, acci);
+                const float w = to_f32(cim[o * 4 + (o ^ dd)]);
+                if (IS_BF16<T>) {
+                  accr = rnd<T>(accr - rnd<T>(v * w));
+                  acci = rnd<T>(acci + rnd<T>(u * w));
+                } else {
+                  accr = fmaf(-v, w, accr);
+                  acci = fmaf(u, w, acci);
+                }
               }
             }
-            dre[e] = accr;
-            dim[e] = acci;
+            dre[e] = from_f32<T>(accr);
+            dim[e] = from_f32<T>(acci);
           }
           break;
         }
@@ -308,59 +366,77 @@ namespace {
 constexpr int ERR_CLUSTER_UNSCHEDULABLE = 100000;
 
 std::mutex config_mutex;
-// Per instance [BND]: the dynamic shared memory its attribute allows, the
-// non-portable cluster size switched on, and per K the largest shared
-// memory whose cluster was checked to fit the card.
-int smem_allowed[2];
-bool nonportable_on[2];
-int cluster_checked[2][MAX_CLUSTER + 1];
+// Per instance [bf16][BND]: the dynamic shared memory its attribute
+// allows, the non-portable cluster size switched on, and per K the
+// largest shared memory whose cluster was checked to fit the card.
+int smem_allowed[2][2];
+bool nonportable_on[2][2];
+int cluster_checked[2][2][MAX_CLUSTER + 1];
 
-template <bool BND>
-int launch_cluster(const float* in_re, const float* in_im, float* out_re,
-                   float* out_im, float* bnd_re, float* bnd_im,
-                   const int* desc, int n_ops, const float* coeffs,
-                   const int* statics, int tb, int n, int length,
-                   int cluster, int smem, cudaStream_t stream) {
-  auto kern = scan_body_cluster_kernel<BND>;
-  // What the state buffers and the descriptor table leave of `smem` is
-  // the stage region (ops/scan_body.py::_cluster_smem sizes it).
-  const int rk = (1 << (n - LANE_BITS)) / cluster;
-  const int units = (smem - 2 * 2 * rk * LANES * 4 - n_ops * DESC_W * 4) /
-                    (UNIT_FLOATS * 4);
-  if (units < 4 || units > MAX_UNITS) return (int)cudaErrorInvalidValue;
+// Raise the cluster kernel's attributes to `smem` bytes of dynamic shared
+// memory and, above 8 CTAs, the non-portable cluster size (the caller
+// holds config_mutex).
+template <class T, bool BND>
+cudaError_t cluster_attrs(int cluster, int smem) {
+  auto kern = scan_body_cluster_kernel<T, BND>;
+  cudaError_t err;
+  if (smem_allowed[IS_BF16<T>][BND] < smem) {  // the attribute only grows
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_allowed[IS_BF16<T>][BND] = smem;
+  }
+  if (cluster > 8 && !nonportable_on[IS_BF16<T>][BND]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    nonportable_on[IS_BF16<T>][BND] = true;
+  }
+  return cudaSuccess;
+}
+
+cudaLaunchConfig_t cluster_config(int tb, int cluster, int smem,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(tb * cluster));
   cfg.blockDim = dim3(CL_THREADS);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = (unsigned)cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <class T, bool BND>
+int launch_cluster(const T* in_re, const T* in_im, T* out_re, T* out_im,
+                   T* bnd_re, T* bnd_im, const int* desc, int n_ops,
+                   const T* coeffs, const int* statics, int tb, int n,
+                   int length, int cluster, int smem, cudaStream_t stream) {
+  auto kern = scan_body_cluster_kernel<T, BND>;
+  // What the state buffers (f32) and the descriptor table leave of `smem`
+  // is the stage region, in units of UNIT_ELEMS elements of T
+  // (ops/scan_body.py::_cluster_smem sizes it).
+  const int rk = (1 << (n - LANE_BITS)) / cluster;
+  const int units = (smem - 2 * 2 * rk * LANES * 4 - n_ops * DESC_W * 4) /
+                    (UNIT_ELEMS * (int)sizeof(T));
+  if (units < 4 || units > MAX_UNITS) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(tb, cluster, smem, stream, attr);
   {
     std::lock_guard<std::mutex> lock(config_mutex);
-    cudaError_t err;
-    if (smem_allowed[BND] < smem) {
-      err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return (int)err;
-      smem_allowed[BND] = smem;
-    }
-    if (cluster > 8 && !nonportable_on[BND]) {
-      err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (err != cudaSuccess) return (int)err;
-      nonportable_on[BND] = true;
-    }
-    if (cluster_checked[BND][cluster] < smem) {
+    cudaError_t err = cluster_attrs<T, BND>(cluster, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (cluster_checked[IS_BF16<T>][BND][cluster] < smem) {
       int active = 0;
       err = cudaOccupancyMaxActiveClusters(&active, (const void*)kern, &cfg);
       if (err != cudaSuccess) return (int)err;
       if (active < 1) return ERR_CLUSTER_UNSCHEDULABLE;
-      cluster_checked[BND][cluster] = smem;
+      cluster_checked[IS_BF16<T>][BND][cluster] = smem;
     }
   }
   cudaError_t err = cudaLaunchKernelEx(&cfg, kern, in_re, in_im, out_re,
@@ -371,95 +447,119 @@ int launch_cluster(const float* in_re, const float* in_im, float* out_re,
   return (int)cudaGetLastError();
 }
 
+template <class T>
+int launch(const void* in_re, const void* in_im, void* out_re, void* out_im,
+           void* tmp_re, void* tmp_im, void* bnd_re, void* bnd_im,
+           const int* desc, int n_ops, const void* coeffs,
+           const int* statics, int tb, int n, int length, cudaStream_t st,
+           int cluster, int smem) {
+  const T* ir = (const T*)in_re;
+  const T* ii = (const T*)in_im;
+  T* orr = (T*)out_re;
+  T* oi = (T*)out_im;
+  T* br = (T*)bnd_re;
+  T* bi = (T*)bnd_im;
+  const T* c = (const T*)coeffs;
+  if (cluster > 0) {
+    if (cluster > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+    if (br != nullptr)
+      return launch_cluster<T, true>(ir, ii, orr, oi, br, bi, desc, n_ops, c,
+                                     statics, tb, n, length, cluster, smem,
+                                     st);
+    return launch_cluster<T, false>(ir, ii, orr, oi, br, bi, desc, n_ops, c,
+                                    statics, tb, n, length, cluster, smem, st);
+  }
+  if (br != nullptr)
+    scan_body_kernel<T, true><<<tb, THREADS, 0, st>>>(
+        ir, ii, orr, oi, (T*)tmp_re, (T*)tmp_im, br, bi, desc, n_ops, c,
+        statics, tb, n, length);
+  else
+    scan_body_kernel<T, false><<<tb, THREADS, 0, st>>>(
+        ir, ii, orr, oi, (T*)tmp_re, (T*)tmp_im, br, bi, desc, n_ops, c,
+        statics, tb, n, length);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int max_clusters(int cluster, int smem, int* active) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(1, cluster, smem, nullptr, attr);
+  std::lock_guard<std::mutex> lock(config_mutex);
+  cudaError_t err = cluster_attrs<T, false>(cluster, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveClusters(
+      active, (const void*)scan_body_cluster_kernel<T, false>, &cfg);
+}
+
+template <class T>
+cudaError_t attrs_of(cudaFuncAttributes* a, int cluster, int bnd) {
+  if (cluster)
+    return bnd ? cudaFuncGetAttributes(a, scan_body_cluster_kernel<T, true>)
+               : cudaFuncGetAttributes(a, scan_body_cluster_kernel<T, false>);
+  return bnd ? cudaFuncGetAttributes(a, scan_body_kernel<T, true>)
+             : cudaFuncGetAttributes(a, scan_body_kernel<T, false>);
+}
+
 }  // namespace
 
 // Plain C entry (bound with ctypes). Pointers are device pointers; the
-// kernel runs on `stream` and is not synchronised. bnd_re/bnd_im are both
-// null (no boundaries) or both (L, tb, R, 128) f32 outputs. `cluster` = 0
-// launches the global instance (tmp_re/tmp_im: a scratch block like the
-// output); `cluster` = K >= 1 launches the cluster instance with K CTAs
-// per sample and `smem` bytes of dynamic shared memory (tmp unused).
-// Returns the CUDA error of the launch (0 = launched), or
-// ERR_CLUSTER_UNSCHEDULABLE.
-extern "C" int qfx_scan_body_launch(const float* in_re, const float* in_im,
-                                    float* out_re, float* out_im,
-                                    float* tmp_re, float* tmp_im,
-                                    float* bnd_re, float* bnd_im,
+// kernel runs on `stream` and is not synchronised. `dtype` names the
+// element type of the state, boundaries and coefficients: 0 = f32, 1 =
+// bf16 (the instance of that type runs; there is no conversion).
+// bnd_re/bnd_im are both null (no boundaries) or both (L, tb, R, 128)
+// outputs. `cluster` = 0 launches the global instance (tmp_re/tmp_im: a
+// scratch block like the output); `cluster` = K >= 1 launches the cluster
+// instance with K CTAs per sample and `smem` bytes of dynamic shared
+// memory (tmp unused). Returns the CUDA error of the launch (0 =
+// launched), or ERR_CLUSTER_UNSCHEDULABLE.
+extern "C" int qfx_scan_body_launch(const void* in_re, const void* in_im,
+                                    void* out_re, void* out_im, void* tmp_re,
+                                    void* tmp_im, void* bnd_re, void* bnd_im,
                                     const int* desc, int n_ops,
-                                    const float* coeffs, const int* statics,
+                                    const void* coeffs, const int* statics,
                                     int tb, int n, int length, int device,
-                                    void* stream, int cluster, int smem) {
+                                    void* stream, int cluster, int smem,
+                                    int dtype) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  if (cluster > 0) {
-    if (cluster > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
-    if (bnd_re != nullptr)
-      return launch_cluster<true>(in_re, in_im, out_re, out_im, bnd_re,
-                                  bnd_im, desc, n_ops, coeffs, statics, tb,
-                                  n, length, cluster, smem, st);
-    return launch_cluster<false>(in_re, in_im, out_re, out_im, bnd_re,
-                                 bnd_im, desc, n_ops, coeffs, statics, tb, n,
-                                 length, cluster, smem, st);
-  }
-  if (bnd_re != nullptr)
-    scan_body_kernel<true><<<tb, THREADS, 0, st>>>(
-        in_re, in_im, out_re, out_im, tmp_re, tmp_im, bnd_re, bnd_im, desc,
-        n_ops, coeffs, statics, tb, n, length);
-  else
-    scan_body_kernel<false><<<tb, THREADS, 0, st>>>(
-        in_re, in_im, out_re, out_im, tmp_re, tmp_im, bnd_re, bnd_im, desc,
-        n_ops, coeffs, statics, tb, n, length);
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch<float>(in_re, in_im, out_re, out_im, tmp_re, tmp_im,
+                         bnd_re, bnd_im, desc, n_ops, coeffs, statics, tb, n,
+                         length, st, cluster, smem);
+  if (dtype == 1)
+    return launch<bf16>(in_re, in_im, out_re, out_im, tmp_re, tmp_im,
+                        bnd_re, bnd_im, desc, n_ops, coeffs, statics, tb, n,
+                        length, st, cluster, smem);
+  return (int)cudaErrorInvalidValue;
 }
 
 // How many clusters of `cluster` CTAs with `smem` bytes of dynamic shared
 // memory each the card keeps resident at once (cudaOccupancyMaxActive-
-// Clusters), into *active. Returns the CUDA error (0 = filled).
-extern "C" int qfx_scan_body_max_clusters(int cluster, int smem,
+// Clusters) for the instance of `dtype`, into *active. Returns the CUDA
+// error (0 = filled).
+extern "C" int qfx_scan_body_max_clusters(int cluster, int smem, int dtype,
                                           int* active) {
-  auto kern = scan_body_cluster_kernel<false>;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)cluster);
-  cfg.blockDim = dim3(CL_THREADS);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  std::lock_guard<std::mutex> lock(config_mutex);
-  cudaError_t err;
-  if (smem_allowed[0] < smem) {  // the attribute only ever grows
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_allowed[0] = smem;
-  }
-  if (cluster > 8 && !nonportable_on[0]) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-    nonportable_on[0] = true;
-  }
-  return (int)cudaOccupancyMaxActiveClusters(active, (const void*)kern, &cfg);
+  if (dtype == 0) return max_clusters<float>(cluster, smem, active);
+  if (dtype == 1) return max_clusters<bf16>(cluster, smem, active);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Registers, local (spill) bytes and static shared memory of one compiled
-// instance (cluster != 0: the cluster kernel; bnd != 0: its BND one), by
-// cudaFuncGetAttributes. Returns the CUDA error (0 = filled).
-extern "C" int qfx_scan_body_attrs(int cluster, int bnd, int* regs,
-                                   int* local_bytes, int* static_smem) {
+// instance (cluster != 0: the cluster kernel; bnd != 0: its BND one; dtype
+// as above), by cudaFuncGetAttributes. Returns the CUDA error (0 =
+// filled).
+extern "C" int qfx_scan_body_attrs(int cluster, int bnd, int dtype,
+                                   int* regs, int* local_bytes,
+                                   int* static_smem) {
   cudaFuncAttributes a;
   cudaError_t err;
-  if (cluster)
-    err = bnd ? cudaFuncGetAttributes(&a, scan_body_cluster_kernel<true>)
-              : cudaFuncGetAttributes(&a, scan_body_cluster_kernel<false>);
+  if (dtype == 0)
+    err = attrs_of<float>(&a, cluster, bnd);
+  else if (dtype == 1)
+    err = attrs_of<bf16>(&a, cluster, bnd);
   else
-    err = bnd ? cudaFuncGetAttributes(&a, scan_body_kernel<true>)
-              : cudaFuncGetAttributes(&a, scan_body_kernel<false>);
+    return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

@@ -11,10 +11,14 @@ in ``csrc/scan_body.cu`` (with its headers), a loop over the layers
 inside each sample's CTAs, the op sequence inside that loop, and an
 optional boundary output, in two instances: up to n=17 a cluster of K
 CTAs holds each sample's state in shared memory for the whole sweep,
-wider widths run one CTA per sample over global memory.
-``_launch_config`` picks the instance and K from the width and tb alone,
-before the launch (see the source's header for the design and its
-bound).
+wider widths run one CTA per sample over global memory. Each comes in
+an f32 and a bf16 instance, chosen by the state's dtype (the spec's
+``dtype``): the bf16 one reads and writes bf16 in global memory, takes
+the coefficients rounded to bf16 as the reference's ``_coeff_operands``
+does, accumulates every product in f32 and rounds each op's result to
+bf16 where the reference's ``_emit`` rounds. ``_launch_config`` picks the
+instance and K from the width, tb and dtype alone, before the launch
+(see the source's header for the design and its bound).
 
 Routing is the reference's: ``QFEDX_PALLAS`` pins the route (default on
 — the card's program), and ``fuse.apply_scan`` consults ``route_ok`` per
@@ -23,14 +27,16 @@ n ≥ 16) runs the torch layer loop, exactly where the reference runs
 ``lax.scan``.
 
 The wrapper ``scan_body`` launches the kernel for CUDA tensors (or
-raises — there is no fallback), and calls the plain PyTorch version
+raises — there is no fallback: a bf16 state never runs the f32 instance
+or the plain version), and calls the plain PyTorch version
 ``scan_body_plain`` only for tensors on the CPU. It records no autograd
 graph: gradients go through ``ScanBodyFn``, whose forward is Launch B and
 whose backward is Launch C plus the coefficient cotangents (torch
 autograd of one layer over the saved boundaries). The Function is the
 same on both devices; only the sweep inside ``scan_body`` changes.
 ``launch_count`` counts kernel launches, ``launch_counts`` splits them
-by launch ("fwd" = A, "fwd_bnd" = B, "adj" = C), and ``build_count``
+by launch ("fwd" = A, "fwd_bnd" = B, "adj" = C), ``dtype_counts`` by the
+instance's element type ("float32", "bfloat16"), and ``build_count``
 counts every build-and-load of the kernel library into the process.
 """
 
@@ -55,6 +61,7 @@ from qfedx_tpu_torch.utils import pins
 
 launch_count = 0
 launch_counts = {"fwd": 0, "fwd_bnd": 0, "adj": 0}
+dtype_counts = {"float32": 0, "bfloat16": 0}
 build_count = 0
 
 _CSRC = Path(__file__).parent / "csrc"
@@ -132,6 +139,20 @@ class _KernelSpec(NamedTuple):
     tb: int                # state blocks (one per sample when batched)
     batched: bool
     ops: tuple             # of _OpSpec, in execution order
+    dtype: str = "float32"  # the state's (and the launch's) element type
+
+
+# The kernel's element types: the state, the boundaries and the packed
+# coefficients of one launch share one.
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPE_CODE = {"float32": 0, "bfloat16": 1}  # csrc/scan_body.cu
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    for name, dt in _DTYPES.items():
+        if dt == dtype:
+            return name
+    raise TypeError(f"scan_body takes float32 or bfloat16 states, got {dtype}")
 
 
 def _op_groups(op, tb: int) -> int | None:
@@ -191,7 +212,8 @@ def _build_spec(state: CArray, n: int, program, batched: bool) -> _KernelSpec:
             ops.append(_OpSpec(op.kind, tuple(op.qubits), False, 1, False,
                                perm))
     return _KernelSpec(
-        n=n, length=program.length, tb=tb, batched=batched, ops=tuple(ops)
+        n=n, length=program.length, tb=tb, batched=batched, ops=tuple(ops),
+        dtype=_dtype_name(state.re.dtype),
     )
 
 
@@ -218,7 +240,9 @@ def _gate_shape(spec: _KernelSpec, kind: str) -> tuple:
 @functools.lru_cache(maxsize=256)
 def _layout(spec: _KernelSpec):
     """The descriptor table (n_ops, _DESC_W) int32, the packed coefficient
-    length in floats, and the packed statics int32 array of ``spec``."""
+    length in elements, and the packed statics int32 array of ``spec``.
+    Every offset is a multiple of 8 elements (16 bytes in bf16), as the
+    kernel's bulk copies need."""
     desc = np.zeros((len(spec.ops), _DESC_W), dtype=np.int32)
     offset = 0
     statics = []
@@ -240,7 +264,7 @@ def _layout(spec: _KernelSpec):
         desc[i] = (_KIND_CODE[op.kind], q[0], q[1], re_off, im_off,
                    op.groups, gsize, st_off)
     if offset >= 2**31:
-        raise ValueError(f"packed coefficients ({offset} floats) exceed int32")
+        raise ValueError(f"packed coefficients ({offset} values) exceed int32")
     packed_statics = (
         np.concatenate(statics) if statics else np.zeros(1, np.int32)
     )
@@ -275,55 +299,67 @@ class LaunchConfig(NamedTuple):
     instance: str          # "cluster" or "global"
     cluster: int           # K, CTAs per sample (1 for "global")
     smem: int              # dynamic shared memory per CTA, bytes
+    dtype: str = "float32"  # the instance's element type
 
 
 # The cluster instance's stage region (csrc/scan_body_cluster.cuh) comes
-# in units of one 16-row slab of a 128×128 matrix, re and im; it takes 4
-# to 8 units.
-_UNIT_BYTES = 2 * 16 * _LANES * 4
+# in units of one 16-row slab of a 128×128 matrix, re and im, in the
+# launch's element type (the ring holds the coefficients as they lie in
+# global memory); it takes 4 to 8 units. The state in shared memory is
+# f32 in both instances (in bf16, values already rounded to bf16).
 _MIN_UNITS, _MAX_UNITS = 4, 8
+
+
+def _unit_bytes(dtype: str) -> int:
+    return 2 * 16 * _LANES * _DTYPES[dtype].itemsize
 
 
 def _cluster_smem(spec: _KernelSpec, k: int) -> int | None:
     """Dynamic shared memory of one CTA of the cluster instance, or None
     where it does not fit: two ping-pong buffers of its R/K rows (re and
-    im), the descriptor table, and a stage region of as many units as the
-    rest of the block's shared memory holds, 4 to 8 (128 KB)."""
+    im, f32), the descriptor table, and a stage region of as many units as
+    the rest of the block's shared memory holds, 4 to 8 (128 KB in f32,
+    64 KB in bf16)."""
     rows = (1 << (spec.n - _LANE_BITS)) // k
     fixed = 2 * 2 * rows * _LANES * 4 + len(spec.ops) * _DESC_W * 4
-    units = min(_MAX_UNITS, (_SMEM_LIMIT - fixed) // _UNIT_BYTES)
+    unit = _unit_bytes(spec.dtype)
+    units = min(_MAX_UNITS, (_SMEM_LIMIT - fixed) // unit)
     if units < _MIN_UNITS:
         return None
-    return fixed + units * _UNIT_BYTES
+    return fixed + units * unit
 
 
 @functools.lru_cache(maxsize=256)
 def _launch_config(spec: _KernelSpec) -> LaunchConfig:
     """The instance, cluster size K and dynamic shared memory for
-    ``spec``, from its width and tb alone (a pure function: no CUDA call,
-    no retry after a failure).
+    ``spec``, from its width, tb and dtype alone (a pure function: no CUDA
+    call, no retry after a failure).
 
     K is the largest power of two ≤ min(16, R) whose CTAs' rows fit their
     shared memory and whose tb clusters the card keeps resident in one
     wave (``_RESIDENT``: K=16 at tb ≤ 7, 8 at tb ≤ 15, 4 at tb ≤ 30, 2 at
     tb ≤ 66); where no K fits one wave, the smallest K that fits the
     memory. A width whose state no cluster of ≤ 16 CTAs holds (n ≥ 18 in
-    f32) takes the global-memory instance."""
+    f32 and bf16 alike: the shared-memory state is f32 in both) takes
+    the global-memory instance."""
     rows = 1 << (spec.n - _LANE_BITS)
     fits = [
         (k, smem) for k in (16, 8, 4, 2, 1)
         if k <= rows and (smem := _cluster_smem(spec, k)) is not None
     ]
     if not fits:
-        return LaunchConfig("global", 1, 0)
+        return LaunchConfig("global", 1, 0, spec.dtype)
     for k, smem in fits:
         if spec.tb <= _RESIDENT[k]:
-            return LaunchConfig("cluster", k, smem)
+            return LaunchConfig("cluster", k, smem, spec.dtype)
     k, smem = fits[-1]
-    return LaunchConfig("cluster", k, smem)
+    return LaunchConfig("cluster", k, smem, spec.dtype)
 
 
 def _check_coeffs(spec: _KernelSpec, xs, device) -> None:
+    """Coefficients come in f32 (the program's build) or already in the
+    launch's dtype; ``_pack_coeffs`` rounds them to it."""
+    launch_dt = _DTYPES[spec.dtype]
     stacked = [op for op in spec.ops if op.stacked]
     if len(xs) != len(stacked):
         raise ValueError(
@@ -336,9 +372,9 @@ def _check_coeffs(spec: _KernelSpec, xs, device) -> None:
         if (c.im is not None) != op.has_im:
             raise ValueError(f"{op.kind}: has_im disagrees with the spec")
         for p in parts:
-            if p.dtype != torch.float32:
-                raise TypeError(f"{op.kind} coefficients must be float32, "
-                                f"got {p.dtype}")
+            if p.dtype not in (torch.float32, launch_dt):
+                raise TypeError(f"{op.kind} coefficients must be float32 or "
+                                f"{spec.dtype}, got {p.dtype}")
             if p.device != device:
                 raise ValueError(f"{op.kind} coefficients on {p.device}, "
                                  f"state on {device}")
@@ -351,13 +387,15 @@ def _check_coeffs(spec: _KernelSpec, xs, device) -> None:
 
 
 def _pack_coeffs(spec: _KernelSpec, xs) -> torch.Tensor:
-    """Every stacked op's (L, G, gate...) re (then im) in one f32 buffer,
-    in descriptor order."""
+    """Every stacked op's (L, G, gate...) re (then im) in one buffer of
+    the launch's dtype, in descriptor order: in bf16 each coefficient is
+    rounded to bf16 here, as the reference's ``_coeff_operands`` casts."""
+    dt = _DTYPES[spec.dtype]
     parts = []
     for c in xs:
-        parts.append(c.re.reshape(-1))
+        parts.append(c.re.reshape(-1).to(dt))
         if c.im is not None:
-            parts.append(c.im.reshape(-1))
+            parts.append(c.im.reshape(-1).to(dt))
     return torch.cat(parts).contiguous()
 
 
@@ -418,14 +456,14 @@ def load_kernel():
         fn.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int]
             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            + [ctypes.c_int] * 2
+            + [ctypes.c_int] * 3
         )
         resident = lib.qfx_scan_body_max_clusters
         resident.restype = ctypes.c_int
-        resident.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        resident.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         attrs = lib.qfx_scan_body_attrs
         attrs.restype = ctypes.c_int
-        attrs.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+        attrs.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
         build_count += 1
         _LIB = lib
         return lib
@@ -435,28 +473,34 @@ def load_kernel():
 
 
 def reset_counts() -> None:
-    """Set ``launch_count`` and every entry of ``launch_counts`` to 0."""
+    """Set ``launch_count`` and every entry of ``launch_counts`` and
+    ``dtype_counts`` to 0."""
     global launch_count
     launch_count = 0
-    for key in launch_counts:
-        launch_counts[key] = 0
+    for counts in (launch_counts, dtype_counts):
+        for key in counts:
+            counts[key] = 0
 
 
 def scan_body(packed: torch.Tensor, spec: _KernelSpec, xs,
               with_boundaries: bool = False, adjoint: bool = False):
-    """One sweep of ``spec``'s body over the packed (2, tb, R, 128) f32
-    state with the stacked coefficients ``xs``; returns the packed final
-    state, and with ``with_boundaries`` also the (L, 2, tb, R, 128)
-    layer-entry states. ``adjoint`` marks a sweep of an adjointed program
-    (Launch C) for the launch counts; it changes nothing else.
+    """One sweep of ``spec``'s body over the packed (2, tb, R, 128) state
+    (f32, or bf16 with a bf16 spec) with the stacked coefficients ``xs``
+    (f32, or already the state's dtype); returns the packed final state,
+    and with ``with_boundaries`` also the (L, 2, tb, R, 128) layer-entry
+    states, both in the state's dtype. ``adjoint`` marks a sweep of an
+    adjointed program (Launch C) for the launch counts; it changes
+    nothing else.
 
-    CUDA tensors launch the kernel (a launch the runtime refuses raises);
-    CPU tensors take ``scan_body_plain``; anything else raises. Inputs
-    that require grad under grad mode raise: the sweep records no graph,
-    so gradients go through ``ScanBodyFn``."""
+    CUDA tensors launch the kernel instance of the state's dtype (a launch
+    the runtime refuses raises); CPU tensors take ``scan_body_plain``;
+    anything else raises, as does a state whose dtype is not the spec's.
+    Inputs that require grad under grad mode raise: the sweep records no
+    graph, so gradients go through ``ScanBodyFn``."""
     r = 1 << (spec.n - _LANE_BITS)
-    if packed.dtype != torch.float32:
-        raise TypeError(f"scan_body takes float32 states, got {packed.dtype}")
+    if _dtype_name(packed.dtype) != spec.dtype:
+        raise TypeError(f"a {packed.dtype} state for a {spec.dtype} spec: "
+                        "the state and its launch share one dtype")
     if tuple(packed.shape) != (2, spec.tb, r, _LANES):
         raise ValueError(
             f"packed state of shape {tuple(packed.shape)}, expected "
@@ -499,14 +543,18 @@ class _Prepared(NamedTuple):
 
 def prepare_launch(packed, spec: _KernelSpec, xs,
                    with_boundaries: bool = False) -> _Prepared:
-    """Pack ``xs``, allocate the output, scratch and boundary buffers, and
-    bind the launch's arguments (CUDA tensors; no checks beyond
-    ``scan_body``'s)."""
+    """Pack ``xs`` (rounded to the spec's dtype), allocate the output,
+    scratch and boundary buffers, and bind the launch's arguments (CUDA
+    tensors). The state, the coefficients and the outputs share the
+    spec's dtype, which selects the instance; a state of another dtype
+    raises."""
+    if _dtype_name(packed.dtype) != spec.dtype:
+        raise TypeError(f"a {packed.dtype} state for a {spec.dtype} launch")
     lib = load_kernel()
     cfg = _launch_config(spec)
     desc, statics = _device_tables(spec, packed.device)
     coeffs = (_pack_coeffs(spec, xs) if xs  # static ops only: none read
-              else torch.zeros(1, device=packed.device))
+              else torch.zeros(1, dtype=packed.dtype, device=packed.device))
     out = torch.empty_like(packed)
     half = spec.tb * (1 << spec.n) * packed.element_size()
     tmp = tmp_re = tmp_im = None
@@ -531,6 +579,7 @@ def prepare_launch(packed, spec: _KernelSpec, xs,
         coeffs.data_ptr(), statics.data_ptr(),
         spec.tb, spec.n, spec.length, packed.device.index or 0, stream,
         cfg.cluster if cfg.instance == "cluster" else 0, cfg.smem,
+        _DTYPE_CODE[spec.dtype],
     )
     return _Prepared(lib, args, (packed, desc, statics, coeffs, tmp), out,
                      bnd, cfg)
@@ -544,7 +593,7 @@ def launch_error(err: int, cfg: LaunchConfig) -> str:
     if err == _ERR_CLUSTER_UNSCHEDULABLE:
         return (f"scan_body: this card cannot co-schedule one cluster of "
                 f"{cfg.cluster} CTAs with {cfg.smem} bytes of shared "
-                "memory each")
+                f"memory each ({cfg.dtype} instance)")
     return f"scan_body kernel launch failed ({cfg}): CUDA error {err}"
 
 
@@ -555,6 +604,7 @@ def resident_clusters(cfg: LaunchConfig) -> int:
     lib = load_kernel()
     active = ctypes.c_int()
     err = lib.qfx_scan_body_max_clusters(cfg.cluster, cfg.smem,
+                                         _DTYPE_CODE[cfg.dtype],
                                          ctypes.byref(active))
     if err != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error "
@@ -564,20 +614,25 @@ def resident_clusters(cfg: LaunchConfig) -> int:
 
 def instance_attrs() -> dict:
     """Registers, local-memory (spill) bytes and static shared memory of
-    each compiled instance, as the runtime reports them."""
+    each compiled instance, as the runtime reports them (bf16 instances
+    under a ``_bf16`` suffix)."""
     lib = load_kernel()
     out = {}
-    for name, cluster in (("global", 0), ("cluster", 1)):
-        for bnd in (0, 1):
-            vals = [ctypes.c_int() for _ in range(3)]
-            err = lib.qfx_scan_body_attrs(
-                cluster, bnd, *(ctypes.byref(v) for v in vals))
-            if err != 0:
-                raise RuntimeError(f"cudaFuncGetAttributes: CUDA error {err}")
-            out[f"{name}{'_bnd' if bnd else ''}"] = {
-                "registers": vals[0].value, "local_bytes": vals[1].value,
-                "static_smem": vals[2].value,
-            }
+    for dtype, code in _DTYPE_CODE.items():
+        sfx = "_bf16" if dtype == "bfloat16" else ""
+        for name, cluster in (("global", 0), ("cluster", 1)):
+            for bnd in (0, 1):
+                vals = [ctypes.c_int() for _ in range(3)]
+                err = lib.qfx_scan_body_attrs(
+                    cluster, bnd, code, *(ctypes.byref(v) for v in vals))
+                if err != 0:
+                    raise RuntimeError(
+                        f"cudaFuncGetAttributes: CUDA error {err}")
+                out[f"{name}{'_bnd' if bnd else ''}{sfx}"] = {
+                    "registers": vals[0].value,
+                    "local_bytes": vals[1].value,
+                    "static_smem": vals[2].value,
+                }
     return out
 
 
@@ -593,18 +648,66 @@ def _launch(packed, spec, xs, with_boundaries: bool, key: str):
         raise RuntimeError(launch_error(err, prep.config))
     launch_count += 1
     launch_counts[key] += 1
+    dtype_counts[spec.dtype] += 1
     if with_boundaries:
         return prep.out, prep.bnd.transpose(0, 1)
     return prep.out
 
 
-def _layer_exec(spec: _KernelSpec, packed: torch.Tensor, sliced
-                ) -> torch.Tensor:
+def _rowpair_kernel_order(st: CArray, n: int, gate: CArray, q1: int,
+                          q2: int) -> CArray:
+    """A rowpair in the kernel's order: the four flip terms added one
+    after another from zero, re and im interleaved, as the reference's
+    Pallas ``_emit`` adds them. ``batched.apply_rowpair_b`` sums the real
+    and imaginary coefficient parts apart; in bf16 every step rounds, so
+    the two differ."""
+    from qfedx_tpu_torch.ops import batched as bt
+
+    b = st.re.shape[0]
+    groups = bt._coeff_groups(b, gate, 4)
+    gre, gim = bt._cast_parts(gate, st.re.dtype)
+    rbits = n - _LANE_BITS
+    a, c, e = 1 << q1, 1 << (q2 - q1 - 1), 1 << (rbits - q2 - 1)
+    lead = (b * a,) if groups is None else (groups, (b // groups) * a)
+    view = lead + (2, c, 2, e, _LANES)
+    ax1, ax2 = len(lead), len(lead) + 2
+    gshape = (groups or 1,) + (1,) * (len(lead) - 1) + (2, 1, 2, 1, 1)
+    i, l = torch.meshgrid(torch.arange(2, device=gre.device),
+                          torch.arange(2, device=gre.device), indexing="ij")
+
+    def grids(part):
+        return [part[..., i, l, i ^ dj, l ^ dk].reshape(gshape)
+                for dj, dk in ((0, 0), (0, 1), (1, 0), (1, 1))]
+
+    def flips(s):
+        v = s.reshape(view)
+        f1 = torch.flip(v, (ax1,))
+        return v, torch.flip(v, (ax2,)), f1, torch.flip(f1, (ax2,))
+
+    re_c = grids(gre)
+    im_c = None if gim is None else grids(gim)
+    fs_re, fs_im = flips(st.re), flips(st.imag_or_zeros())
+    acc_re = acc_im = torch.zeros_like(fs_re[0])
+    for d in range(4):
+        acc_re = acc_re + re_c[d] * fs_re[d]
+        acc_im = acc_im + re_c[d] * fs_im[d]
+        if im_c is not None:
+            acc_re = acc_re - im_c[d] * fs_im[d]
+            acc_im = acc_im + im_c[d] * fs_re[d]
+    shape = st.re.shape
+    return CArray(acc_re.reshape(shape), acc_im.reshape(shape))
+
+
+def _layer_exec(spec: _KernelSpec, packed: torch.Tensor, sliced,
+                kernel_order: bool = False) -> torch.Tensor:
     """ONE layer of the body on a packed (2, tb, R, 128) state with the
     layer's coefficient slices — the reference's ``_layer_exec``: the scan
     route's own per-op executors (``fuse._exec_stacked``), so the plain
     sweep and the coefficient cotangents run the code the torch layer
-    loop runs."""
+    loop runs. ``kernel_order`` (the plain sweep) sums a rowpair's terms
+    in the kernel's order instead (``_rowpair_kernel_order``): the one op
+    whose executor rounds elsewhere in bf16 than the kernel (the
+    reference's ``_emit``) does."""
     from qfedx_tpu_torch.ops import fuse
 
     r = 1 << (spec.n - _LANE_BITS)
@@ -618,6 +721,9 @@ def _layer_exec(spec: _KernelSpec, packed: torch.Tensor, sliced
             coeffs = np.asarray(op.perm)
         else:
             coeffs = None
+        if kernel_order and op.kind == "rowpair":
+            st = _rowpair_kernel_order(st, spec.n, coeffs, *op.qubits)
+            continue
         st = fuse._exec_stacked(
             st, spec.n, fuse.StackedOp(op.kind, op.qubits, coeffs, False),
             spec.batched,
@@ -630,9 +736,11 @@ def _layer_exec(spec: _KernelSpec, packed: torch.Tensor, sliced
 
 def scan_body_plain(packed: torch.Tensor, spec: _KernelSpec, xs,
                     with_boundaries: bool = False):
-    """The kernel's plain PyTorch version: ``_layer_exec`` looped over the
-    L layers (with ``with_boundaries``, also the stacked layer-entry
-    states, as ``scan_body`` returns them)."""
+    """The kernel's plain PyTorch version: ``_layer_exec`` in the kernel's
+    order looped over the L layers (with ``with_boundaries``, also the
+    stacked layer-entry states, as ``scan_body`` returns them). In bf16
+    every product accumulates in f32 and each op's result rounds to bf16
+    where the kernel rounds it (torch's bf16 ops round every result)."""
     from qfedx_tpu_torch.ops import fuse
 
     bnds = []
@@ -640,7 +748,8 @@ def scan_body_plain(packed: torch.Tensor, spec: _KernelSpec, xs,
         if with_boundaries:
             bnds.append(packed)
         packed = _layer_exec(
-            spec, packed, [fuse._cslice(c, layer) for c in xs]
+            spec, packed, [fuse._cslice(c, layer) for c in xs],
+            kernel_order=True,
         )
     if with_boundaries:
         return packed, torch.stack(bnds)

@@ -111,9 +111,11 @@ def test_unported_routes_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="dense"):
         small.apply(small.init(0), _features(8))
     model = make_vqc_classifier(12, 3, 2, device="cpu")
+    # bf16 states are ported: the pin runs (f32 logits), it does not raise.
     monkeypatch.setenv("QFEDX_DTYPE", "bf16")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        model.apply(model.init(0), _features(12))
+    logits = model.apply(model.init(0), _features(12))
+    assert logits.dtype == torch.float32 and tuple(logits.shape) == (4, 2)
+    assert torch.isfinite(logits).all()
     monkeypatch.delenv("QFEDX_DTYPE")
     monkeypatch.setenv("QFEDX_SCAN_LAYERS", "0")
     cparams = _client_params(model.init(0), 2)
