@@ -76,18 +76,26 @@ Phases (any failure raises and exits non-zero):
    requests and one malformed line in order (one ``code: 400``), with
    logits within LOGIT_ATOL of the CPU port's ``model.apply`` on the
    restored checkpoint; print p50/p95;
-12. the bf16 route (``QFEDX_DTYPE=bf16``; the kernel's bf16 instances):
+12. the bf16 route (``QFEDX_DTYPE=bf16``; the kernel's bf16 instances,
+   the cluster one with its lane and row products on the tensor cores):
    ``[bf16-parity]`` holds Launches A, B and C in bf16 against the bf16
    plain version (relative norm ≤ BF16_RTOL) on the cases of phase 3 plus the
    trainer's tb = 128 (G = 4) and tb = 256, each line naming the
-   instance, K and shared memory; ``[bf16-grad]`` holds ``ScanBodyFn``'s
-   cotangents against plain autograd in bf16 (relative norm ≤
-   BF16_GRAD_RTOL); ``[bf16-serve]`` serves the 256 requests of phase 5
+   instance, K, rows per CTA (RK), mma or FFMA products and shared
+   memory; ``[bf16-grad]`` holds ``ScanBodyFn``'s cotangents against
+   plain autograd in bf16 (relative norm ≤ BF16_GRAD_RTOL); both again
+   on every tile path of the tensor-core products (``tc_program`` at
+   every RK from 1 to 64, complex and real, G = 1 and G = tb);
+   ``[bf16-serve]`` serves the 256 requests of phase 5
    under the pin (logits against the CPU port in bf16, every launch A on
    the bf16 instance, and the largest difference from the f32 logits);
-   ``[time] bf16`` lines time A at the buckets and tb = 256 and B and C
-   at tb = 128 beside the f32 kernel and the bound (2 B per element,
-   FLOP at the bf16 tensor-core rate);
+   ``[time] bf16`` lines time A at the buckets, tb = 256 and tb = 78,
+   B and C at tb = 128 and A, B and C at tb = 32 beside the f32 kernel,
+   the FFMA yardstick (the earlier design of the bf16 products, same
+   call), the bound (2 B per element, FLOP at the bf16 tensor-core rate)
+   and the L2 bytes the ring moves as modelled from the code's slab
+   count (printed beside the bound, not measured); a bf16 breakdown
+   splits the sweep by kind;
    ``[bf16-cli-train]`` runs CLI_ARGV under the pin on the card and the
    CPU (6 B + 6 C per round and A only in evaluation, all on the bf16
    instance, no build after round 1, losses within BF16_LOSS_ATOL, the final
@@ -96,7 +104,8 @@ Phases (any failure raises and exits non-zero):
 13. print one JSON line describing each launch of the kernel, f32 and
    bf16 instances (launches on the CLI run, and per path; max error;
    kernel-alone, plain and bound at the CLI run's shape, and at the
-   earlier slices' shapes);
+   earlier slices' shapes; for bf16 the FFMA yardstick's time as
+   ``earlier_ms``);
 14. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -321,16 +330,18 @@ def event_ms(fn, iters: int = 100, warm: int = 5) -> float:
 
 
 def kernel_only_ms(packed, spec, xs, with_boundaries: bool = False,
-                   iters: int = 200) -> float:
+                   iters: int = 200, config=None) -> float:
     """CUDA-event time of the kernel alone: events around a loop of raw
     launches of ONE prepared launch (coefficients packed and outputs
     allocated once, before the loop), queued behind a device-side sleep
     so that the launches run back to back: neither wrapper work (checks,
     packing, allocation) nor the host's enqueue is timed. Counts no
-    launch."""
+    launch. ``config`` times another instance than ``_launch_config``'s
+    (the bf16 FFMA yardstick)."""
     from qfedx_tpu_torch.ops import scan_body
 
-    prep = scan_body.prepare_launch(packed, spec, xs, with_boundaries)
+    prep = scan_body.prepare_launch(packed, spec, xs, with_boundaries,
+                                    config)
 
     def run():
         err = prep.run()
@@ -370,17 +381,27 @@ def phase_build() -> float:
               f"{a['local_bytes']} bytes local memory (spills and stack), "
               f"{a['static_smem']} bytes static shared memory (+ the "
               "dynamic shared memory in each [parity]/[time] line)")
+    print(f"[build] bf16 cluster instance: lane and row products as "
+          f"mma.sync m16n8k16 bf16 (f32 accumulators); ring of up to "
+          f"{scan_body._MMA_MAX_UNITS} units of "
+          f"{scan_body._unit_bytes('bfloat16')} B (16-row slabs, re and im, "
+          f"rows swizzled by the host: chunk c of row j at c ^ (j mod 8)), "
+          f"a bf16 copy of the CTA's rows ({scan_body._OPND_PITCH * 2} B "
+          f"apart, re and im); its FFMA yardstick (the earlier design): "
+          f"up to {scan_body._MAX_UNITS} units, no copy")
     # The one-wave rule of ops/scan_body._launch_config rests on this
     # table: the card's resident clusters of K CTAs at the n=12 sizes.
-    # In bf16 the ring's units are half the bytes, so a CTA asks for less.
+    # In bf16 the ring's units are half the bytes, but the tensor-core
+    # instance takes up to 16 of them and a bf16 copy of its rows.
     for dtype in ("float32", "bfloat16"):
         spec = scan_body._KernelSpec(12, N_LAYERS, 1, True, (
             scan_body._OpSpec("glane", (4,), True, 1, True, None),
             scan_body._OpSpec("growmat", (11,), True, 1, True, None),
         ), dtype)
         for k, table in scan_body._RESIDENT.items():
-            cfg = scan_body.LaunchConfig("cluster", k, scan_body._cluster_smem(
-                spec, k), dtype)
+            cfg = scan_body.LaunchConfig(
+                "cluster", k, scan_body._cluster_smem(spec, k), dtype,
+                scan_body._products(dtype))
             got = scan_body.resident_clusters(cfg)
             note = ("" if got >= table
                     else " — FEWER than the table: more waves")
@@ -436,19 +457,60 @@ def require_cluster(spec, what: str) -> None:
 
 
 def config_text(spec) -> str:
-    """Which instance a spec runs, with K, CTAs and shared memory."""
+    """Which instance a spec runs, with K, rows per CTA (RK), where its
+    lane and row products run (mma: bf16 tensor cores; FFMA), CTAs and
+    shared memory."""
     from qfedx_tpu_torch.ops import scan_body
 
     cfg = scan_body._launch_config(spec)
     dt = "" if cfg.dtype == "float32" else f" {cfg.dtype}"
+    prod = "mma" if cfg.products == "mma" else "FFMA"
     if cfg.instance == "global":
-        return f"instance global{dt}, {spec.tb} CTAs"
+        return f"instance global{dt}, {prod} products, {spec.tb} CTAs"
     resident = scan_body.resident_clusters(cfg)
-    return (f"instance cluster{dt}, K={cfg.cluster}, "
-            f"{spec.tb * cfg.cluster} "
+    rk = (1 << (spec.n - 7)) // cfg.cluster
+    return (f"instance cluster{dt}, K={cfg.cluster}, RK={rk}, {prod} "
+            f"products, {spec.tb * cfg.cluster} "
             f"CTAs, {cfg.smem} B dynamic shared memory per CTA, "
             f"{resident} clusters resident at once "
             f"({-(-spec.tb // resident)} wave(s))")
+
+
+def l2_bytes(spec, with_boundaries: bool = False) -> float:
+    """A model, not a measurement: the bytes one sweep of the bf16
+    tensor-core instance reads from L2 into shared memory, counted from
+    its code (csrc/scan_body_mma.cuh): every
+    lane product loads each slab once per group of the cluster (multicast)
+    — a lane matrix once a pass, a glane's two branches once (a pass holds
+    both, or each of two passes one) or, with the selecting bit in the
+    rank, each group its branch once a pass; a row product's CTAs copy
+    their rows of M (both growmat branches) once; a mask its slab; plus the
+    state read and written and the boundaries. The state rows a row
+    product copies between CTAs travel SM to SM and are not counted."""
+    from qfedx_tpu_torch.ops import scan_body
+
+    cfg = scan_body._launch_config(spec)
+    r = 1 << (spec.n - 7)
+    kbits = cfg.cluster.bit_length() - 1
+    rk = r // cfg.cluster
+    passes = max(1, rk // 32)
+    per_layer = 0
+    for op in spec.ops:
+        parts = 2 if op.has_im else 1
+        mat = 128 * 128 * 2 * parts
+        if op.kind == "lane":
+            per_layer += passes * mat
+        elif op.kind == "glane":
+            in_rank = (spec.n - 7) - 1 - op.qubits[0] < kbits
+            per_layer += (2 * passes if in_rank else 2) * mat
+        elif op.kind in ("rowmat", "growmat"):
+            nbr = 2 if op.kind == "growmat" else 1
+            per_layer += nbr * parts * r * r * 2
+        elif op.kind == "mask":
+            per_layer += parts * r * 128 * 2
+    state = 2 * r * 128 * 2
+    bnd = spec.length * state if with_boundaries else 0
+    return float(spec.tb * (spec.length * per_layer + 2 * state + bnd))
 
 
 def _max_err(got, want) -> float:
@@ -490,6 +552,133 @@ def bf16_trainer_cases(device) -> list:
         ("all-kinds n=12 G=1", 12, kinds_program(12, 3, None, device, 43),
          EVAL_BATCH),
     ]
+
+
+def tc_program(n: int, length: int, groups, device, seed: int,
+               real: bool = False):
+    """A stacked program over every product path of the bf16 tensor-core
+    instance: a lane product; a glane on row bit 0 (in the rank wherever
+    K ≥ 2) and one on the top row bit (local wherever RK ≥ 2); a growmat
+    on lane bit 0 (inside an n8 tile of lanes) and one on lane bit 6
+    (outside it); a rowmat. Gaussian coefficients scaled to keep the
+    state's norm on average (orthogonal-free: the bf16 checks are
+    relative), real ones with ``real``."""
+    from qfedx_tpu_torch.ops.cpx import CArray
+    from qfedx_tpu_torch.ops.fuse import ScanProgram, StackedOp
+
+    rng = np.random.default_rng(seed)
+    r = 1 << (n - 7)
+    lead = (length,) + (() if groups is None else (groups,))
+
+    def mat(shape):
+        d = shape[-1]
+        scale = 1.0 / math.sqrt(d if real else 2 * d)
+        def part():
+            return torch.as_tensor(
+                rng.standard_normal(lead + shape, dtype=np.float32) * scale,
+                device=device)
+        return CArray(part(), None if real else part())
+
+    rbits = n - 7
+    body = (
+        StackedOp("lane", (), mat((128, 128)), True),
+        StackedOp("glane", (rbits - 1,), mat((2, 128, 128)), True),
+        StackedOp("growmat", (n - 1,), mat((2, r, r)), True),
+        StackedOp("glane", (0,), mat((2, 128, 128)), True),
+        StackedOp("growmat", (n - 7,), mat((2, r, r)), True),
+        StackedOp("rowmat", (), mat((r, r)), True),
+    )
+    return ScanProgram((), body, length)
+
+
+# (n, tb) of each rows-per-CTA shape the tensor-core instance tells apart:
+# RK = 32 (K = 1), 16 (K = 2), 8 (K = 4; and n = 10 at K = 1), 4 and 2
+# (the buckets 8 and 1), 1 (n = 10, K = 8), and 64 (n = 15 at K = 4, n = 17
+# at K = 16: their state fits no smaller cluster).
+TC_SHAPES = ((12, 128), (12, 32), (12, 16), (10, 128), (12, 8), (12, 1),
+             (10, 1), (15, 16), (17, 2))
+
+
+def phase_bf16_tiles(device) -> dict:
+    """``[bf16-parity]`` and ``[bf16-grad]`` on every tile path of the
+    bf16 tensor-core instance: ``tc_program`` at each of TC_SHAPES, with
+    complex and real coefficients, shared (G = 1) and per sample
+    (G = tb): Launches A, B and C against the bf16 plain version
+    (relative norm ≤ BF16_RTOL) and ``ScanBodyFn``'s cotangents against
+    plain autograd (≤ BF16_GRAD_RTOL). Returns the worst of each."""
+    from qfedx_tpu_torch.ops import scan_body
+
+    bf16 = torch.bfloat16
+    worst = {"A": 0.0, "B": 0.0, "C": 0.0, "rel": 0.0, "grad": 0.0}
+    i = 0
+    t0 = time.perf_counter()
+    for n, tb in TC_SHAPES:
+        for real in (False, True):
+            for groups in sorted({1, tb}):
+                i += 1
+                program = tc_program(n, 2, None if groups == 1 else groups,
+                                     device, seed=1000 + i, real=real)
+                packed, spec, xs = kernel_inputs(
+                    random_state(n, tb, device, seed=1100 + i, dtype=bf16),
+                    n, program)
+                cfg = scan_body._launch_config(spec)
+                if (cfg.instance, cfg.products) != ("cluster", "mma"):
+                    raise AssertionError(f"n={n} tb={tb} runs {cfg}")
+                aspec = scan_body._adjoint_spec(spec)
+                axs = scan_body._adjoint_xs(spec, xs)
+                cot = random_state(n, tb, device, seed=1200 + i, dtype=bf16)
+                cot = torch.stack([cot.re, cot.im]).reshape(packed.shape)
+                with torch.no_grad():
+                    outs = {
+                        "A": ([scan_body.scan_body(packed, spec, xs)],
+                              [scan_body.scan_body_plain(packed, spec, xs)]),
+                        "B": (scan_body.scan_body(packed, spec, xs,
+                                                  with_boundaries=True),
+                              scan_body.scan_body_plain(packed, spec, xs,
+                                                        True)),
+                        "C": (scan_body.scan_body(cot, aspec, axs,
+                                                  with_boundaries=True,
+                                                  adjoint=True),
+                              scan_body.scan_body_plain(cot, aspec, axs,
+                                                        True)),
+                    }
+                    torch.cuda.synchronize()
+                rels = {k: _rel_err(*o) for k, o in outs.items()}
+                name = (f"tc n={n} tb={tb} G={groups} "
+                        f"{'real' if real else 'complex'}")
+                print(f"[bf16-parity] {name} ({config_text(spec)}) "
+                      f"body=[{','.join(op.kind for op in spec.ops)}] "
+                      f"||kernel-plain||/||plain||: A {rels['A']:.3e}, B "
+                      f"{rels['B']:.3e}, C {rels['C']:.3e} (rtol "
+                      f"{BF16_RTOL:g})")
+                for launch, rel in rels.items():
+                    _require(rel, BF16_RTOL, f"bf16 Launch {launch} on {name}")
+                    worst[launch] = max(worst[launch],
+                                        _max_err(*outs[launch]))
+                    worst["rel"] = max(worst["rel"], rel)
+                w = torch.as_tensor(np.random.default_rng(1300 + i).normal(
+                    size=tuple(packed.shape)), dtype=torch.float32,
+                    device=device)
+                before = dict(scan_body.launch_counts)
+                got = _cotangents(spec, packed, xs, w, "kernel")
+                launched = {k: scan_body.launch_counts[k] - before[k]
+                            for k in before}
+                want = _cotangents(spec, packed, xs, w, "plain")
+                torch.cuda.synchronize()
+                err_state = _rel_err(got[:1], want[:1])
+                err_coeff = _rel_err(got[1:], want[1:])
+                print(f"[bf16-grad] {name}: state cotangent {err_state:.3e}, "
+                      f"coefficient cotangents {err_coeff:.3e} (relative "
+                      f"norm, rtol {BF16_GRAD_RTOL:g}), launches {launched}")
+                if launched != {"fwd": 0, "fwd_bnd": 1, "adj": 1}:
+                    raise AssertionError(f"ScanBodyFn on {name} launched "
+                                         f"{launched}")
+                _require(max(err_state, err_coeff), BF16_GRAD_RTOL,
+                         f"bf16 kernel gradients on {name}")
+                worst["grad"] = max(worst["grad"], err_state, err_coeff)
+    print(f"[bf16-parity] tile paths: {i} cases in "
+          f"{time.perf_counter() - t0:.2f} s (host clock)")
+    return worst
 
 
 def phase_kernel_parity(device, dtype=torch.float32) -> dict:
@@ -747,34 +936,45 @@ def phase_times(device, engine) -> dict:
     return rows
 
 
-def phase_breakdown(device, engine) -> None:
+def phase_breakdown(device, params, dtype=torch.float32,
+                    tbs=BUCKETS) -> None:
     """Where a served sweep's time goes: the kernel alone (CUDA events) on
     the served program's body cut to one kind at a time — a lane CNOT
-    alone gives the launch, input and output — at each bucket."""
+    alone gives the launch, input and output — at each of ``tbs`` (the
+    buckets' inputs; in bf16 beside the FFMA yardstick's time)."""
     from qfedx_tpu_torch.circuits.encoders import angle_amplitudes
+    from qfedx_tpu_torch.ops import scan_body
     from qfedx_tpu_torch.ops.batched import bstate_product_tree
+    from qfedx_tpu_torch.ops.cpx import CArray
     from qfedx_tpu_torch.ops.fuse import ScanProgram, StackedOp
 
-    params = engine.params
+    bf = _is_bf16(dtype)
     program = hea_program(N_QUBITS, N_LAYERS, params["ansatz"]["rx"],
                           params["ansatz"]["rz"])
     bodies = [("cnot", (StackedOp("cnot", (7, 10), None, False),))]
     bodies += [(op.kind, (op,)) for op in program.body]
     bodies += [("+".join(op.kind for op in program.body), program.body)]
-    for b in BUCKETS:
+    for b in tbs:
         x = torch.as_tensor(
             np.random.default_rng(b).uniform(0, 1, (b, N_QUBITS)),
             dtype=torch.float32, device=device,
         )
         state = bstate_product_tree(angle_amplitudes(x * math.pi))
+        state = CArray(state.re.to(dtype), state.imag_or_zeros().to(dtype))
         parts = []
         with torch.no_grad():
             for name, body in bodies:
                 packed, spec, xs = kernel_inputs(
                     state, N_QUBITS, ScanProgram(program.pre, body, N_LAYERS))
-                parts.append(f"[{name}] {kernel_only_ms(packed, spec, xs):.5f}")
-        print(f"[time] breakdown at bucket {b} (kernel alone, {N_LAYERS} "
-              f"layers of one body, ms): {', '.join(parts)}")
+                part = f"[{name}] {kernel_only_ms(packed, spec, xs):.5f}"
+                if bf:
+                    cfg = scan_body.ffma_config(
+                        scan_body._launch_config(spec), spec)
+                    part += (f" (FFMA yardstick "
+                             f"{kernel_only_ms(packed, spec, xs, config=cfg):.5f})")
+                parts.append(part)
+        print(f"[time] {'bf16 ' if bf else ''}breakdown at tb={b} (kernel "
+              f"alone, {N_LAYERS} layers of one body, ms): {', '.join(parts)}")
 
 
 def fed_data():
@@ -1114,7 +1314,10 @@ def phase_trainer_shapes(device, n_val: int) -> dict:
 def time_launches(name, packed, spec, xs, cot, aspec, axs, errs,
                   launches) -> dict:
     """Kernel alone, wrapper call, plain version and bound of each of
-    ``launches`` at these inputs; one ``[time]`` line each."""
+    ``launches`` at these inputs; one ``[time]`` line each. A bf16 cluster
+    launch also times its FFMA yardstick (the earlier design, "earlier_ms")
+    and prints beside the bound the L2 bytes it moves as modelled from
+    the code (``l2_bytes``, not measured)."""
     from qfedx_tpu_torch.ops import scan_body
 
     rows = {}
@@ -1130,14 +1333,25 @@ def time_launches(name, packed, spec, xs, cot, aspec, axs, errs,
                              iters=10)
             bms, by = bound_ms(s, x, with_boundaries=bnd)
             flops, nbytes = sweep_work(s, x, with_boundaries=bnd)
-            rows[launch, s.tb] = {"ms": ms, "call_ms": call,
-                                  "plain_ms": plain, "bound_ms": bms,
-                                  "bound_by": by,
-                                  "max_abs_err": errs[launch]}
+            row = {"ms": ms, "call_ms": call, "plain_ms": plain,
+                   "bound_ms": bms, "bound_by": by,
+                   "max_abs_err": errs[launch]}
+            extra = ring = ""
+            cfg = scan_body._launch_config(s)
+            if cfg.products == "mma":
+                row["earlier_ms"] = kernel_only_ms(
+                    st, s, x, with_boundaries=bnd,
+                    config=scan_body.ffma_config(cfg, s))
+                ring = (f"; L2->SM bytes {l2_bytes(s, bnd):.4g}, modelled "
+                        f"from the code's slab count, not measured")
+                extra = (f", FFMA yardstick (the earlier design) "
+                         f"{row['earlier_ms']:.5f} ms")
+            rows[launch, s.tb] = row
             print(f"[time] Launch {launch} at {name}, tb={s.tb}: kernel "
                   f"alone {ms:.5f} ms, wrapper call {call:.5f} ms (CUDA "
                   f"events), plain {plain:.5f} ms, bound {bms:.5f} ms ({by}; "
-                  f"{flops:.4g} FLOP, {nbytes:.4g} B), {config_text(s)}")
+                  f"{flops:.4g} FLOP, {nbytes:.4g} B{ring}){extra}, "
+                  f"{config_text(s)}")
     return rows
 
 
@@ -1526,19 +1740,33 @@ def phase_bf16_serve(device, f32_served: dict) -> dict:
             "f32_diff": f32_diff, "params": params}
 
 
-def phase_bf16_times(device, params, f32_times: dict, f32_rows: dict
-                     ) -> dict:
-    """``[time]`` in bf16: Launch A at each bucket's served inputs and at
-    the evaluator's tb = 256, Launches B and C at the local step's
-    tb = 128 (G = 4) — kernel alone, wrapper call, plain version and the
-    bound (2 B per element, FLOP at the bf16 tensor-core rate) — each
-    beside the f32 kernel's time at the
+def phase_bf16_times(device, params, f32_times: dict, f32_rows: dict,
+                     f32_train: dict, n_val: int) -> dict:
+    """``[time]`` in bf16: Launch A at each bucket's served inputs, at the
+    evaluator's tb = 256 and the in-chunk evaluation's tb (the CLI run's
+    ``n_val`` = 78), Launches B
+    and C at the local step's tb = 128 (G = 4), and A, B and C at the
+    training shape tb = 32 (G = 2) — kernel alone, wrapper call, plain
+    version, the bound (2 B per element, FLOP at the bf16 tensor-core
+    rate) with the modelled L2 bytes, and the FFMA yardstick's time (the
+    earlier design, same call) — each beside the f32 kernel's time at the
     same shape (from the f32 phases of this run)."""
     from qfedx_tpu_torch.circuits.encoders import angle_amplitudes
     from qfedx_tpu_torch.ops import scan_body
     from qfedx_tpu_torch.ops.batched import bstate_product_tree
 
     rows = {}
+
+    def compare(launch, key, row, f32):
+        print(f"[time] bf16 Launch {launch} at {key}: kernel alone "
+              f"{row['ms']:.5f} ms vs f32 {f32['ms']:.5f} ms (bf16/f32 = "
+              f"{row['ms'] / f32['ms']:.3f}) and the FFMA yardstick "
+              f"{row['earlier_ms']:.5f} ms (mma/FFMA = "
+              f"{row['ms'] / row['earlier_ms']:.3f}); bound "
+              f"{row['bound_ms']:.5f} ms vs f32 {f32['bound_ms']:.5f} ms "
+              f"(bf16 kernel/bound = {row['ms'] / row['bound_ms']:.1f})")
+        rows[launch, key] = dict(row, f32_ms=f32["ms"])
+
     with bf16_pin(), torch.no_grad():
         program = hea_program(N_QUBITS, N_LAYERS, params["ansatz"]["rx"],
                               params["ansatz"]["rz"])
@@ -1556,31 +1784,26 @@ def phase_bf16_times(device, params, f32_times: dict, f32_rows: dict
             want = [scan_body.scan_body_plain(packed, spec, xs)]
             err, rel = _max_err(got, want), _rel_err(got, want)
             _require(rel, BF16_RTOL, f"bf16 kernel vs plain at bucket {b}")
-            ms = kernel_only_ms(packed, spec, xs)
-            call = event_ms(lambda: scan_body.scan_body(packed, spec, xs))
-            plain = event_ms(
-                lambda: scan_body.scan_body_plain(packed, spec, xs), iters=20)
-            bms, by = bound_ms(spec, xs)
-            flops, nbytes = sweep_work(spec, xs)
-            rows["A", f"bucket {b}"] = {
-                "ms": ms, "call_ms": call, "plain_ms": plain,
-                "bound_ms": bms, "bound_by": by, "max_abs_err": err}
             print(f"[time] bf16 bucket {b}: max|kernel-plain|={err:.3e}, "
                   f"||kernel-plain||/||plain||={rel:.3e} (rtol "
-                  f"{BF16_RTOL:g}), "
-                  f"kernel alone {ms:.5f} ms (f32 {f32_times[b]['ms']:.5f} "
-                  f"ms), wrapper call {call:.5f} ms, plain {plain:.5f} ms, "
-                  f"bound {bms:.5f} ms ({by}; {flops:.4g} FLOP, {nbytes:.4g}"
-                  f" B), {config_text(spec)}")
+                  f"{BF16_RTOL:g})")
+            row = time_launches(f"bf16 bucket {b}", packed, spec, xs, None,
+                                None, None, {"A": err}, "A")["A", b]
+            compare("A", f"bucket {b}", row, f32_times[b])
         rng = np.random.default_rng(31)
         rx, rz = (torch.as_tensor(rng.uniform(-2, 2, (N_LAYERS, N_QUBITS)),
                                   dtype=torch.float32, device=device)
                   for _ in range(2))
-        cases = [("hea n=12 L=3 G=1 (evaluator)",
-                  hea_program(N_QUBITS, N_LAYERS, rx, rz), EVAL_BATCH, "A"),
+        hea = hea_program(N_QUBITS, N_LAYERS, rx, rz)
+        cases = [("hea n=12 L=3 G=1 (evaluator)", hea, EVAL_BATCH, "A"),
                  ("hea n=12 L=3 G=4 (local step)",
                   hea_grouped_program(TRAIN_CLIENTS, 32, device),
-                  TRAIN_CLIENTS * TRAIN_BATCH, "BC")]
+                  TRAIN_CLIENTS * TRAIN_BATCH, "BC"),
+                 ("hea n=12 L=3 G=1 (in-chunk evaluation)", hea, n_val,
+                  "A"),
+                 ("hea n=12 L=3 G=2 (training shape)",
+                  hea_grouped_program(FED_CLIENTS, 35, device),
+                  FED_CLIENTS * FED_BATCH, "BC")]
         for i, (name, prog, tb, launches) in enumerate(cases):
             packed, spec, xs = kernel_inputs(
                 random_state(N_QUBITS, tb, device, seed=800 + i,
@@ -1610,14 +1833,9 @@ def phase_bf16_times(device, params, f32_times: dict, f32_rows: dict
             timed = time_launches(f"bf16 {name}", packed, spec, xs, cot,
                                   aspec, axs, errs, launches)
             for (launch, t), row in timed.items():
-                f32_ms = f32_rows[launch, t]["ms"]
-                print(f"[time] bf16 Launch {launch} at tb={t}: kernel alone "
-                      f"{row['ms']:.5f} ms vs f32 {f32_ms:.5f} ms "
-                      f"(bf16/f32 = {row['ms'] / f32_ms:.3f}), bound "
-                      f"{row['bound_ms']:.5f} ms vs f32 "
-                      f"{f32_rows[launch, t]['bound_ms']:.5f} ms (bf16 "
-                      f"kernel/bound = {row['ms'] / row['bound_ms']:.1f})")
-                rows[launch, f"tb={t}"] = row
+                f32 = (f32_train[launch] if t == FED_CLIENTS * FED_BATCH
+                       else f32_rows[launch, t])
+                compare(launch, f"tb={t}", row, f32)
     return rows
 
 
@@ -1702,7 +1920,7 @@ def main() -> int:
     grad_err = phase_grad_parity(device)
     served = phase_serve(device)
     times = phase_times(device, served["engine"])
-    phase_breakdown(device, served["engine"])
+    phase_breakdown(device, served["engine"].params)
     trained = phase_train(device)
     train_times = phase_train_times(device, trained)
     cli_shapes = expected_shapes(CLI_ARGV)
@@ -1710,9 +1928,13 @@ def main() -> int:
     bf16 = torch.bfloat16
     bf16_worst = phase_kernel_parity(device, bf16)
     bf16_grad_err = phase_grad_parity(device, bf16)
+    bf16_tiles = phase_bf16_tiles(device)
     bf16_served = phase_bf16_serve(device, served)
     bf16_times = phase_bf16_times(device, bf16_served["params"], times,
-                                  shapes["rows"])
+                                  shapes["rows"], train_times,
+                                  cli_shapes["n_val"])
+    phase_breakdown(device, bf16_served["params"], bf16,
+                    BUCKETS + (EVAL_BATCH,))
     root = Path(tempfile.mkdtemp(prefix="qfedx-smoke-"))
     try:
         cli_run = phase_cli_train(root, cli_shapes)
@@ -1769,8 +1991,9 @@ def main() -> int:
     }
 
     def bf16_entry(name, launch, key, replaces, tb):
-        # The bf16 instance at the bf16 CLI run's shape; the buckets'
-        # served shapes under "shapes".
+        # The bf16 instance (tensor-core products) at the bf16 CLI run's
+        # shape, its FFMA yardstick (the earlier design, timed in this
+        # run) under "earlier_ms"; the other shapes under "shapes".
         row = bf16_times[launch, f"tb={tb}"]
         return {
             "name": name,
@@ -1779,14 +2002,16 @@ def main() -> int:
             "replaces": f"{kernel} via _run :491 from {replaces} "
                         "(its bf16 instance: _run :498, _emit :279-282)",
             "launches": bf16_cli["launches"][key],
-            "max_abs_err": max(bf16_worst[launch],
+            "max_abs_err": max(bf16_worst[launch], bf16_tiles[launch],
                                *(r["max_abs_err"] for (lk, _), r in
                                  bf16_times.items() if lk == launch)),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                    "bound_by")},
             "library_ms": None,
+            "earlier_ms": row["earlier_ms"],
             "launches_by_path": {p: c[key] for p, c in bf16_paths.items()},
-            "shapes": {s: {k: r[k] for k in keys}
+            "shapes": {s: {k: r[k] for k in keys + (
+                "earlier_ms", "f32_ms")}
                        for (lk, s), r in bf16_times.items() if lk == launch},
         }
 
@@ -1820,7 +2045,9 @@ def main() -> int:
           f"{bf16_worst['A']:.3e} B {bf16_worst['B']:.3e} C "
           f"{bf16_worst['C']:.3e} (relative norm {bf16_worst['rel']:.3e});"
           f" gradient relative norm "
-          f"{bf16_grad_err:.3e}; served logits max|card-cpu| "
+          f"{bf16_grad_err:.3e}; tile paths: relative norm "
+          f"{bf16_tiles['rel']:.3e}, gradients {bf16_tiles['grad']:.3e}; "
+          "served logits max|card-cpu| "
           f"{bf16_served['logit_err']:.3e} (vs the f32 logits "
           f"{bf16_served['f32_diff']:.3e}); trained run served "
           f"max|card-cpu| {bf16_cli_served['logit_err']:.3e}")

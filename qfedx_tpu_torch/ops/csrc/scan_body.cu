@@ -17,8 +17,8 @@
 // element type laid out (L, G, gate...) per op (re, then im when
 // present), and the static rowperm indices in one int32 buffer.
 // glane/growmat compute only the branch each row / lane selects, a lane
-// CNOT is an index permutation, and every complex product is f32 FMAs
-// with f32 accumulation.
+// CNOT is an index permutation, and every complex product accumulates in
+// f32.
 //
 // Every instance comes in two element types (template parameter T), as
 // the reference's kernel is generic in the state's dtype: f32, and bf16
@@ -27,19 +27,25 @@
 // rounds each op's result to bf16 where the reference's _emit rounds it
 // (pallas_body.py:268-398): each of a complex product's four real
 // products, then their bf16 difference and sum; a mask's products; a
-// rowpair's running sum term by term; copies are exact. The bf16 instance
-// keeps f32 arithmetic on f32 CUDA cores (no bf16 tensor cores yet), so
-// its bound is the f32 one with half the bytes.
+// rowpair's running sum term by term; copies are exact. The bf16 cluster
+// instance runs its lane, glane, rowmat and growmat products on the
+// tensor cores (mma.sync bf16 with f32 accumulation,
+// scan_body_mma.cuh), as the reference's jnp.dot runs on the TPU's matrix
+// unit; its other ops, the bf16 global instance and every f32 instance
+// are f32 FMAs on the CUDA cores.
 //
-// Bound on an H100 (f32 CUDA cores, 67 TFLOP/s; HBM 3.35 TB/s): at the
-// served n=12, L=3 HEA body (glane + growmat, complex coefficients) the
-// useful work per block per layer is 8*R*128^2 + 8*R^2*128 FLOP = 5.24
-// MFLOP (R=32), 15.7 MFLOP per block for the sweep, 0.50 GFLOP at 32
-// blocks, against ~2.1 MB of state in+out and 0.84 MB of coefficients:
-// about 170 FLOP per byte, so the sweep is bound by operations (~7.5 us
-// at 32 blocks), not bytes. Tensor cores are not used: TF32 keeps ~3
-// decimal digits and the parity bounds are 1e-5. In bf16 the bytes halve
-// and the FLOP term stays.
+// Bound on an H100 (HBM 3.35 TB/s): at the served n=12, L=3 HEA body
+// (glane + growmat, complex coefficients) the useful work per block per
+// layer is 8*R*128^2 + 8*R^2*128 FLOP = 5.24 MFLOP (R=32), 15.7 MFLOP per
+// block for the sweep, 0.50 GFLOP at 32 blocks, against ~2.1 MB of state
+// in+out and 0.84 MB of coefficients: about 170 FLOP per byte. In f32
+// (CUDA cores, 67 TFLOP/s) the sweep is bound by operations (~7.5 us at
+// 32 blocks), not bytes; the f32 instance keeps off the tensor cores,
+// whose TF32 keeps ~3 decimal digits against parity bounds of 1e-5. In
+// bf16 the bytes halve and the FLOP run at the tensor cores' 989
+// TFLOP/s, so its bound is the bytes (or, at large tb, the FLOP); what
+// holds the bf16 cluster instance above it is the coefficients it
+// streams from L2 into every cluster (the ring, below), not HBM.
 //
 // Two instances; the wrapper picks one per (width, tb) before the launch
 // (ops/scan_body.py::_launch_config), never after a failure:
@@ -59,9 +65,10 @@
 //   loaded once per group of CTAs that need it and multicast to the
 //   group (bulk copies completing on one barrier per stage). Row
 //   products copy the state over distributed shared memory in coalesced
-//   chunks, beside their rows of the matrix. Threads hold register tiles
-//   of up to 8 rows x 1 lane, so each loaded coefficient serves several
-//   rows and each state load (a float4 broadcast) several terms; cluster
+//   chunks, beside their rows of the matrix. In f32 threads hold register
+//   tiles of up to 8 rows x 1 lane, so each loaded coefficient serves
+//   several rows and each state load (a float4 broadcast) several terms
+//   (in bf16, warps hold m16n8k16 tiles, scan_body_mma.cuh); cluster
 //   barriers stand only where an op reads other CTAs' rows or a stage is
 //   refilled.
 // - the GLOBAL instance (below), every wider width: one CTA per sample,
@@ -366,31 +373,36 @@ namespace {
 constexpr int ERR_CLUSTER_UNSCHEDULABLE = 100000;
 
 std::mutex config_mutex;
-// Per instance [bf16][BND]: the dynamic shared memory its attribute
-// allows, the non-portable cluster size switched on, and per K the
-// largest shared memory whose cluster was checked to fit the card.
-int smem_allowed[2][2];
-bool nonportable_on[2][2];
-int cluster_checked[2][2][MAX_CLUSTER + 1];
+// The cluster instances' codes, as the C entries take them: 0 = f32, 1 =
+// bf16 (tensor-core products), 2 = bf16 with FFMA products.
+template <class T, bool MMA>
+constexpr int CODE = IS_BF16<T> ? (MMA ? 1 : 2) : 0;
+// Per cluster instance [code][BND]: the dynamic shared memory its
+// attribute allows, the non-portable cluster size switched on, and per K
+// the largest shared memory whose cluster was checked to fit the card.
+int smem_allowed[3][2];
+bool nonportable_on[3][2];
+int cluster_checked[3][2][MAX_CLUSTER + 1];
 
 // Raise the cluster kernel's attributes to `smem` bytes of dynamic shared
 // memory and, above 8 CTAs, the non-portable cluster size (the caller
 // holds config_mutex).
-template <class T, bool BND>
+template <class T, bool BND, bool MMA>
 cudaError_t cluster_attrs(int cluster, int smem) {
-  auto kern = scan_body_cluster_kernel<T, BND>;
+  auto kern = scan_body_cluster_kernel<T, BND, MMA>;
+  constexpr int C = CODE<T, MMA>;
   cudaError_t err;
-  if (smem_allowed[IS_BF16<T>][BND] < smem) {  // the attribute only grows
+  if (smem_allowed[C][BND] < smem) {  // the attribute only grows
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    smem_allowed[IS_BF16<T>][BND] = smem;
+    smem_allowed[C][BND] = smem;
   }
-  if (cluster > 8 && !nonportable_on[IS_BF16<T>][BND]) {
+  if (cluster > 8 && !nonportable_on[C][BND]) {
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
-    nonportable_on[IS_BF16<T>][BND] = true;
+    nonportable_on[C][BND] = true;
   }
   return cudaSuccess;
 }
@@ -412,31 +424,37 @@ cudaLaunchConfig_t cluster_config(int tb, int cluster, int smem,
   return cfg;
 }
 
-template <class T, bool BND>
+template <class T, bool BND, bool MMA>
 int launch_cluster(const T* in_re, const T* in_im, T* out_re, T* out_im,
                    T* bnd_re, T* bnd_im, const int* desc, int n_ops,
                    const T* coeffs, const int* statics, int tb, int n,
                    int length, int cluster, int smem, cudaStream_t stream) {
-  auto kern = scan_body_cluster_kernel<T, BND>;
-  // What the state buffers (f32) and the descriptor table leave of `smem`
-  // is the stage region, in units of UNIT_ELEMS elements of T
-  // (ops/scan_body.py::_cluster_smem sizes it).
+  auto kern = scan_body_cluster_kernel<T, BND, MMA>;
+  constexpr bool TC = IS_BF16<T> && MMA;
+  constexpr int C = CODE<T, MMA>;
+  // What the state buffers (f32), the tensor-core instance's bf16 copy of
+  // its rows and the descriptor table leave of `smem` is the stage region,
+  // in units of UNIT_ELEMS elements of T (ops/scan_body.py::_cluster_smem
+  // sizes it).
   const int rk = (1 << (n - LANE_BITS)) / cluster;
-  const int units = (smem - 2 * 2 * rk * LANES * 4 - n_ops * DESC_W * 4) /
+  const int opnd_bytes = TC ? 2 * rk * OPND_PITCH * (int)sizeof(T) : 0;
+  const int units = (smem - 2 * 2 * rk * LANES * 4 - opnd_bytes -
+                     n_ops * DESC_W * 4) /
                     (UNIT_ELEMS * (int)sizeof(T));
-  if (units < 4 || units > MAX_UNITS) return (int)cudaErrorInvalidValue;
+  if (units < 4 || units > (TC ? MMA_MAX_UNITS : MAX_UNITS))
+    return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = cluster_config(tb, cluster, smem, stream, attr);
   {
     std::lock_guard<std::mutex> lock(config_mutex);
-    cudaError_t err = cluster_attrs<T, BND>(cluster, smem);
+    cudaError_t err = cluster_attrs<T, BND, MMA>(cluster, smem);
     if (err != cudaSuccess) return (int)err;
-    if (cluster_checked[IS_BF16<T>][BND][cluster] < smem) {
+    if (cluster_checked[C][BND][cluster] < smem) {
       int active = 0;
       err = cudaOccupancyMaxActiveClusters(&active, (const void*)kern, &cfg);
       if (err != cudaSuccess) return (int)err;
       if (active < 1) return ERR_CLUSTER_UNSCHEDULABLE;
-      cluster_checked[IS_BF16<T>][BND][cluster] = smem;
+      cluster_checked[C][BND][cluster] = smem;
     }
   }
   cudaError_t err = cudaLaunchKernelEx(&cfg, kern, in_re, in_im, out_re,
@@ -447,7 +465,7 @@ int launch_cluster(const T* in_re, const T* in_im, T* out_re, T* out_im,
   return (int)cudaGetLastError();
 }
 
-template <class T>
+template <class T, bool MMA>
 int launch(const void* in_re, const void* in_im, void* out_re, void* out_im,
            void* tmp_re, void* tmp_im, void* bnd_re, void* bnd_im,
            const int* desc, int n_ops, const void* coeffs,
@@ -463,12 +481,14 @@ int launch(const void* in_re, const void* in_im, void* out_re, void* out_im,
   if (cluster > 0) {
     if (cluster > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
     if (br != nullptr)
-      return launch_cluster<T, true>(ir, ii, orr, oi, br, bi, desc, n_ops, c,
-                                     statics, tb, n, length, cluster, smem,
-                                     st);
-    return launch_cluster<T, false>(ir, ii, orr, oi, br, bi, desc, n_ops, c,
-                                    statics, tb, n, length, cluster, smem, st);
+      return launch_cluster<T, true, MMA>(ir, ii, orr, oi, br, bi, desc,
+                                          n_ops, c, statics, tb, n, length,
+                                          cluster, smem, st);
+    return launch_cluster<T, false, MMA>(ir, ii, orr, oi, br, bi, desc,
+                                         n_ops, c, statics, tb, n, length,
+                                         cluster, smem, st);
   }
+  if (IS_BF16<T> && !MMA) return (int)cudaErrorInvalidValue;  // cluster only
   if (br != nullptr)
     scan_body_kernel<T, true><<<tb, THREADS, 0, st>>>(
         ir, ii, orr, oi, (T*)tmp_re, (T*)tmp_im, br, bi, desc, n_ops, c,
@@ -480,22 +500,24 @@ int launch(const void* in_re, const void* in_im, void* out_re, void* out_im,
   return (int)cudaGetLastError();
 }
 
-template <class T>
+template <class T, bool MMA>
 int max_clusters(int cluster, int smem, int* active) {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = cluster_config(1, cluster, smem, nullptr, attr);
   std::lock_guard<std::mutex> lock(config_mutex);
-  cudaError_t err = cluster_attrs<T, false>(cluster, smem);
+  cudaError_t err = cluster_attrs<T, false, MMA>(cluster, smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveClusters(
-      active, (const void*)scan_body_cluster_kernel<T, false>, &cfg);
+      active, (const void*)scan_body_cluster_kernel<T, false, MMA>, &cfg);
 }
 
-template <class T>
+template <class T, bool MMA>
 cudaError_t attrs_of(cudaFuncAttributes* a, int cluster, int bnd) {
   if (cluster)
-    return bnd ? cudaFuncGetAttributes(a, scan_body_cluster_kernel<T, true>)
-               : cudaFuncGetAttributes(a, scan_body_cluster_kernel<T, false>);
+    return bnd ? cudaFuncGetAttributes(
+                     a, scan_body_cluster_kernel<T, true, MMA>)
+               : cudaFuncGetAttributes(
+                     a, scan_body_cluster_kernel<T, false, MMA>);
   return bnd ? cudaFuncGetAttributes(a, scan_body_kernel<T, true>)
              : cudaFuncGetAttributes(a, scan_body_kernel<T, false>);
 }
@@ -505,7 +527,10 @@ cudaError_t attrs_of(cudaFuncAttributes* a, int cluster, int bnd) {
 // Plain C entry (bound with ctypes). Pointers are device pointers; the
 // kernel runs on `stream` and is not synchronised. `dtype` names the
 // element type of the state, boundaries and coefficients: 0 = f32, 1 =
-// bf16 (the instance of that type runs; there is no conversion).
+// bf16 (the instance of that type runs; there is no conversion; the bf16
+// cluster instance takes its lane and row products on the tensor cores),
+// 2 = bf16 on the cluster instance with FFMA products (the earlier
+// design, a yardstick for timing; the wrapper never launches it).
 // bnd_re/bnd_im are both null (no boundaries) or both (L, tb, R, 128)
 // outputs. `cluster` = 0 launches the global instance (tmp_re/tmp_im: a
 // scratch block like the output); `cluster` = K >= 1 launches the cluster
@@ -524,13 +549,17 @@ extern "C" int qfx_scan_body_launch(const void* in_re, const void* in_im,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(in_re, in_im, out_re, out_im, tmp_re, tmp_im,
-                         bnd_re, bnd_im, desc, n_ops, coeffs, statics, tb, n,
-                         length, st, cluster, smem);
+    return launch<float, false>(in_re, in_im, out_re, out_im, tmp_re, tmp_im,
+                                bnd_re, bnd_im, desc, n_ops, coeffs, statics,
+                                tb, n, length, st, cluster, smem);
   if (dtype == 1)
-    return launch<bf16>(in_re, in_im, out_re, out_im, tmp_re, tmp_im,
-                        bnd_re, bnd_im, desc, n_ops, coeffs, statics, tb, n,
-                        length, st, cluster, smem);
+    return launch<bf16, true>(in_re, in_im, out_re, out_im, tmp_re, tmp_im,
+                              bnd_re, bnd_im, desc, n_ops, coeffs, statics,
+                              tb, n, length, st, cluster, smem);
+  if (dtype == 2)
+    return launch<bf16, false>(in_re, in_im, out_re, out_im, tmp_re, tmp_im,
+                               bnd_re, bnd_im, desc, n_ops, coeffs, statics,
+                               tb, n, length, st, cluster, smem);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -540,8 +569,9 @@ extern "C" int qfx_scan_body_launch(const void* in_re, const void* in_im,
 // error (0 = filled).
 extern "C" int qfx_scan_body_max_clusters(int cluster, int smem, int dtype,
                                           int* active) {
-  if (dtype == 0) return max_clusters<float>(cluster, smem, active);
-  if (dtype == 1) return max_clusters<bf16>(cluster, smem, active);
+  if (dtype == 0) return max_clusters<float, false>(cluster, smem, active);
+  if (dtype == 1) return max_clusters<bf16, true>(cluster, smem, active);
+  if (dtype == 2) return max_clusters<bf16, false>(cluster, smem, active);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -555,9 +585,11 @@ extern "C" int qfx_scan_body_attrs(int cluster, int bnd, int dtype,
   cudaFuncAttributes a;
   cudaError_t err;
   if (dtype == 0)
-    err = attrs_of<float>(&a, cluster, bnd);
+    err = attrs_of<float, false>(&a, cluster, bnd);
   else if (dtype == 1)
-    err = attrs_of<bf16>(&a, cluster, bnd);
+    err = attrs_of<bf16, true>(&a, cluster, bnd);
+  else if (dtype == 2 && cluster)
+    err = attrs_of<bf16, false>(&a, cluster, bnd);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

@@ -9,8 +9,11 @@
 // buffer), as f32 in both instances: the bf16 instance (T = bf16) reads
 // bf16 from global memory, rounds each op's result to bf16 (rnd) and
 // keeps the rounded values as f32, so that the buffers and K are those
-// of f32; only its ring holds bf16 (the coefficients as they lie in
-// global memory, converted when read). Interleaving puts the lowest row
+// of f32. Its ring holds bf16 (the coefficients as they lie in global
+// memory), and its lane and row products run on the tensor cores
+// (scan_body_mma.cuh: the ring's rows padded for ldmatrix, and a bf16
+// copy of the CTA's rows as the operand); cl_lane and cl_row below are
+// the f32 instance's FFMA products. Interleaving puts the lowest row
 // bits — the selecting bit of the ansatz's glane — in the rank, so such
 // a CTA needs one branch matrix, not two. Row-local ops (lane, glane,
 // mask, a lane/lane CNOT, a row-control/lane-target CNOT) read only the
@@ -36,7 +39,8 @@ constexpr int MAX_CLUSTER = 16;
 // through shared memory, in units of UNIT_ELEMS elements of the launch's
 // type T: one slab of JS rows of one 128x128 branch matrix, re and im.
 // The launch gives it what the state leaves of the block's shared
-// memory, 4 to 8 units (128 KB in f32, 64 KB in bf16).
+// memory, 4 to 8 units (128 KB in f32, 64 KB in bf16; the bf16
+// tensor-core instance up to 16, 128 KB).
 constexpr int JS = 16;
 constexpr int NSLAB = LANES / JS;
 constexpr int UNIT_ELEMS = 2 * JS * LANES;
@@ -510,11 +514,21 @@ __device__ void cl_row_any(float* const* rbase, int sb, float* d_re,
     cl_row<T, 1, HAS_IM>(rbase, sb, d_re, d_im, mre, mim, stage, sl, shift);
 }
 
+}  // namespace qfx
+
+#include "scan_body_mma.cuh"
+
+namespace qfx {
+
 // grid = tb * K CTAs in clusters of K (launched with the cluster
 // attribute); dynamic shared memory = 2 buffers x (re, im) x RK x 128
 // floats, then the stage region of `units` x UNIT_ELEMS elements of T,
-// then the n_ops x DESC_W descriptor table.
-template <class T, bool BND>
+// then the n_ops x DESC_W descriptor table. The tensor-core instance
+// (T = bf16, MMA) takes up to MMA_MAX_UNITS units and, before the table,
+// the bf16 copy of its rows (2 x RK x OPND_PITCH elements). MMA = false with
+// T = bf16 is the FFMA design of the bf16 products, kept as a yardstick
+// that chip_smoke.py times beside the tensor-core instance.
+template <class T, bool BND, bool MMA>
 __global__ void __launch_bounds__(CL_THREADS, 1)
 scan_body_cluster_kernel(const T* __restrict__ in_re,
                          const T* __restrict__ in_im, T* out_re, T* out_im,
@@ -546,9 +560,11 @@ scan_body_cluster_kernel(const T* __restrict__ in_re,
   const size_t size = (size_t)1 << n;
   const size_t boff = (size_t)b * size;
 
+  constexpr bool TC = IS_BF16<T> && MMA;  // products on the tensor cores
   float* stage = smem + 4 * part;
   T* tstage = reinterpret_cast<T*>(stage);  // the lane products' ring
-  int* desc = reinterpret_cast<int*>(tstage + units * UNIT_ELEMS);
+  T* opnd = tstage + units * UNIT_ELEMS;
+  int* desc = reinterpret_cast<int*>(opnd + (TC ? 2 * rk * OPND_PITCH : 0));
   for (int i = tid; i < n_ops * DESC_W; i += CL_THREADS) desc[i] = desc_g[i];
   if (tid < kcl) rbase[tid] = cluster.map_shared_rank(smem, tid);
   if (tid == 0) {
@@ -616,7 +632,14 @@ scan_body_cluster_kernel(const T* __restrict__ in_re,
         case K_LANE:
         case K_GLANE: {
           const int bit = kind == K_GLANE ? rbits - 1 - q0 : -1;
-          if (cim)
+          if constexpr (TC) {
+            if (cim)
+              tc_lane_any<true>(s_re, s_im, d_re, d_im, cre, cim, tstage,
+                                opnd, sl, cluster, kcl, bit, phase);
+            else
+              tc_lane_any<false>(s_re, s_im, d_re, d_im, cre, cim, tstage,
+                                 opnd, sl, cluster, kcl, bit, phase);
+          } else if (cim)
             cl_lane_any<T, true>(s_re, s_im, d_re, d_im, cre, cim, tstage,
                                  sl, cluster, kcl, bit, phase);
           else
@@ -627,7 +650,14 @@ scan_body_cluster_kernel(const T* __restrict__ in_re,
         case K_ROWMAT:
         case K_GROWMAT: {
           const int shift = kind == K_GROWMAT ? n - 1 - q0 : -1;
-          if (cim)
+          if constexpr (TC) {
+            if (cim)
+              tc_row_any<true>(rbase, cur, d_re, d_im, cre, cim, tstage, sl,
+                               shift);
+            else
+              tc_row_any<false>(rbase, cur, d_re, d_im, cre, cim, tstage, sl,
+                                shift);
+          } else if (cim)
             cl_row_any<T, true>(rbase, cur, d_re, d_im, cre, cim, stage, sl,
                                 shift);
           else

@@ -16,7 +16,9 @@ an f32 and a bf16 instance, chosen by the state's dtype (the spec's
 ``dtype``): the bf16 one reads and writes bf16 in global memory, takes
 the coefficients rounded to bf16 as the reference's ``_coeff_operands``
 does, accumulates every product in f32 and rounds each op's result to
-bf16 where the reference's ``_emit`` rounds. ``_launch_config`` picks the
+bf16 where the reference's ``_emit`` rounds; the bf16 cluster instance
+takes its lane and row products on the tensor cores (bf16 ``mma`` with f32
+accumulation, ``csrc/scan_body_mma.cuh``). ``_launch_config`` picks the
 instance and K from the width, tb and dtype alone, before the launch
 (see the source's header for the design and its bound).
 
@@ -145,7 +147,6 @@ class _KernelSpec(NamedTuple):
 # The kernel's element types: the state, the boundaries and the packed
 # coefficients of one launch share one.
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_DTYPE_CODE = {"float32": 0, "bfloat16": 1}  # csrc/scan_body.cu
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -300,30 +301,53 @@ class LaunchConfig(NamedTuple):
     cluster: int           # K, CTAs per sample (1 for "global")
     smem: int              # dynamic shared memory per CTA, bytes
     dtype: str = "float32"  # the instance's element type
+    # Where the lane and row products run: "mma" (bf16 tensor cores: the
+    # bf16 cluster instance) or "ffma" (f32 FMAs: every other instance).
+    products: str = "ffma"
 
 
 # The cluster instance's stage region (csrc/scan_body_cluster.cuh) comes
 # in units of one 16-row slab of a 128×128 matrix, re and im, in the
 # launch's element type (the ring holds the coefficients as they lie in
-# global memory); it takes 4 to 8 units. The state in shared memory is
-# f32 in both instances (in bf16, values already rounded to bf16).
-_MIN_UNITS, _MAX_UNITS = 4, 8
+# global memory); it takes 4 to 8 units, with its products on the tensor
+# cores (the bf16 instance, csrc/scan_body_mma.cuh) up to 16, so that each
+# slab of a glane's two branches has a stage of its own. The state in
+# shared memory is f32 in both instances (in bf16, values already rounded
+# to bf16); the tensor-core instance adds a bf16 copy of the CTA's rows,
+# _OPND_PITCH elements apart (re, then im), before the descriptor table.
+_MIN_UNITS, _MAX_UNITS, _MMA_MAX_UNITS = 4, 8, 16
+_OPND_PITCH = _LANES + 8
 
 
 def _unit_bytes(dtype: str) -> int:
     return 2 * 16 * _LANES * _DTYPES[dtype].itemsize
 
 
-def _cluster_smem(spec: _KernelSpec, k: int) -> int | None:
+def _products(dtype: str) -> str:
+    """Where the cluster instance of ``dtype`` runs its lane and row
+    products."""
+    return "mma" if dtype == "bfloat16" else "ffma"
+
+
+def _cluster_smem(spec: _KernelSpec, k: int,
+                  products: str | None = None) -> int | None:
     """Dynamic shared memory of one CTA of the cluster instance, or None
     where it does not fit: two ping-pong buffers of its R/K rows (re and
-    im, f32), the descriptor table, and a stage region of as many units as
-    the rest of the block's shared memory holds, 4 to 8 (128 KB in f32,
-    64 KB in bf16)."""
+    im, f32), with tensor-core products ("mma", the bf16 instance) the
+    bf16 copy of those rows, the descriptor table, and a stage region of
+    as many units as the rest of the block's shared memory holds, 4 to 8
+    (128 KB in f32, 64 KB in bf16; with "mma" 4 to 16, 128 KB).
+    ``products`` defaults to the dtype's (``_products``); "ffma" in bf16
+    sizes the earlier FFMA design."""
+    products = products or _products(spec.dtype)
     rows = (1 << (spec.n - _LANE_BITS)) // k
     fixed = 2 * 2 * rows * _LANES * 4 + len(spec.ops) * _DESC_W * 4
+    most = _MAX_UNITS
+    if products == "mma":
+        fixed += 2 * rows * _OPND_PITCH * _DTYPES[spec.dtype].itemsize
+        most = _MMA_MAX_UNITS
     unit = _unit_bytes(spec.dtype)
-    units = min(_MAX_UNITS, (_SMEM_LIMIT - fixed) // unit)
+    units = min(most, (_SMEM_LIMIT - fixed) // unit)
     if units < _MIN_UNITS:
         return None
     return fixed + units * unit
@@ -349,11 +373,31 @@ def _launch_config(spec: _KernelSpec) -> LaunchConfig:
     ]
     if not fits:
         return LaunchConfig("global", 1, 0, spec.dtype)
+    products = _products(spec.dtype)
     for k, smem in fits:
         if spec.tb <= _RESIDENT[k]:
-            return LaunchConfig("cluster", k, smem, spec.dtype)
+            return LaunchConfig("cluster", k, smem, spec.dtype, products)
     k, smem = fits[-1]
-    return LaunchConfig("cluster", k, smem, spec.dtype)
+    return LaunchConfig("cluster", k, smem, spec.dtype, products)
+
+
+def ffma_config(cfg: LaunchConfig, spec: _KernelSpec) -> LaunchConfig:
+    """``cfg`` on the bf16 cluster instance's earlier design, its lane and
+    row products as FFMAs (same K, the FFMA ring's shared memory): a
+    yardstick ``prepare_launch`` takes for timing; ``scan_body`` never
+    launches it."""
+    if cfg.instance != "cluster" or cfg.dtype != "bfloat16":
+        raise ValueError(f"no FFMA yardstick for {cfg}")
+    return cfg._replace(smem=_cluster_smem(spec, cfg.cluster, "ffma"),
+                        products="ffma")
+
+
+def _instance_code(cfg: LaunchConfig) -> int:
+    """The C entries' instance code (csrc/scan_body.cu): 0 = f32, 1 =
+    bf16, 2 = bf16 cluster with FFMA products."""
+    if cfg.dtype == "float32":
+        return 0
+    return 2 if cfg.instance == "cluster" and cfg.products == "ffma" else 1
 
 
 def _check_coeffs(spec: _KernelSpec, xs, device) -> None:
@@ -386,17 +430,57 @@ def _check_coeffs(spec: _KernelSpec, xs, device) -> None:
                 )
 
 
-def _pack_coeffs(spec: _KernelSpec, xs) -> torch.Tensor:
+def _ring_swizzle(x: torch.Tensor) -> torch.Tensor:
+    """128×128 lane matrices (the last two axes) with each row's 16-byte
+    chunks permuted as the tensor-core instance's ring reads them: chunk c
+    of row j stored at chunk c ^ (j mod 8), so that the eight rows of an
+    ldmatrix tile fall in eight bank groups (csrc/scan_body_mma.cuh). The
+    permutation is its own inverse."""
+    j = torch.arange(_LANES, device=x.device)[:, None]
+    k = torch.arange(_LANES, device=x.device)[None, :]
+    perm = (j * _LANES + ((k >> 3) ^ (j & 7)) * 8 + (k & 7)).reshape(-1)
+    flat = x.reshape(-1, _LANES * _LANES)
+    return flat[:, perm].reshape(x.shape)
+
+
+@functools.lru_cache(maxsize=16)
+def _swizzle_index(spec: _KernelSpec, device: torch.device) -> torch.Tensor:
+    """The int32 gather index that takes ``spec``'s packed coefficients
+    to the tensor-core instance's layout: the identity, with every lane
+    and glane matrix through ``_ring_swizzle``. Built once per spec and
+    device, so a launch pays one gather over its coefficients."""
+    desc, total, _ = _layout(spec)
+    idx = torch.arange(total, dtype=torch.int32)
+    for op, row in zip(spec.ops, desc):
+        if not (op.stacked and op.kind in ("lane", "glane")):
+            continue
+        block = spec.length * op.groups * int(row[6])
+        for off in (int(row[3]), int(row[4])):
+            if off >= 0:
+                part = idx[off:off + block]
+                part.copy_(_ring_swizzle(part.view(-1, _LANES, _LANES))
+                           .reshape(-1))
+    return idx.to(device)
+
+
+def _pack_coeffs(spec: _KernelSpec, xs,
+                 swizzle: bool = False) -> torch.Tensor:
     """Every stacked op's (L, G, gate...) re (then im) in one buffer of
     the launch's dtype, in descriptor order: in bf16 each coefficient is
-    rounded to bf16 here, as the reference's ``_coeff_operands`` casts."""
+    rounded to bf16 here, as the reference's ``_coeff_operands`` casts.
+    ``swizzle`` (the tensor-core instance) stores the lane and glane
+    matrices through ``_ring_swizzle``: one concatenation, one gather
+    (``_swizzle_index``) and one rounding."""
     dt = _DTYPES[spec.dtype]
     parts = []
     for c in xs:
-        parts.append(c.re.reshape(-1).to(dt))
+        parts.append(c.re.reshape(-1))
         if c.im is not None:
-            parts.append(c.im.reshape(-1).to(dt))
-    return torch.cat(parts).contiguous()
+            parts.append(c.im.reshape(-1))
+    if swizzle:
+        flat = torch.cat(parts)
+        return flat.index_select(0, _swizzle_index(spec, flat.device)).to(dt)
+    return torch.cat([p.to(dt) for p in parts]).contiguous()
 
 
 # --- the kernel library -----------------------------------------------------
@@ -542,19 +626,22 @@ class _Prepared(NamedTuple):
 
 
 def prepare_launch(packed, spec: _KernelSpec, xs,
-                   with_boundaries: bool = False) -> _Prepared:
+                   with_boundaries: bool = False,
+                   config: LaunchConfig | None = None) -> _Prepared:
     """Pack ``xs`` (rounded to the spec's dtype), allocate the output,
     scratch and boundary buffers, and bind the launch's arguments (CUDA
     tensors). The state, the coefficients and the outputs share the
     spec's dtype, which selects the instance; a state of another dtype
-    raises."""
+    raises. ``config`` replaces ``_launch_config(spec)`` (a timing
+    yardstick, ``ffma_config``)."""
     if _dtype_name(packed.dtype) != spec.dtype:
         raise TypeError(f"a {packed.dtype} state for a {spec.dtype} launch")
     lib = load_kernel()
-    cfg = _launch_config(spec)
+    cfg = config or _launch_config(spec)
     desc, statics = _device_tables(spec, packed.device)
-    coeffs = (_pack_coeffs(spec, xs) if xs  # static ops only: none read
-              else torch.zeros(1, dtype=packed.dtype, device=packed.device))
+    coeffs = (_pack_coeffs(spec, xs, cfg.products == "mma") if xs
+              else torch.zeros(1, dtype=packed.dtype,  # static ops only
+                               device=packed.device))
     out = torch.empty_like(packed)
     half = spec.tb * (1 << spec.n) * packed.element_size()
     tmp = tmp_re = tmp_im = None
@@ -579,7 +666,7 @@ def prepare_launch(packed, spec: _KernelSpec, xs,
         coeffs.data_ptr(), statics.data_ptr(),
         spec.tb, spec.n, spec.length, packed.device.index or 0, stream,
         cfg.cluster if cfg.instance == "cluster" else 0, cfg.smem,
-        _DTYPE_CODE[spec.dtype],
+        _instance_code(cfg),
     )
     return _Prepared(lib, args, (packed, desc, statics, coeffs, tmp), out,
                      bnd, cfg)
@@ -604,7 +691,7 @@ def resident_clusters(cfg: LaunchConfig) -> int:
     lib = load_kernel()
     active = ctypes.c_int()
     err = lib.qfx_scan_body_max_clusters(cfg.cluster, cfg.smem,
-                                         _DTYPE_CODE[cfg.dtype],
+                                         _instance_code(cfg),
                                          ctypes.byref(active))
     if err != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error "
@@ -615,12 +702,16 @@ def resident_clusters(cfg: LaunchConfig) -> int:
 def instance_attrs() -> dict:
     """Registers, local-memory (spill) bytes and static shared memory of
     each compiled instance, as the runtime reports them (bf16 instances
-    under a ``_bf16`` suffix)."""
+    under a ``_bf16`` suffix; the bf16 cluster instance's FFMA yardstick
+    under ``_bf16_ffma``)."""
     lib = load_kernel()
     out = {}
-    for dtype, code in _DTYPE_CODE.items():
-        sfx = "_bf16" if dtype == "bfloat16" else ""
-        for name, cluster in (("global", 0), ("cluster", 1)):
+    for sfx, code, names in (
+        ("", 0, ("global", "cluster")), ("_bf16", 1, ("global", "cluster")),
+        ("_bf16_ffma", 2, ("cluster",)),
+    ):
+        for name in names:
+            cluster = int(name == "cluster")
             for bnd in (0, 1):
                 vals = [ctypes.c_int() for _ in range(3)]
                 err = lib.qfx_scan_body_attrs(

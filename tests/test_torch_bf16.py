@@ -486,8 +486,10 @@ def _spec_of(n, tb, dtype):
 def test_launch_config_bf16(n, tb, monkeypatch):
     """The bf16 instance's configuration, a pure function of the spec:
     the same instance and K as f32 (the shared-memory state is f32 in
-    both), a ring of 8 KB units (16-row bf16 slabs, re and im), and so
-    less shared memory; the dtype names the instance."""
+    both), a ring of 8 KB units (16-row bf16 slabs, re and im) beside a
+    bf16 copy of the CTA's rows, so more shared memory than f32 at some
+    shapes, but still one CTA per SM as f32, which ``_RESIDENT``
+    assumes; the dtype names the instance."""
     def no_cuda(*a, **k):
         raise AssertionError("_launch_config touched the card")
 
@@ -501,13 +503,133 @@ def test_launch_config_bf16(n, tb, monkeypatch):
     assert (cfg.instance == "cluster") == (n <= 17)
     if cfg.instance == "cluster":
         rows = (1 << (n - 7)) // cfg.cluster
-        fixed = 16 * rows * 128 + 2 * 8 * 4
+        # f32 rows, their bf16 copy at 272 B a row, the descriptors
+        fixed = 16 * rows * 128 + 2 * rows * 272 + 2 * 8 * 4
         units, rest = divmod(cfg.smem - fixed, 8192)
-        assert rest == 0 and 4 <= units <= 8
-        assert units == 8 or cfg.smem + 8192 > 232_448
-        assert cfg.smem <= ref.smem
+        assert rest == 0 and 4 <= units <= 16
+        assert units == 16 or cfg.smem + 8192 > 232_448
+        assert cfg.products == "mma"
+        # one CTA per SM in both dtypes: two never share an SM's 228 KB
+        assert cfg.smem <= 232_448 and ref.smem <= 232_448
+        assert 2 * cfg.smem > 232_448 and 2 * ref.smem > 232_448
     else:
         assert (cfg.cluster, cfg.smem) == (1, 0)
+        assert cfg.products == "ffma"
+
+
+@pytest.mark.parametrize("tb", [1, 8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("n", list(range(10, 18)))
+def test_launch_config_bf16_tensor_cores(n, tb, monkeypatch):
+    """Every bf16 cluster launch (n = 10-17) runs its lane and row
+    products on the tensor cores, chosen from the spec alone: K and rows
+    per CTA as f32, up to 16 ring units of 8192 B with the bf16 copy of
+    the CTA's rows (272 B a row) before the descriptors, and the FFMA
+    yardstick (``ffma_config``) at the earlier design's 4 to 8 units on
+    the same K; the C entries' codes tell the three apart."""
+    def no_cuda(*a, **k):
+        raise AssertionError("_launch_config touched the card")
+
+    monkeypatch.setattr(scan_body, "load_kernel", no_cuda)
+    monkeypatch.setattr(torch.cuda, "is_available", no_cuda)
+    scan_body._launch_config.cache_clear()
+    spec = _spec_of(n, tb, "bfloat16")
+    cfg = scan_body._launch_config(spec)
+    f32 = scan_body._launch_config(_spec_of(n, tb, "float32"))
+    assert (cfg.instance, cfg.cluster, cfg.products) == (
+        "cluster", f32.cluster, "mma")
+    rk = (1 << (n - 7)) // cfg.cluster
+    assert rk in (1, 2, 4, 8, 16, 32, 64)
+    fixed = 16 * rk * 128 + 2 * rk * 272 + 2 * 8 * 4
+    units = min(16, (232_448 - fixed) // 8192)
+    assert cfg.smem == scan_body._cluster_smem(spec, cfg.cluster) == (
+        fixed + units * 8192)
+    assert 4 <= units
+    if rk <= 32:  # both glane branches' eight slabs in flight at once
+        assert units == 16
+    ffma = scan_body.ffma_config(cfg, spec)
+    ffma_fixed = 16 * rk * 128 + 2 * 8 * 4
+    assert (ffma.cluster, ffma.products) == (cfg.cluster, "ffma")
+    assert ffma.smem == ffma_fixed + min(
+        8, (232_448 - ffma_fixed) // 8192) * 8192
+    assert [scan_body._instance_code(c) for c in (f32, cfg, ffma)] == [
+        0, 1, 2]
+
+
+def test_ring_swizzle_is_the_kernels_layout():
+    """``_ring_swizzle`` stores element (j, k) of every lane matrix at
+    j*128 + ((k/8) ^ (j mod 8))*8 + k mod 8 (the address the tensor-core
+    instance's ldmatrix reads), is its own inverse, and the packing
+    applies it to lane and glane matrices only, in the tensor-core
+    instance only."""
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(3, 2, 128, 128)),
+                        dtype=torch.float32)
+    y = scan_body._ring_swizzle(x)
+    j, k = np.meshgrid(np.arange(128), np.arange(128), indexing="ij")
+    flat = (j * 128 + ((k // 8) ^ (j % 8)) * 8 + k % 8).reshape(-1)
+    assert torch.equal(y.reshape(6, -1)[:, flat], x.reshape(6, -1))
+    assert torch.equal(scan_body._ring_swizzle(y), x)
+    _, oprog = _hea_programs(12, 3, None, seed=1)
+    (_, _, _), (spec, _, xs) = _kernel_inputs(
+        12, _hea_programs(12, 3, None, seed=1)[0], oprog, seed=2)
+    plain = scan_body._pack_coeffs(spec, xs)
+    swz = scan_body._pack_coeffs(spec, xs, swizzle=True)
+    want = []
+    for op, c in zip([op for op in spec.ops if op.stacked], xs):
+        for p in (c.re, c.im):
+            p = p.to(torch.bfloat16)
+            if op.kind in ("lane", "glane"):
+                p = scan_body._ring_swizzle(p)
+            want.append(p.reshape(-1))
+    assert torch.equal(swz, torch.cat(want))
+    assert not torch.equal(swz, plain)
+    assert torch.equal(torch.sort(swz.float())[0],
+                       torch.sort(plain.float())[0])
+
+
+def test_swizzle_index_is_built_once_per_spec():
+    """The tensor-core packing's gather index is cached per (spec,
+    device), so a launch pays one gather and no index build; it is the
+    identity outside the lane and glane matrices and an involution."""
+    _, oprog = _hea_programs(12, 3, None, seed=1)
+    (_, _, _), (spec, _, xs) = _kernel_inputs(
+        12, _hea_programs(12, 3, None, seed=1)[0], oprog, seed=2)
+    scan_body._swizzle_index.cache_clear()
+    cpu = torch.device("cpu")
+    idx = scan_body._swizzle_index(spec, cpu)
+    assert scan_body._swizzle_index(spec, cpu) is idx
+    total = scan_body._layout(spec)[1]
+    assert idx.dtype == torch.int32 and idx.shape == (total,)
+    ident = torch.arange(total, dtype=torch.int32)
+    assert torch.equal(idx[idx.long()], ident)
+    moved = torch.zeros(total, dtype=torch.bool)
+    desc = scan_body._layout(spec)[0]
+    for op, row in zip(spec.ops, desc):
+        if op.stacked and op.kind in ("lane", "glane"):
+            block = spec.length * op.groups * int(row[6])
+            for off in (int(row[3]), int(row[4])):
+                if off >= 0:
+                    moved[off:off + block] = True
+    assert moved.any() and not moved.all()
+    assert torch.equal(idx[~moved], ident[~moved])
+    assert not torch.equal(idx[moved], ident[moved])
+    flat = scan_body._pack_coeffs(spec, xs)
+    assert torch.equal(flat.index_select(0, idx),
+                       scan_body._pack_coeffs(spec, xs, swizzle=True))
+
+
+def test_ffma_yardstick_only_for_bf16_clusters():
+    """The FFMA yardstick exists for the bf16 cluster instance only; the
+    bf16 global instance (n >= 18) is FFMA and keeps code 1."""
+    spec = _spec_of(18, 8, "bfloat16")
+    cfg = scan_body._launch_config(spec)
+    assert (cfg.instance, cfg.products) == ("global", "ffma")
+    assert scan_body._instance_code(cfg) == 1
+    with pytest.raises(ValueError, match="no FFMA yardstick"):
+        scan_body.ffma_config(cfg, spec)
+    f32 = _spec_of(12, 8, "float32")
+    with pytest.raises(ValueError, match="no FFMA yardstick"):
+        scan_body.ffma_config(scan_body._launch_config(f32), f32)
 
 
 def test_wrapper_dtype_contract():

@@ -328,6 +328,46 @@ def test_launch_config_fits_the_card(n, tb, monkeypatch):
     assert scan_body._launch_config(_spec_of(n, tb, ("cnot", "glane"))) == cfg
 
 
+# The f32 configurations as they stand (the served HEA body's kinds, L=3):
+# (n, tb) -> (K, dynamic shared memory). The bf16 instance's tensor-core
+# products left the f32 instance's launches as they were.
+F32_CONFIGS = {
+    (10, 1): (8, 133184), (10, 8): (8, 133184), (10, 16): (4, 135232),
+    (10, 32): (2, 139328), (10, 64): (2, 139328), (10, 128): (1, 147520),
+    (10, 256): (1, 147520), (11, 1): (16, 133184), (11, 8): (8, 135232),
+    (11, 16): (4, 139328), (11, 32): (2, 147520), (11, 64): (2, 147520),
+    (11, 128): (1, 163904), (11, 256): (1, 163904), (12, 1): (16, 135232),
+    (12, 8): (8, 139328), (12, 16): (4, 147520), (12, 32): (2, 163904),
+    (12, 64): (2, 163904), (12, 128): (1, 196672), (12, 256): (1, 196672),
+    (13, 1): (16, 139328), (13, 8): (8, 147520), (13, 16): (4, 163904),
+    (13, 32): (2, 196672), (13, 64): (2, 196672), (13, 128): (1, 229440),
+    (13, 256): (1, 229440), (14, 1): (16, 147520), (14, 8): (8, 163904),
+    (14, 16): (4, 196672), (14, 32): (2, 229440), (14, 64): (2, 229440),
+    (14, 128): (2, 229440), (14, 256): (2, 229440), (15, 1): (16, 163904),
+    (15, 8): (8, 196672), (15, 16): (4, 229440), (15, 32): (4, 229440),
+    (15, 64): (4, 229440), (15, 128): (4, 229440), (15, 256): (4, 229440),
+    (16, 1): (16, 196672), (16, 8): (8, 229440), (16, 16): (8, 229440),
+    (16, 32): (8, 229440), (16, 64): (8, 229440), (16, 128): (8, 229440),
+    (16, 256): (8, 229440), (17, 1): (16, 229440), (17, 8): (16, 229440),
+    (17, 16): (16, 229440), (17, 32): (16, 229440), (17, 64): (16, 229440),
+    (17, 128): (16, 229440), (17, 256): (16, 229440),
+}
+
+
+@pytest.mark.parametrize("n,tb", sorted(F32_CONFIGS))
+def test_launch_config_f32_frozen(n, tb):
+    """The f32 instance keeps its launches: the cluster instance, K and
+    shared memory of every n = 10-17 and tb, its products FFMA, and the
+    C entries' f32 code."""
+    scan_body._launch_config.cache_clear()
+    cfg = scan_body._launch_config(_spec_of(n, tb))
+    k, smem = F32_CONFIGS[n, tb]
+    assert cfg == scan_body.LaunchConfig("cluster", k, smem, "float32",
+                                         "ffma")
+    assert scan_body._cluster_smem(_spec_of(n, tb), k) == smem
+    assert scan_body._instance_code(cfg) == 0
+
+
 def _csrc_copy(tmp_path, monkeypatch):
     dst = tmp_path / "csrc"
     dst.mkdir()
@@ -343,11 +383,12 @@ def test_build_inputs_are_every_kernel_source():
     assert names == {p.name for p in scan_body._CSRC.iterdir()
                      if p.suffix in (".cu", ".cuh")}
     assert {"scan_body.cu", "scan_body_common.cuh",
-            "scan_body_cluster.cuh"} <= names
+            "scan_body_cluster.cuh", "scan_body_mma.cuh"} <= names
 
 
 @pytest.mark.parametrize("name", ["scan_body.cu", "scan_body_common.cuh",
-                                  "scan_body_cluster.cuh"])
+                                  "scan_body_cluster.cuh",
+                                  "scan_body_mma.cuh"])
 def test_build_tag_follows_every_source(name, tmp_path, monkeypatch):
     """Editing any file the build reads changes the library's tag, so a
     stale shared library is never loaded."""
