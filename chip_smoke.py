@@ -91,8 +91,7 @@ Phases (any failure raises and exits non-zero):
    the bf16 instance, and the largest difference from the f32 logits);
    ``[time] bf16`` lines time A at the buckets, tb = 256 and tb = 78,
    B and C at tb = 128 and A, B and C at tb = 32 beside the f32 kernel,
-   the FFMA yardstick (the earlier design of the bf16 products, same
-   call), the bound (2 B per element, FLOP at the bf16 tensor-core rate)
+   the bound (2 B per element, FLOP at the bf16 tensor-core rate)
    and the L2 bytes the ring moves as modelled from the code's slab
    count (printed beside the bound, not measured); a bf16 breakdown
    splits the sweep by kind;
@@ -101,12 +100,34 @@ Phases (any failure raises and exits non-zero):
    instance, no build after round 1, losses within BF16_LOSS_ATOL, the final
    accuracy within 0.12 of the f32 run's); ``[bf16-cli-serve]`` serves
    that run's checkpoint;
-13. print one JSON line describing each launch of the kernel, f32 and
-   bf16 instances (launches on the CLI run, and per path; max error;
-   kernel-alone, plain and bound at the CLI run's shape, and at the
-   earlier slices' shapes; for bf16 the FFMA yardstick's time as
-   ``earlier_ms``);
-14. print the final ``{"ok": true, "device": {...}}`` line.
+13. the dense engine (no kernel below n = 10, in either package):
+   ``[dense-cli-train]`` runs ``train`` at the reference CLI's defaults
+   (DENSE_ARGV: n = 8, L = 2, classes 0,1,2) on the card and the CPU —
+   the "vmap" engine, 0 launches and 0 kernel builds, per-round loss and
+   the final θ within TRAINED_LOGIT_ATOL, accuracy within one evaluation
+   sample; ``[dense-cli-chunked]`` holds its rows under
+   ``--rounds-per-call 3`` (the in-chunk evaluation) as ``[cli-chunked]``
+   does; ``[dense-cli-rate]`` times 1 + RATE_ROUNDS synchronous rounds
+   of it as ``[cli-rate]`` does; ``[dense-cli-serve]`` serves its
+   checkpoint (64 requests and a malformed line, logits within
+   LOGIT_ATOL); ``[dense-config1]`` the same for BASELINE.md config 1
+   (CONFIG1_ARGV: n = 4, classes 0,1, 2 clients); ``[bf16-dense-cli-train]``
+   the n = 8 run under the pin (losses within BF16_LOSS_ATOL, final
+   accuracy within 0.12 of f32); ``[dense-route]`` holds the n = 12 L = 3
+   model under QFEDX_BATCHED=0 (the dense state run as its slab) against
+   the batched route: served logits, one local step's gradients and the
+   same Launch A/B/C counts; ``[remat]`` holds one local step with
+   ``remat=True`` at n = 8 and 12 against the per-layer route without
+   checkpoints (REMAT_ATOL) and the default route (GRAD_ATOL), printing
+   each run's peak device memory; ``[time] dense`` times the n = 8 served
+   forward at the buckets (host clock, with ``torch.profiler``'s device
+   kernels per forward and their device time) and one local step at the
+   CLI's shape;
+14. print one JSON line describing each launch of the kernel, f32 and
+   bf16 instances (launches on the CLI run, and per path, the dense
+   paths included; max error; kernel-alone, plain and bound at the CLI
+   run's shape, and at the earlier slices' shapes);
+15. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -330,18 +351,16 @@ def event_ms(fn, iters: int = 100, warm: int = 5) -> float:
 
 
 def kernel_only_ms(packed, spec, xs, with_boundaries: bool = False,
-                   iters: int = 200, config=None) -> float:
+                   iters: int = 200) -> float:
     """CUDA-event time of the kernel alone: events around a loop of raw
     launches of ONE prepared launch (coefficients packed and outputs
     allocated once, before the loop), queued behind a device-side sleep
     so that the launches run back to back: neither wrapper work (checks,
     packing, allocation) nor the host's enqueue is timed. Counts no
-    launch. ``config`` times another instance than ``_launch_config``'s
-    (the bf16 FFMA yardstick)."""
+    launch."""
     from qfedx_tpu_torch.ops import scan_body
 
-    prep = scan_body.prepare_launch(packed, spec, xs, with_boundaries,
-                                    config)
+    prep = scan_body.prepare_launch(packed, spec, xs, with_boundaries)
 
     def run():
         err = prep.run()
@@ -387,8 +406,7 @@ def phase_build() -> float:
           f"{scan_body._unit_bytes('bfloat16')} B (16-row slabs, re and im, "
           f"rows swizzled by the host: chunk c of row j at c ^ (j mod 8)), "
           f"a bf16 copy of the CTA's rows ({scan_body._OPND_PITCH * 2} B "
-          f"apart, re and im); its FFMA yardstick (the earlier design): "
-          f"up to {scan_body._MAX_UNITS} units, no copy")
+          f"apart, re and im)")
     # The one-wave rule of ops/scan_body._launch_config rests on this
     # table: the card's resident clusters of K CTAs at the n=12 sizes.
     # In bf16 the ring's units are half the bytes, but the tensor-core
@@ -941,9 +959,8 @@ def phase_breakdown(device, params, dtype=torch.float32,
     """Where a served sweep's time goes: the kernel alone (CUDA events) on
     the served program's body cut to one kind at a time — a lane CNOT
     alone gives the launch, input and output — at each of ``tbs`` (the
-    buckets' inputs; in bf16 beside the FFMA yardstick's time)."""
+    buckets' inputs)."""
     from qfedx_tpu_torch.circuits.encoders import angle_amplitudes
-    from qfedx_tpu_torch.ops import scan_body
     from qfedx_tpu_torch.ops.batched import bstate_product_tree
     from qfedx_tpu_torch.ops.cpx import CArray
     from qfedx_tpu_torch.ops.fuse import ScanProgram, StackedOp
@@ -966,13 +983,8 @@ def phase_breakdown(device, params, dtype=torch.float32,
             for name, body in bodies:
                 packed, spec, xs = kernel_inputs(
                     state, N_QUBITS, ScanProgram(program.pre, body, N_LAYERS))
-                part = f"[{name}] {kernel_only_ms(packed, spec, xs):.5f}"
-                if bf:
-                    cfg = scan_body.ffma_config(
-                        scan_body._launch_config(spec), spec)
-                    part += (f" (FFMA yardstick "
-                             f"{kernel_only_ms(packed, spec, xs, config=cfg):.5f})")
-                parts.append(part)
+                parts.append(
+                    f"[{name}] {kernel_only_ms(packed, spec, xs):.5f}")
         print(f"[time] {'bf16 ' if bf else ''}breakdown at tb={b} (kernel "
               f"alone, {N_LAYERS} layers of one body, ms): {', '.join(parts)}")
 
@@ -1143,20 +1155,8 @@ def phase_train_times(device, trained: dict) -> dict:
           f"layer over the boundaries) at the training shape: "
           f"{cotan_ms:.5f} ms (CUDA events)")
     rows["cotangent_ms"] = cotan_ms
-    rows["step"] = local_step_split(device, trained, rx, rz)
-    return rows
-
-
-def local_step_split(device, trained: dict, rx, rz, iters: int = 10
-                     ) -> dict:
-    """One local step of the training slice split on the host clock
-    (synchronised): the forward (program build, encoder, Launch B,
-    readout, loss), the backward (Launch C, coefficient cotangents,
-    autograd of the program build) and the optimizer update."""
-    from qfedx_tpu_torch.fed.client import _cross_entropy, make_optimizer
     from qfedx_tpu_torch.fed.config import FedConfig
 
-    model = trained["model"]
     leaves = {
         "ansatz": {"rx": rx.movedim(0, 1).contiguous(),
                    "rz": rz.movedim(0, 1).contiguous()},
@@ -1164,9 +1164,24 @@ def local_step_split(device, trained: dict, rx, rz, iters: int = 10
                     for k, v in trained["params"]["readout"].items()},
     }
     cx, cy, _ = fed_data()
-    xb = torch.as_tensor(cx[:, :FED_BATCH], device=device)
-    yb = torch.as_tensor(cy[:, :FED_BATCH], device=device)
-    opt = make_optimizer(FedConfig(optimizer="adam", learning_rate=0.1))
+    rows["step"] = local_step_split(
+        trained["model"], leaves, torch.as_tensor(cx[:, :FED_BATCH],
+                                                  device=device),
+        torch.as_tensor(cy[:, :FED_BATCH], device=device),
+        FedConfig(optimizer="adam", learning_rate=0.1),
+        "one local step at the training shape")
+    return rows
+
+
+def local_step_split(model, leaves: dict, xb, yb, cfg, label: str,
+                     iters: int = 10) -> dict:
+    """One folded local step — ``model.apply_clients`` on per-client
+    ``leaves`` and (C, B, n) features — split on the host clock
+    (synchronised): the forward (program build, encoder, sweep, readout,
+    loss), the backward and the ``cfg`` optimizer's update."""
+    from qfedx_tpu_torch.fed.client import _cross_entropy, make_optimizer
+
+    opt = make_optimizer(cfg)
     state = opt.init(leaves)
     parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
     for i in range(iters + 1):
@@ -1191,7 +1206,7 @@ def local_step_split(device, trained: dict, rx, rz, iters: int = 10
             parts["forward"] += (t1 - t0) / iters * 1e3
             parts["backward"] += (t2 - t1) / iters * 1e3
             parts["optimizer"] += (t3 - t2) / iters * 1e3
-    print(f"[time] one local step at the training shape (host clock, "
+    print(f"[time] {label} (host clock, "
           f"synchronised, mean of {iters}): forward {parts['forward']:.4f} "
           f"ms, backward {parts['backward']:.4f} ms, optimizer "
           f"{parts['optimizer']:.4f} ms")
@@ -1315,8 +1330,7 @@ def time_launches(name, packed, spec, xs, cot, aspec, axs, errs,
                   launches) -> dict:
     """Kernel alone, wrapper call, plain version and bound of each of
     ``launches`` at these inputs; one ``[time]`` line each. A bf16 cluster
-    launch also times its FFMA yardstick (the earlier design, "earlier_ms")
-    and prints beside the bound the L2 bytes it moves as modelled from
+    launch prints beside the bound the L2 bytes it moves as modelled from
     the code (``l2_bytes``, not measured)."""
     from qfedx_tpu_torch.ops import scan_body
 
@@ -1336,21 +1350,15 @@ def time_launches(name, packed, spec, xs, cot, aspec, axs, errs,
             row = {"ms": ms, "call_ms": call, "plain_ms": plain,
                    "bound_ms": bms, "bound_by": by,
                    "max_abs_err": errs[launch]}
-            extra = ring = ""
-            cfg = scan_body._launch_config(s)
-            if cfg.products == "mma":
-                row["earlier_ms"] = kernel_only_ms(
-                    st, s, x, with_boundaries=bnd,
-                    config=scan_body.ffma_config(cfg, s))
+            ring = ""
+            if scan_body._launch_config(s).products == "mma":
                 ring = (f"; L2->SM bytes {l2_bytes(s, bnd):.4g}, modelled "
                         f"from the code's slab count, not measured")
-                extra = (f", FFMA yardstick (the earlier design) "
-                         f"{row['earlier_ms']:.5f} ms")
             rows[launch, s.tb] = row
             print(f"[time] Launch {launch} at {name}, tb={s.tb}: kernel "
                   f"alone {ms:.5f} ms, wrapper call {call:.5f} ms (CUDA "
                   f"events), plain {plain:.5f} ms, bound {bms:.5f} ms ({by}; "
-                  f"{flops:.4g} FLOP, {nbytes:.4g} B{ring}){extra}, "
+                  f"{flops:.4g} FLOP, {nbytes:.4g} B{ring}), "
                   f"{config_text(s)}")
     return rows
 
@@ -1518,21 +1526,23 @@ def phase_cli_train(root, shapes: dict) -> dict:
             "theta_err": theta_err, "shapes": shapes, "summary": summary}
 
 
-def phase_cli_chunked(root, unchunked: dict) -> dict:
+def phase_cli_chunked(root, unchunked: dict, argv=CLI_ARGV,
+                      tag="cli-chunked", want=None) -> dict:
     """The same run with ``--rounds-per-call 3 --checkpoint-every 3``: one
     chunk of three rounds, each evaluated in the chunk (Launch A at the
-    validation set's size); rows equal the unchunked run's apart from
-    ``chunk_rounds``, ``time_s`` and ``eval_n``."""
-    argv = CLI_ARGV[:-2] + ["--checkpoint-every", "3", "--rounds-per-call",
-                            "3", "--run-root", str(root), "--name",
-                            "smoke-chunked"]
+    validation set's size, unless ``want`` gives other launches); rows
+    equal the unchunked run's apart from ``chunk_rounds``, ``time_s``
+    and ``eval_n``."""
+    name = f"smoke-{tag}"
+    argv = argv[:-2] + ["--checkpoint-every", "3", "--rounds-per-call",
+                        "3", "--run-root", str(root), "--name", name]
     _, launches, rounds, _ = cli_train(argv, None)
-    rows = _rows(root / "smoke-chunked")
-    shapes, steps = unchunked["shapes"], unchunked["steps"]
+    rows = _rows(root / name)
+    shapes = unchunked["shapes"]
     for row, ref in zip(rows, unchunked["rows"]):
         loss_err = abs(row["loss"] - ref["loss"])
         acc_err = abs(row["accuracy"] - ref["accuracy"])
-        print(f"[cli-chunked] round {row['round']}: chunk_rounds "
+        print(f"[{tag}] round {row['round']}: chunk_rounds "
               f"{row['chunk_rounds']}, eval_n {row['eval_n']}, loss "
               f"|chunked-unchunked|={loss_err:.3e}, accuracy "
               f"|chunked-unchunked|={acc_err:.3e}, time_s "
@@ -1543,39 +1553,45 @@ def phase_cli_chunked(root, unchunked: dict) -> dict:
             raise AssertionError(f"chunked row {row}")
         if row["rejected_updates"] != ref["rejected_updates"]:
             raise AssertionError(f"chunked row {row} vs {ref}")
-    want = {"fwd": _batches(shapes["n_val"]) + CLI_ROUNDS + _batches(
-        shapes["n_test"]), "fwd_bnd": CLI_ROUNDS * steps,
-        "adj": CLI_ROUNDS * steps}
-    print(f"[cli-chunked] launches {launches} (expected {want}: the "
-          f"in-chunk evaluation is one Launch A per round at tb="
-          f"{shapes['n_val']})")
+    if want is None:
+        steps = shapes["steps"]
+        want = {"fwd": _batches(shapes["n_val"]) + CLI_ROUNDS + _batches(
+            shapes["n_test"]), "fwd_bnd": CLI_ROUNDS * steps,
+            "adj": CLI_ROUNDS * steps}
+    print(f"[{tag}] launches {launches} (expected {want}; the in-chunk "
+          f"evaluation is one forward per round at tb={shapes['n_val']})")
     if launches != want or len(rows) != CLI_ROUNDS:
         raise AssertionError(f"chunked run launched {launches}")
-    ckpts = sorted(p.name for p in (root / "smoke-chunked" /
+    ckpts = sorted(p.name for p in (root / name /
                                     "checkpoints").glob("*.npz"))
     if ckpts != ["ckpt_000003.npz"]:
         raise AssertionError(f"chunked checkpoints {ckpts}")
     return {"launches": launches}
 
 
-def phase_cli_rate(root, unchunked: dict) -> dict:
+def phase_cli_rate(root, unchunked: dict, argv=CLI_ARGV, tag="cli-rate",
+                   want_round=None) -> dict:
     """The round rate of the CLI run: the same argv for 1 + RATE_ROUNDS
     rounds with ``--pipeline-depth 0 --rounds-per-call 1``, so each row's
     ``time_s`` is one round from its dispatch to its stats on the host
     (the evaluation and checkpoint come after); the first round is the
     warm-up, and the rate is the other rounds' clients over their summed
-    times. Its first rounds must equal the pipelined run's."""
-    argv = list(CLI_ARGV)
+    times. Its first rounds must equal the pipelined run's, and each
+    round launch ``want_round`` (default: the run's B and C per step)."""
+    name = f"smoke-{tag}"
+    argv = list(argv)
     argv[argv.index("--rounds") + 1] = str(1 + RATE_ROUNDS)
     argv[argv.index("--checkpoint-every") + 1] = str(1 + RATE_ROUNDS)
     argv += ["--rounds-per-call", "1", "--pipeline-depth", "0",
-             "--run-root", str(root), "--name", "smoke-rate"]
+             "--run-root", str(root), "--name", name]
     t0 = time.perf_counter()
     _, launches, rounds, _ = cli_train(argv, None)
     wall = time.perf_counter() - t0
-    rows = _rows(root / "smoke-rate")
-    steps, clients = unchunked["steps"], unchunked["clients"]
-    want_round = {"fwd": 0, "fwd_bnd": steps, "adj": steps}
+    rows = _rows(root / name)
+    clients = unchunked["clients"]
+    if want_round is None:
+        steps = unchunked["steps"]
+        want_round = {"fwd": 0, "fwd_bnd": steps, "adj": steps}
     if [c for c, _ in rounds] != [want_round] * (1 + RATE_ROUNDS):
         raise AssertionError(f"rate run's rounds launched {rounds}")
     if len({b for _, b in rounds}) != 1:
@@ -1586,7 +1602,7 @@ def phase_cli_rate(root, unchunked: dict) -> dict:
     times = [r["time_s"] for r in rows]
     timed = sorted(times[1:])
     rate = clients * len(timed) / sum(timed)
-    print(f"[cli-rate] {' '.join(argv)}: warm-up round {times[0]:.5f} s; "
+    print(f"[{tag}] {' '.join(argv)}: warm-up round {times[0]:.5f} s; "
           f"{len(timed)} rounds (host clock, dispatch to stats, synchronous) "
           f"sum {sum(timed):.5f} s, min {timed[0]:.5f} median "
           f"{timed[len(timed) // 2]:.5f} max {timed[-1]:.5f} s per round, "
@@ -1595,17 +1611,22 @@ def phase_cli_rate(root, unchunked: dict) -> dict:
     return {"times": times, "rate": rate, "launches": launches}
 
 
-def phase_cli_serve(root, run_dir, dtype=torch.float32) -> dict:
+def phase_cli_serve(root, run_dir, dtype=torch.float32,
+                    shape=(N_QUBITS, N_LAYERS, 2), tag="cli-serve") -> dict:
     """``serve --run-dir`` (in-process) on the trained run: 64 requests
     and one malformed line, answered in order; the logits against the CPU
     port's ``model.apply`` on the restored checkpoint (in bf16 under the
-    pin, which the caller sets: every launch on the bf16 instance)."""
+    pin, which the caller sets: every launch on the bf16 instance).
+    ``shape`` is the run's (qubits, layers, classes); below the slab
+    widths the model runs no kernel and the phase requires 0 launches."""
+    n_qubits, n_layers, n_classes = shape
+    dense = n_qubits < 10
     from qfedx_tpu_torch.models.vqc import make_vqc_classifier
     from qfedx_tpu_torch.ops import scan_body
     from qfedx_tpu_torch.run import cli
     from qfedx_tpu_torch.run.checkpoint import Checkpointer
 
-    x = np.random.default_rng(17).uniform(0, 1, (N_SERVE_REQUESTS, N_QUBITS))
+    x = np.random.default_rng(17).uniform(0, 1, (N_SERVE_REQUESTS, n_qubits))
     x = x.astype(np.float32)
     lines = [json.dumps({"id": f"q{i}", "features": v.tolist()})
              for i, v in enumerate(x)]
@@ -1625,15 +1646,17 @@ def phase_cli_serve(root, run_dir, dtype=torch.float32) -> dict:
     bad = [r for r in resp if "error" in r]
     if len(bad) != 1 or bad[0]["code"] != 400 or bad[0]["id"] != 10:
         raise AssertionError(f"error responses {bad}")
-    model = make_vqc_classifier(N_QUBITS, N_LAYERS, 2, device="cpu")
+    model = make_vqc_classifier(n_qubits, n_layers, n_classes, device="cpu")
     params, _ = Checkpointer(run_dir / "checkpoints").restore_latest(
         model.init(0))
     with torch.no_grad():
         ref = model.apply(params, x).numpy()
     got = np.array([r["logits"] for r in resp if "logits" in r])
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError(f"served logits of shape {got.shape}")
     err = float(np.abs(got - ref).max())
     atol = BF16_LOGIT_ATOL if _is_bf16(dtype) else LOGIT_ATOL
-    print(f"{_tag('cli-serve', dtype)} {summary['served']} served, "
+    print(f"{_tag(tag, dtype)} {summary['served']} served, "
           f"{summary['responses']} "
           f"responses, rejected {summary['rejected']}, shed "
           f"{summary['shed']}, batches {summary['batches']}, latency p50="
@@ -1641,6 +1664,11 @@ def phase_cli_serve(root, run_dir, dtype=torch.float32) -> dict:
           f"max|card-cpu|={err:.3e} (atol {atol:g}); launches "
           f"{launches}, by dtype {by_dtype}")
     _require(err, atol, "served logits of the trained run vs cpu")
+    if dense:
+        if any(launches.values()):
+            raise AssertionError(f"the dense model launched {launches}")
+        return {"launches": launches, "logit_err": err,
+                "p50": summary["p50_ms"], "p95": summary["p95_ms"]}
     if launches["fwd"] < summary["batches"] or launches["fwd_bnd"] or \
             launches["adj"]:
         raise AssertionError(f"serving launched {launches}")
@@ -1655,18 +1683,24 @@ def phase_cli_serve(root, run_dir, dtype=torch.float32) -> dict:
 
 
 @contextlib.contextmanager
-def bf16_pin():
-    """``QFEDX_DTYPE=bf16`` for the block (the port reads the pin at every
-    call), restored after."""
-    before = os.environ.get("QFEDX_DTYPE")
-    os.environ["QFEDX_DTYPE"] = "bf16"
+def env_pins(**values):
+    """Set the QFEDX_* pins ``values`` for the block (the port reads its
+    pins at every call), restored after."""
+    before = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if before is None:
-            os.environ.pop("QFEDX_DTYPE", None)
-        else:
-            os.environ["QFEDX_DTYPE"] = before
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bf16_pin():
+    """``QFEDX_DTYPE=bf16`` for the block, restored after."""
+    return env_pins(QFEDX_DTYPE="bf16")
 
 
 def phase_bf16_serve(device, f32_served: dict) -> dict:
@@ -1748,9 +1782,8 @@ def phase_bf16_times(device, params, f32_times: dict, f32_rows: dict,
     and C at the local step's tb = 128 (G = 4), and A, B and C at the
     training shape tb = 32 (G = 2) — kernel alone, wrapper call, plain
     version, the bound (2 B per element, FLOP at the bf16 tensor-core
-    rate) with the modelled L2 bytes, and the FFMA yardstick's time (the
-    earlier design, same call) — each beside the f32 kernel's time at the
-    same shape (from the f32 phases of this run)."""
+    rate) with the modelled L2 bytes — each beside the f32 kernel's time
+    at the same shape (from the f32 phases of this run)."""
     from qfedx_tpu_torch.circuits.encoders import angle_amplitudes
     from qfedx_tpu_torch.ops import scan_body
     from qfedx_tpu_torch.ops.batched import bstate_product_tree
@@ -1760,9 +1793,7 @@ def phase_bf16_times(device, params, f32_times: dict, f32_rows: dict,
     def compare(launch, key, row, f32):
         print(f"[time] bf16 Launch {launch} at {key}: kernel alone "
               f"{row['ms']:.5f} ms vs f32 {f32['ms']:.5f} ms (bf16/f32 = "
-              f"{row['ms'] / f32['ms']:.3f}) and the FFMA yardstick "
-              f"{row['earlier_ms']:.5f} ms (mma/FFMA = "
-              f"{row['ms'] / row['earlier_ms']:.3f}); bound "
+              f"{row['ms'] / f32['ms']:.3f}); bound "
               f"{row['bound_ms']:.5f} ms vs f32 {f32['bound_ms']:.5f} ms "
               f"(bf16 kernel/bound = {row['ms'] / row['bound_ms']:.1f})")
         rows[launch, key] = dict(row, f32_ms=f32["ms"])
@@ -1904,6 +1935,322 @@ def phase_bf16_cli_train(root, shapes: dict, f32_run: dict) -> dict:
     return {"run": run, "launches": launches}
 
 
+# --- the dense engine (below n = 10, QFEDX_BATCHED=0, remat) -----------------
+
+# The reference CLI's defaults: n = 8, L = 2, classes 0,1,2 (no --qubits).
+DENSE_ARGV = ["train", "--model", "vqc", "--clients", "4", "--rounds",
+              str(CLI_ROUNDS), "--checkpoint-every", "1"]
+# BASELINE.md config 1: a 4-qubit VQC, binary MNIST, 2 clients.
+CONFIG1_ARGV = ["train", "--model", "vqc", "--qubits", "4", "--classes", "0,1",
+                "--clients", "2", "--rounds", str(CLI_ROUNDS),
+                "--checkpoint-every", "1"]
+REMAT_ATOL = 1e-6  # remat vs the same per-layer route without checkpoints
+NO_LAUNCH = {"fwd": 0, "fwd_bnd": 0, "adj": 0}
+
+
+def _run_shape(argv) -> tuple:
+    """(qubits, layers, classes, clients) the CLI builds from ``argv``."""
+    from qfedx_tpu_torch.run import cli
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    return (cfg.model.n_qubits, cfg.model.n_layers, len(cfg.data.classes),
+            cfg.data.num_clients)
+
+
+def phase_dense_cli_train(root, argv, name: str, tag: str,
+                          dtype=torch.float32, f32_run=None) -> dict:
+    """``python -m qfedx_tpu_torch train`` (in-process) below the slab
+    widths on the card, then the same argv on the CPU: a complete run
+    directory, the model on the "vmap" engine, no scan-body launch and no
+    kernel build; per-round loss card vs CPU within TRAINED_LOGIT_ATOL
+    (bf16: BF16_LOSS_ATOL), in f32 the final θ within TRAINED_LOGIT_ATOL
+    and accuracy within one evaluation sample; in bf16 the final accuracy
+    within 0.12 of the f32 run's (``f32_run``)."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run.checkpoint import Checkpointer
+
+    n, layers, classes, clients = _run_shape(argv)
+    bf = _is_bf16(dtype)
+    builds = scan_body.build_count
+    t0 = time.perf_counter()
+    summary, launches, rounds, _ = cli_train(
+        argv + ["--run-root", str(root), "--name", name], None)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_summary, _, _, _ = cli_train(
+        argv + ["--run-root", str(root / "cpu"), "--name", name], "cpu")
+    cpu_wall = time.perf_counter() - t0
+    run, cpu_run = root / name, root / "cpu" / name
+    template = make_vqc_classifier(n, layers, classes, device="cpu")
+    print(f"{_tag(tag, dtype)} {' '.join(argv)}: n={n} L={layers} "
+          f"classes={classes} clients={clients}, engine "
+          f"{template.engine()}; card {wall:.2f} s, cpu {cpu_wall:.2f} s "
+          "(host clock, in-process)")
+    if template.engine() != "vmap":
+        raise AssertionError(f"n={n} runs the {template.engine()} engine")
+    for f in ("config.json", "metrics.jsonl", "summary.json"):
+        if not (run / f).is_file():
+            raise AssertionError(f"run directory lacks {f}")
+    ckpt = Checkpointer(run / "checkpoints", every=1)
+    for r in range(1, CLI_ROUNDS + 1):
+        ckpt.verify(r)
+    rows, cpu_rows = _rows(run), _rows(cpu_run)
+    if [r["round"] for r in rows] != list(range(1, CLI_ROUNDS + 1)):
+        raise AssertionError(f"metrics.jsonl rounds {rows}")
+    loss_atol = BF16_LOSS_ATOL if bf else TRAINED_LOGIT_ATOL
+    for row, cpu in zip(rows, cpu_rows):
+        loss_err = abs(row["loss"] - cpu["loss"])
+        acc_err = abs(row["accuracy"] - cpu["accuracy"])
+        print(f"{_tag(tag, dtype)} round {row['round']}: loss card "
+              f"{row['loss']!r} cpu {cpu['loss']!r} |err|={loss_err:.3e} "
+              f"(atol {loss_atol:g}), accuracy card {row['accuracy']!r} cpu "
+              f"{cpu['accuracy']!r} (n={row['n']}), time_s "
+              f"{row['time_s']:.4f} (host clock, drain to drain)")
+        _require(loss_err, loss_atol, f"{tag} round {row['round']} loss")
+        if not bf:
+            _require(acc_err, 1.0 / row["n"] + 1e-12,
+                     f"{tag} round {row['round']} accuracy, card vs cpu")
+    theta = ckpt.restore(CLI_ROUNDS, template.init(0))
+    cpu_theta = Checkpointer(cpu_run / "checkpoints").restore(
+        CLI_ROUNDS, template.init(0))
+    theta_err = _max_err(
+        [v for d in theta.values() for v in d.values()],
+        [v for d in cpu_theta.values() for v in d.values()])
+    print(f"{_tag(tag, dtype)} final theta max|card-cpu|={theta_err:.3e}; "
+          f"launches {launches} per round {[c for c, _ in rounds]}, kernel "
+          f"builds {scan_body.build_count - builds}; summary card "
+          f"{json.dumps(summary)}; cpu final_accuracy "
+          f"{cpu_summary['final_accuracy']!r}")
+    if not bf:
+        _require(theta_err, TRAINED_LOGIT_ATOL, f"{tag} final theta")
+    if launches != NO_LAUNCH or any(c != NO_LAUNCH for c, _ in rounds):
+        raise AssertionError(f"the dense run launched {launches}")
+    if scan_body.build_count != builds:
+        raise AssertionError("the dense run built the kernel library")
+    if bf:
+        acc, acc_f32 = summary["final_accuracy"], f32_run["summary"][
+            "final_accuracy"]
+        print(f"{_tag(tag, dtype)} final accuracy bf16 {acc!r}, f32 "
+              f"{acc_f32!r}: band bf16 >= f32 - 0.12")
+        if not acc >= acc_f32 - 0.12:
+            raise AssertionError(f"bf16 final accuracy {acc} below the f32 "
+                                 f"run's {acc_f32} - 0.12")
+    return {"run": run, "rows": rows, "summary": summary,
+            "launches": launches, "theta_err": theta_err, "clients": clients,
+            "shapes": expected_shapes(argv),
+            "shape": (n, layers, classes), "times": [r["time_s"] for r in
+                                                     rows]}
+
+
+def _client_batch(n: int, layers: int, classes: int, clients: int,
+                  batch: int, device, seed: int):
+    """Seeded per-client parameters (C, …) spread from one init, and a
+    (C, B, n) batch with labels: one folded local step's inputs."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+
+    rng = np.random.default_rng(seed)
+    base = make_vqc_classifier(n, layers, classes, init_scale=1.0,
+                               device=device).init(seed)
+    leaves = {g: {k: (v[None] + torch.as_tensor(
+        0.1 * rng.normal(size=(clients,) + tuple(v.shape)),
+        dtype=torch.float32, device=device)).contiguous()
+        for k, v in d.items()} for g, d in base.items()}
+    xb = torch.as_tensor(rng.uniform(0, 1, (clients, batch, n)),
+                         dtype=torch.float32, device=device)
+    yb = torch.as_tensor(rng.integers(0, classes, (clients, batch)),
+                         device=device)
+    return base, leaves, xb, yb
+
+
+def _step_grads(model, leaves, xb, yb) -> list:
+    """Gradients of one folded local step's loss (Σ_c mean-CE_c) with
+    respect to every leaf, in sorted leaf order."""
+    from qfedx_tpu_torch.fed.client import _cross_entropy
+
+    p = {g: {k: v.detach().requires_grad_(True) for k, v in d.items()}
+         for g, d in leaves.items()}
+    flat = [p[g][k] for g in sorted(p) for k in sorted(p[g])]
+    loss = _cross_entropy(model.apply_clients(p, xb), yb).mean(1).sum()
+    return list(torch.autograd.grad(loss, flat))
+
+
+def phase_dense_route(device) -> dict:
+    """``[dense-route]``: the n=12 L=3 VQC under QFEDX_BATCHED=0 (the
+    dense engine, its state reshaped to the batched slab) against the
+    batched route on the card: served logits at the bucket 32 and one
+    folded local step's gradients (4 clients x 32) within LOGIT_ATOL and
+    GRAD_ATOL, and the same Launch A/B/C counts."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.ops import scan_body
+
+    model = make_vqc_classifier(N_QUBITS, N_LAYERS, N_CLASSES)
+    params, leaves, xb, yb = _client_batch(
+        N_QUBITS, N_LAYERS, N_CLASSES, TRAIN_CLIENTS, TRAIN_BATCH, device, 19)
+    x = torch.as_tensor(np.random.default_rng(20).uniform(
+        0, 1, (BUCKETS[-1], N_QUBITS)), dtype=torch.float32, device=device)
+
+    def run():
+        scan_body.reset_counts()
+        with torch.no_grad():
+            logits = model.apply(params, x)
+        served = dict(scan_body.launch_counts)
+        scan_body.reset_counts()
+        grads = _step_grads(model, leaves, xb, yb)
+        torch.cuda.synchronize()
+        return logits, grads, served, dict(scan_body.launch_counts), \
+            model.engine()
+
+    batched = run()
+    with env_pins(QFEDX_BATCHED="0"):
+        dense = run()
+    logit_err = _max_err([dense[0]], [batched[0]])
+    grad_err = _max_err(dense[1], batched[1])
+    print(f"[dense-route] n={N_QUBITS} L={N_LAYERS}: engines {dense[4]} "
+          f"(QFEDX_BATCHED=0) vs {batched[4]}; served logits at tb="
+          f"{BUCKETS[-1]} max|dense-batched|={logit_err:.3e} (atol "
+          f"{LOGIT_ATOL:g}), local step ({TRAIN_CLIENTS} clients x "
+          f"{TRAIN_BATCH}) gradients {grad_err:.3e} (atol {GRAD_ATOL:g}); "
+          f"launches served {dense[2]} vs {batched[2]}, step {dense[3]} vs "
+          f"{batched[3]}")
+    if (dense[4], batched[4]) != ("vmap", "batched"):
+        raise AssertionError(f"engines {dense[4]}, {batched[4]}")
+    _require(logit_err, LOGIT_ATOL, "dense-route served logits")
+    _require(grad_err, GRAD_ATOL, "dense-route local-step gradients")
+    if dense[2:4] != batched[2:4] or batched[2]["fwd"] != 1 or \
+            batched[3]["fwd_bnd"] != 1 or batched[3]["adj"] != 1:
+        raise AssertionError(f"dense-route launches {dense[2:4]} vs "
+                             f"{batched[2:4]}")
+    return {"served": dense[2], "step": dense[3]}
+
+
+def phase_remat(device) -> dict:
+    """``[remat]``: one folded local step (4 clients x 32) with
+    ``remat=True`` at n=8 (L=2) and n=12 (L=3): gradients against the same
+    per-layer route without checkpoints (QFEDX_SCAN_LAYERS=0,
+    QFEDX_BATCHED=0) within REMAT_ATOL and against the default route (at
+    n=12 the kernel's) within GRAD_ATOL; each run's peak device memory
+    (``torch.cuda.max_memory_allocated`` after a reset) printed."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.ops import scan_body
+
+    out = {}
+    for n, layers in ((8, 2), (N_QUBITS, N_LAYERS)):
+        _, leaves, xb, yb = _client_batch(n, layers, N_CLASSES,
+                                          TRAIN_CLIENTS, TRAIN_BATCH,
+                                          device, 21 + n)
+        runs = {}
+        for name, remat, pins in (
+            ("remat", True, {}),
+            ("per-layer", False, {"QFEDX_SCAN_LAYERS": "0",
+                                  "QFEDX_BATCHED": "0"}),
+            ("default", False, {}),
+        ):
+            with env_pins(**pins):
+                model = make_vqc_classifier(n, layers, N_CLASSES,
+                                            remat=remat)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.memory_allocated()
+                scan_body.reset_counts()
+                grads = _step_grads(model, leaves, xb, yb)
+                torch.cuda.synchronize()
+                runs[name] = (grads, torch.cuda.max_memory_allocated(),
+                              start, dict(scan_body.launch_counts),
+                              model.engine())
+        e_layer = _max_err(runs["remat"][0], runs["per-layer"][0])
+        e_default = _max_err(runs["remat"][0], runs["default"][0])
+        print(f"[remat] n={n} L={layers}: gradients max|remat-per-layer|="
+              f"{e_layer:.3e} (atol {REMAT_ATOL:g}), max|remat-default|="
+              f"{e_default:.3e} (atol {GRAD_ATOL:g}); " + "; ".join(
+                  f"{k} ({r[4]}, launches {r[3]}): max_memory_allocated "
+                  f"{r[1]} B ({r[1] - r[2]} B above the {r[2]} B before)"
+                  for k, r in runs.items()))
+        _require(e_layer, REMAT_ATOL, f"remat vs per-layer at n={n}")
+        _require(e_default, GRAD_ATOL, f"remat vs default route at n={n}")
+        if runs["remat"][3] != NO_LAUNCH or runs["remat"][4] != "vmap":
+            raise AssertionError(f"remat at n={n} ran {runs['remat'][3:]}")
+        out[n] = {k: r[1] - r[2] for k, r in runs.items()}
+    return out
+
+
+def _profile_forward(fn, device, iters: int = 10) -> tuple:
+    """(device kernels per call, copies and sets per call, the device ms
+    of both per call, host ms per call) of ``fn`` under
+    ``torch.profiler``. On the card a trace with no device event raises;
+    a CPU rehearsal gets (None, None, None, host): not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = device.type == "cuda"
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if on_card else [])) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / iters * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if not e.name.startswith(("Memcpy",
+                                                           "Memset"))]
+    if not events:
+        if on_card:
+            raise RuntimeError("[time] dense: the profiler's trace holds no "
+                               "device event")
+        return None, None, None, host
+    device_us = sum(e.time_range.elapsed_us() for e in events)
+    return (len(kernels) / iters, (len(events) - len(kernels)) / iters,
+            device_us / iters / 1e3, host)
+
+
+def phase_dense_times(device) -> dict:
+    """``[time] dense``: the n=8 L=2 served forward (``ServeEngine``, seeded
+    weights, 3 classes) at buckets 1/8/32 on the host clock (fetch
+    included), with the profiler's device kernels per forward and their
+    device time; then one folded local step at the CLI's shape (4 clients
+    x 32, SGD lr 0.01) split into forward, backward and optimizer."""
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.serve import ServeConfig, ServeEngine
+
+    n, layers, classes, clients = _run_shape(DENSE_ARGV)
+    model = make_vqc_classifier(n, layers, classes, init_scale=1.0)
+    engine = ServeEngine(model, model.init(0), (n,),
+                         config=ServeConfig(buckets=BUCKETS))
+    engine.warmup()
+    rows = {}
+    for b in BUCKETS:
+        xb = np.random.default_rng(b).uniform(0, 1, (b, n)).astype(
+            np.float32)
+        engine._forward(xb)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            engine._forward(xb)
+        fwd_ms = (time.perf_counter() - t0) / 20 * 1e3
+        kernels, copies, dev_ms, host_ms = _profile_forward(
+            lambda: engine._forward(xb), device)
+        prof = ("profiler: CPU rehearsal (not measured)"
+                if kernels is None else
+                f"profiler: {kernels:g} device kernels and {copies:g} "
+                f"copies/sets per forward, {dev_ms:.5f} ms of device time "
+                f"against {host_ms:.4f} ms of host clock per forward under "
+                f"the profiler ({100 * dev_ms / host_ms:.2f}% busy)")
+        rows[b] = {"forward_ms": fwd_ms, "kernels": kernels,
+                   "device_ms": dev_ms, "profiled_host_ms": host_ms}
+        print(f"[time] dense served forward n={n} L={layers} at bucket {b}: "
+              f"{fwd_ms:.4f} ms (host clock, mean of 20, fetch included); "
+              f"{prof}")
+    _, leaves, xb, yb = _client_batch(n, layers, classes, clients,
+                                      TRAIN_BATCH, device, 23)
+    rows["step"] = local_step_split(
+        model, leaves, xb, yb, FedConfig(),
+        f"dense one local step at the CLI's shape (n={n}, {clients} clients "
+        f"x {TRAIN_BATCH}, SGD lr 0.01)")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -1944,8 +2291,27 @@ def main() -> int:
         bf16_cli = phase_bf16_cli_train(root, cli_shapes, cli_run)
         with bf16_pin():
             bf16_cli_served = phase_cli_serve(root, bf16_cli["run"], bf16)
+        dense_run = phase_dense_cli_train(root, DENSE_ARGV, "dense",
+                                          "dense-cli-train")
+        phase_cli_chunked(root, dense_run, DENSE_ARGV, "dense-cli-chunked",
+                          NO_LAUNCH)
+        dense_rate = phase_cli_rate(root, dense_run, DENSE_ARGV,
+                                    "dense-cli-rate", NO_LAUNCH)
+        dense_served = phase_cli_serve(root, dense_run["run"],
+                                       shape=dense_run["shape"],
+                                       tag="dense-cli-serve")
+        config1 = phase_dense_cli_train(root, CONFIG1_ARGV, "config1",
+                                        "dense-config1")
+        phase_cli_serve(root, config1["run"], shape=config1["shape"],
+                        tag="dense-config1")
+        with bf16_pin():
+            phase_dense_cli_train(root, DENSE_ARGV, "dense-bf16",
+                                  "dense-cli-train", bf16, dense_run)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    dense_route = phase_dense_route(device)
+    remat = phase_remat(device)
+    dense_times = phase_dense_times(device)
     source = "qfedx_tpu_torch/ops/csrc/scan_body.cu"
     kernel = "qfedx_tpu/ops/pallas_body.py:401"
     by_path = {
@@ -1955,6 +2321,9 @@ def main() -> int:
         "cli-chunked": chunked["launches"],
         "cli-rate": rate["launches"],
         "cli-serve": cli_served["launches"],
+        "dense-route-serve": dense_route["served"],
+        "dense-route-step": dense_route["step"],
+        "dense-cli-train (n=8)": dense_run["launches"],
     }
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -1992,8 +2361,7 @@ def main() -> int:
 
     def bf16_entry(name, launch, key, replaces, tb):
         # The bf16 instance (tensor-core products) at the bf16 CLI run's
-        # shape, its FFMA yardstick (the earlier design, timed in this
-        # run) under "earlier_ms"; the other shapes under "shapes".
+        # shape; the other shapes under "shapes".
         row = bf16_times[launch, f"tb={tb}"]
         return {
             "name": name,
@@ -2008,10 +2376,8 @@ def main() -> int:
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                    "bound_by")},
             "library_ms": None,
-            "earlier_ms": row["earlier_ms"],
             "launches_by_path": {p: c[key] for p, c in bf16_paths.items()},
-            "shapes": {s: {k: r[k] for k in keys + (
-                "earlier_ms", "f32_ms")}
+            "shapes": {s: {k: r[k] for k in keys + ("f32_ms",)}
                        for (lk, s), r in bf16_times.items() if lk == launch},
         }
 
@@ -2041,6 +2407,14 @@ def main() -> int:
           f"{rate['rate']:.4f} client-rounds/s; served logits of the "
           "trained run "
           f"max|card-cpu| {cli_served['logit_err']:.3e}")
+    print(f"[summary] dense: n=8 CLI run theta max|card-cpu| "
+          f"{dense_run['theta_err']:.3e}, round rate {dense_rate['rate']:.4f} "
+          f"client-rounds/s, served logits max|card-cpu| "
+          f"{dense_served['logit_err']:.3e}; config 1 theta "
+          f"{config1['theta_err']:.3e}; remat peak memory above the start "
+          f"(B) {remat}; served forward at buckets "
+          + ", ".join(f"{b}: {dense_times[b]['forward_ms']:.4f} ms"
+                      for b in BUCKETS))
     print(f"[summary] bf16: kernel max|kernel-plain| A "
           f"{bf16_worst['A']:.3e} B {bf16_worst['B']:.3e} C "
           f"{bf16_worst['C']:.3e} (relative norm {bf16_worst['rel']:.3e});"

@@ -1,16 +1,20 @@
 """Data encoders: classical feature vector → per-qubit amplitudes.
 
-Counterpart of ``qfedx_tpu/circuits/encoders.py`` (``angle_amplitudes``).
-Angle encoding is one rotation per qubit on |0…0⟩, i.e. a product state;
-the batched engine materializes it from these 2-vectors
-(``ops/batched.bstate_product_tree``).
+Counterpart of ``qfedx_tpu/circuits/encoders.py`` (``angle_amplitudes``,
+``angle_encode``). Angle encoding is one rotation per qubit on |0…0⟩,
+i.e. a product state: the dense engine builds it from these 2-vectors by
+sequential outer products (``ops/statevector.product_state``), the
+batched engine by ``ops/batched.bstate_product`` or its log-depth tree.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from qfedx_tpu_torch.ops.cpx import CArray, state_dtype
+from qfedx_tpu_torch.ops.statevector import product_state
 
 
 def angle_amplitudes(angles: torch.Tensor, basis: str = "ry") -> CArray:
@@ -35,3 +39,9 @@ def angle_amplitudes(angles: torch.Tensor, basis: str = "ry") -> CArray:
             torch.stack([c, zero], dim=-1), torch.stack([-s, zero], dim=-1)
         )
     raise ValueError(f"unknown basis {basis!r}")
+
+
+def angle_encode(features: torch.Tensor, basis: str = "ry") -> CArray:
+    """Features in [0,1], shape (*lead, n) → dense state (*lead, 2, …, 2)
+    via R_basis(π·f_k) on each qubit."""
+    return product_state(angle_amplitudes(features * math.pi, basis))

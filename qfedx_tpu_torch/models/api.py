@@ -28,7 +28,10 @@ class Model:
     - ``apply_clients`` — optional client-folded forward
       ``(cparams, x) -> logits``: every params leaf carries a leading
       client axis C and x is [C, B, ...] → [C, B, K]. The federated round
-      folds per-client parameters into the engine batch through it."""
+      folds per-client parameters into the engine batch through it.
+    - ``engine`` — optional ``() -> str``: the engine ``apply`` runs now
+      (the VQC's "batched" or "vmap"; the reference's ``engine.trace``
+      span names it)."""
 
     init: Callable[[Any], Params]
     apply: Callable[[Params, Any], Any]
@@ -36,3 +39,4 @@ class Model:
     name: str = "model"
     apply_train: Callable[..., Any] | None = None
     apply_clients: Callable[[Params, Any], Any] | None = None
+    engine: Callable[[], str] | None = None

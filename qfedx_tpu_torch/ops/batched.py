@@ -485,7 +485,12 @@ def probabilities_b(state: CArray) -> torch.Tensor:
 def expect_z_all_b(state: CArray, n: int) -> torch.Tensor:
     """⟨Z_k⟩ ∀k per sample: (B, 2^n) → (B, n) f32 via the two-pass slab
     reduction (row sums + lane sums)."""
-    probs = probabilities_b(state)
+    return z_all_slab(probabilities_b(state), n)
+
+
+def z_all_slab(probs: torch.Tensor, n: int) -> torch.Tensor:
+    """The two-pass slab reduction of (B, 2^n) f32 probabilities to the
+    (B, n) ⟨Z_k⟩ (the reference's ``_slab_z_all``)."""
     b = probs.shape[0]
     rbits = n - _LANE_BITS
     slab = probs.reshape(b, 1 << rbits, _LANES)

@@ -374,15 +374,15 @@ constexpr int ERR_CLUSTER_UNSCHEDULABLE = 100000;
 
 std::mutex config_mutex;
 // The cluster instances' codes, as the C entries take them: 0 = f32, 1 =
-// bf16 (tensor-core products), 2 = bf16 with FFMA products.
+// bf16 (tensor-core products, MMA = true).
 template <class T, bool MMA>
-constexpr int CODE = IS_BF16<T> ? (MMA ? 1 : 2) : 0;
+constexpr int CODE = IS_BF16<T> ? 1 : 0;
 // Per cluster instance [code][BND]: the dynamic shared memory its
 // attribute allows, the non-portable cluster size switched on, and per K
 // the largest shared memory whose cluster was checked to fit the card.
-int smem_allowed[3][2];
-bool nonportable_on[3][2];
-int cluster_checked[3][2][MAX_CLUSTER + 1];
+int smem_allowed[2][2];
+bool nonportable_on[2][2];
+int cluster_checked[2][2][MAX_CLUSTER + 1];
 
 // Raise the cluster kernel's attributes to `smem` bytes of dynamic shared
 // memory and, above 8 CTAs, the non-portable cluster size (the caller
@@ -488,7 +488,6 @@ int launch(const void* in_re, const void* in_im, void* out_re, void* out_im,
                                          n_ops, c, statics, tb, n, length,
                                          cluster, smem, st);
   }
-  if (IS_BF16<T> && !MMA) return (int)cudaErrorInvalidValue;  // cluster only
   if (br != nullptr)
     scan_body_kernel<T, true><<<tb, THREADS, 0, st>>>(
         ir, ii, orr, oi, (T*)tmp_re, (T*)tmp_im, br, bi, desc, n_ops, c,
@@ -528,9 +527,7 @@ cudaError_t attrs_of(cudaFuncAttributes* a, int cluster, int bnd) {
 // kernel runs on `stream` and is not synchronised. `dtype` names the
 // element type of the state, boundaries and coefficients: 0 = f32, 1 =
 // bf16 (the instance of that type runs; there is no conversion; the bf16
-// cluster instance takes its lane and row products on the tensor cores),
-// 2 = bf16 on the cluster instance with FFMA products (the earlier
-// design, a yardstick for timing; the wrapper never launches it).
+// cluster instance takes its lane and row products on the tensor cores).
 // bnd_re/bnd_im are both null (no boundaries) or both (L, tb, R, 128)
 // outputs. `cluster` = 0 launches the global instance (tmp_re/tmp_im: a
 // scratch block like the output); `cluster` = K >= 1 launches the cluster
@@ -556,10 +553,6 @@ extern "C" int qfx_scan_body_launch(const void* in_re, const void* in_im,
     return launch<bf16, true>(in_re, in_im, out_re, out_im, tmp_re, tmp_im,
                               bnd_re, bnd_im, desc, n_ops, coeffs, statics,
                               tb, n, length, st, cluster, smem);
-  if (dtype == 2)
-    return launch<bf16, false>(in_re, in_im, out_re, out_im, tmp_re, tmp_im,
-                               bnd_re, bnd_im, desc, n_ops, coeffs, statics,
-                               tb, n, length, st, cluster, smem);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -571,7 +564,6 @@ extern "C" int qfx_scan_body_max_clusters(int cluster, int smem, int dtype,
                                           int* active) {
   if (dtype == 0) return max_clusters<float, false>(cluster, smem, active);
   if (dtype == 1) return max_clusters<bf16, true>(cluster, smem, active);
-  if (dtype == 2) return max_clusters<bf16, false>(cluster, smem, active);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -588,8 +580,6 @@ extern "C" int qfx_scan_body_attrs(int cluster, int bnd, int dtype,
     err = attrs_of<float, false>(&a, cluster, bnd);
   else if (dtype == 1)
     err = attrs_of<bf16, true>(&a, cluster, bnd);
-  else if (dtype == 2 && cluster)
-    err = attrs_of<bf16, false>(&a, cluster, bnd);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

@@ -525,9 +525,8 @@ namespace qfx {
 // floats, then the stage region of `units` x UNIT_ELEMS elements of T,
 // then the n_ops x DESC_W descriptor table. The tensor-core instance
 // (T = bf16, MMA) takes up to MMA_MAX_UNITS units and, before the table,
-// the bf16 copy of its rows (2 x RK x OPND_PITCH elements). MMA = false with
-// T = bf16 is the FFMA design of the bf16 products, kept as a yardstick
-// that chip_smoke.py times beside the tensor-core instance.
+// the bf16 copy of its rows (2 x RK x OPND_PITCH elements). The C entries
+// (scan_body.cu) instantiate MMA = true exactly for T = bf16.
 template <class T, bool BND, bool MMA>
 __global__ void __launch_bounds__(CL_THREADS, 1)
 scan_body_cluster_kernel(const T* __restrict__ in_re,

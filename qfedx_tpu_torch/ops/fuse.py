@@ -1,28 +1,33 @@
-"""Circuit-fusion compiler, scan form: an L-layer gate trace → one stacked
-super-gate body.
+"""Circuit-fusion compiler: a gate trace → per-layer super-gates
+(``fuse_ops``) or one stacked super-gate body over L layers
+(``fuse_ops_stacked``), and their executors.
 
-Counterpart of the scan half of ``qfedx_tpu/ops/fuse.py`` (``Op``,
-``StackedOp``, ``ScanProgram``, ``fuse_ops_stacked``,
-``_merge_scan_boundary``, the batched branch of ``_exec_stacked`` and
-``apply_scan``). The IR is a flat list of ``Op`` records — static Python
-qubit indices, CArray coefficients carrying a leading layer axis — and
-the pass composes it with the reference's greedy accumulator discipline
-(pairwise-disjoint footprints, flush on overlap), so the emitted program
-has the reference's kinds, qubits, static permutations and coefficient
-shapes. The trace-time numpy statics are the reference's verbatim.
+Counterpart of ``qfedx_tpu/ops/fuse.py``. The IR is a flat list of
+``Op`` records — static Python qubit indices, CArray coefficients with
+optional leading group axes (and, for the scan form, a leading layer
+axis) — and both passes compose it with the reference's greedy
+accumulator discipline (pairwise-disjoint footprints, flush on overlap),
+so the emitted programs have the reference's kinds, qubits, static
+permutations and coefficient shapes. The trace-time numpy statics are
+the reference's verbatim.
 
-Where the program runs: ``apply_scan`` hands it to the scan-body kernel
-(``ops/scan_body.py``) when ``scan_body.route_ok`` accepts it, and
-otherwise runs the body as a torch loop over the layers — the port's
-counterpart of the reference's ``lax.scan`` route, taken exactly where
-the reference takes ``lax.scan`` (e.g. a stacked ``g1`` at even widths
-n ≥ 16, which ``route_ok`` refuses).
+Executors: ``apply_fused`` (dense ``(*lead, 2, …, 2)`` states),
+``apply_fused_b`` (batched ``(B, 2^n)`` slabs) and the gate-by-gate
+``apply_ops_unfused``; ``apply_scan`` runs a stacked program on a
+batched slab, or on a dense state as its slab (one reshape each way).
+The dense route thus reaches ``scan_body.route_ok`` and the scan-body
+kernel exactly as the batched route does (one launch at tb = prod(lead);
+the reference's dense scan is a vmapped kernel with tb = 1 per sample:
+the same math). When ``route_ok`` refuses a program,
+``apply_scan`` runs the body as a torch loop over the layers — the
+port's counterpart of the reference's ``lax.scan`` route, taken exactly
+where the reference takes it (e.g. a stacked ``g1`` at even widths
+n ≥ 16).
 
 Routing pins keep the reference's names (QFEDX_FUSE, QFEDX_SCAN_LAYERS)
 and default ON — the program the card runs — and the backend gates
 ``_gather_ok``/``_growmat_merge_ok`` return True, so the CPU tests build
-the card's program. The per-layer ``fuse_ops`` pass (scan off) is not
-ported: with the scan route off, the ansatz runs gate by gate.
+the card's program.
 """
 
 from __future__ import annotations
@@ -46,6 +51,17 @@ class Op(NamedTuple):
     kind: str
     qubits: tuple
     coeffs: CArray | None = None
+
+
+class FusedOp(NamedTuple):
+    """One op of a per-layer fused program: the IR kinds pass through
+    unfused, plus "lane" (composed (…,128,128) lane matrix), "rowpair"
+    (merged (…,2,2,2,2) super-gate on two row qubits, qubits sorted) and
+    "mask" (precomputed (…,2^n) phase mask)."""
+
+    kind: str
+    qubits: tuple
+    coeffs: object = None
 
 
 class StackedOp(NamedTuple):
@@ -202,6 +218,13 @@ def _mask_factor(op: Op, n: int) -> CArray:
     return _lane_map(op.coeffs, lambda vals: _pick2(b1, b2, vals, 1))
 
 
+def _build_mask(facs: list, n: int) -> CArray:
+    mask = _mask_factor(facs[0], n)
+    for op in facs[1:]:
+        mask = cmul(mask, _mask_factor(op, n))
+    return mask
+
+
 def diag1_gate(coeffs: CArray) -> CArray:
     """(…,2) diagonal entries → (…,2,2) gate matrix (off-diagonal zero)."""
 
@@ -216,6 +239,152 @@ def diag1_gate(coeffs: CArray) -> CArray:
         )
 
     return _lane_map(coeffs, build)
+
+
+def diag2_gate(coeffs: CArray) -> CArray:
+    """(…,2,2) entries d[b1,b2] → (…,2,2,2,2) gate tensor
+    G[o1,o2,i1,i2] = d[i1,i2]·δ(o1,i1)·δ(o2,i2)."""
+    eye = torch.eye(2, dtype=RDTYPE, device=coeffs.re.device)
+
+    def build(vals):
+        return (vals[..., None, None, :, :] * eye[:, None, :, None]
+                * eye[None, :, None, :])
+
+    return _lane_map(coeffs, build)
+
+
+# --- the per-layer fusion pass ----------------------------------------------
+
+
+def fuse_ops(ops: list, n: int) -> list:
+    """Greedy one-pass fusion of an IR trace for an n-qubit state: a
+    composed lane matrix, one pending row single and a diagonal run are
+    accumulated, and an accumulator is flushed exactly when an op
+    overlapping its qubits arrives, so every reorder is between ops on
+    disjoint qubits. Lane fusion needs n ≥ 7, row pairs both qubits in
+    the row region; anything unfusible passes through unchanged."""
+    lane_region = n - _LANE_BITS
+    has_lanes = n >= _LANE_BITS
+    dev = next(
+        (op.coeffs.re.device for op in ops if op.coeffs is not None),
+        torch.device("cpu"),
+    )
+
+    def is_lane(q: int) -> bool:
+        return has_lanes and q >= lane_region
+
+    out: list = []
+    lane_acc: CArray | None = None
+    lane_qs: set = set()
+    row_q: int | None = None
+    row_gate: CArray | None = None
+    diag_facs: list = []
+    diag_qs: set = set()
+
+    def flush_lane():
+        nonlocal lane_acc, lane_qs
+        if lane_acc is not None:
+            out.append(FusedOp("lane", tuple(sorted(lane_qs)), lane_acc))
+            lane_acc, lane_qs = None, set()
+
+    def flush_row():
+        nonlocal row_q, row_gate
+        if row_q is not None:
+            out.append(FusedOp("g1", (row_q,), row_gate))
+            row_q, row_gate = None, None
+
+    def flush_diag():
+        nonlocal diag_facs, diag_qs
+        if diag_facs:
+            out.append(FusedOp("mask", tuple(sorted(diag_qs)),
+                               _build_mask(diag_facs, n)))
+            diag_facs, diag_qs = [], set()
+
+    def fold_lane(mt: CArray, qs: set):
+        nonlocal lane_acc, lane_qs
+        if lane_acc is not None and not _lead_compatible(
+            _group_of(lane_acc, False, 2), _group_of(mt, False, 2)
+        ):
+            flush_lane()
+        lane_acc = mt if lane_acc is None else _cmatmul(lane_acc, mt)
+        lane_qs |= qs
+
+    for op in ops:
+        qs = set(op.qubits)
+        if op.kind == "g1":
+            q = op.qubits[0]
+            if qs & diag_qs:
+                flush_diag()
+            if is_lane(q):
+                fold_lane(_lane_g1(op.coeffs, sv._slab_pos(n, q)), qs)
+            elif row_q is None:
+                row_q, row_gate = q, op.coeffs
+            elif row_q == q:
+                if _lead_compatible(_group_of(row_gate, False, 2),
+                                    _group_of(op.coeffs, False, 2)):
+                    # Sequential A then B on one qubit is the matrix B·A.
+                    row_gate = _cmatmul(op.coeffs, row_gate)
+                else:
+                    flush_row()
+                    row_q, row_gate = q, op.coeffs
+            elif _lead_compatible(_group_of(row_gate, False, 2),
+                                    _group_of(op.coeffs, False, 2)):
+                q1, g1_, q2, g2_ = (
+                    (row_q, row_gate, q, op.coeffs)
+                    if row_q < q
+                    else (q, op.coeffs, row_q, row_gate)
+                )
+                out.append(FusedOp("rowpair", (q1, q2), _ckron2(g1_, g2_)))
+                row_q, row_gate = None, None
+            else:
+                flush_row()
+                row_q, row_gate = q, op.coeffs
+        elif op.kind == "cnot":
+            if qs & diag_qs:
+                flush_diag()
+            if row_q in qs:
+                flush_row()
+            if is_lane(op.qubits[0]) and is_lane(op.qubits[1]):
+                mt = CArray(sv._lane_perm_cnot(
+                    sv._slab_pos(n, op.qubits[0]),
+                    sv._slab_pos(n, op.qubits[1]), RDTYPE, dev), None)
+                fold_lane(mt, qs)
+            else:
+                if qs & lane_qs:
+                    flush_lane()
+                out.append(FusedOp("cnot", op.qubits, None))
+        elif op.kind in ("diag1", "diag2"):
+            if row_q in qs:
+                flush_row()
+            if all(is_lane(q) for q in qs) and lane_acc is not None:
+                # A lane product is already pending: composing the
+                # diagonal in is free; starting one for it is not.
+                p = [sv._slab_pos(n, q) for q in op.qubits]
+                mt = (
+                    _lane_g1(diag1_gate(op.coeffs), p[0])
+                    if op.kind == "diag1"
+                    else _lane_diag2(op.coeffs, p[0], p[1])
+                )
+                fold_lane(mt, qs)
+            else:
+                if qs & lane_qs:
+                    flush_lane()
+                diag_facs.append(op)
+                diag_qs |= qs
+        elif op.kind == "g2":
+            if qs & diag_qs:
+                flush_diag()
+            if row_q in qs:
+                flush_row()
+            if qs & lane_qs:
+                flush_lane()
+            out.append(FusedOp("g2", op.qubits, op.coeffs))
+        else:
+            raise ValueError(f"unknown IR op kind {op.kind!r}")
+    flush_diag()
+    flush_row()
+    flush_lane()
+    return out
 
 
 # --- stacked-program helpers ------------------------------------------------
@@ -912,14 +1081,11 @@ def _merge_scan_boundary(body: list, n: int, length: int):
 # --- executors --------------------------------------------------------------
 
 
-def _exec_stacked(state: CArray, n: int, op: StackedOp,
-                  batched: bool) -> CArray:
-    """Run ONE (layer-sliced) op of a stacked program on the batched slab
-    engine (the dense engine is not ported)."""
+def _exec_stacked(state: CArray, n: int, op, batched: bool) -> CArray:
+    """Run ONE (layer-sliced) op of a fused or stacked program on the
+    batched slab engine (a dense state gets here only as its slab)."""
     if not batched:
-        raise NotImplementedError(
-            "the dense (2,)*n engine is not ported; run batched=True"
-        )
+        raise ValueError("run a dense state as its slab (sv.to_slab)")
     from qfedx_tpu_torch.ops import batched as bt
 
     if op.kind == "g1":
@@ -940,7 +1106,61 @@ def _exec_stacked(state: CArray, n: int, op: StackedOp,
         return bt.apply_lane_matrix_ctrl_b(state, n, op.coeffs, op.qubits[0])
     if op.kind == "growmat":
         return bt.apply_row_matrix_ctrl_b(state, n, op.coeffs, op.qubits[0])
-    raise ValueError(f"stacked op kind {op.kind!r} has no batched executor")
+    raise ValueError(f"op kind {op.kind!r} has no batched executor")
+
+
+def apply_fused(state: CArray, fused: list, n: int | None = None) -> CArray:
+    """Run a ``fuse_ops`` program on a dense (*lead, 2, …, 2) state
+    (``n`` defaults to ``state.ndim``) with the dense engine's entry
+    points (a row pair is a 2-qubit gate); grouped coefficients
+    left-align with the leading axes."""
+    n = state.ndim if n is None else n
+    for op in fused:
+        if op.kind == "g1":
+            state = sv.apply_gate(state, op.coeffs, op.qubits[0], n)
+        elif op.kind == "cnot":
+            state = sv.apply_cnot(state, *op.qubits, n=n)
+        elif op.kind in ("g2", "rowpair"):
+            state = sv.apply_gate_2q(state, op.coeffs, *op.qubits, n=n)
+        elif op.kind == "lane":
+            state = sv.apply_lane_matrix(state, op.coeffs, n)
+        elif op.kind == "mask":
+            state = sv.apply_phase_mask(state, op.coeffs, n)
+        else:
+            raise ValueError(f"unknown fused op kind {op.kind!r}")
+    return state
+
+
+def apply_fused_b(state: CArray, n: int, fused: list) -> CArray:
+    """Run a ``fuse_ops`` program on a batched (B, 2^n) slab; grouped
+    (G,…) stacks apply per contiguous row group."""
+    for op in fused:
+        state = _exec_stacked(state, n, op, True)
+    return state
+
+
+def apply_ops_unfused(state: CArray, ops: list, n: int | None = None
+                      ) -> CArray:
+    """Gate-by-gate executor of an IR trace on a dense state — the
+    baseline the fused programs are held against (diagonals apply as
+    ordinary gates with zero off-diagonals)."""
+    n = state.ndim if n is None else n
+    for op in ops:
+        if op.kind == "g1":
+            state = sv.apply_gate(state, op.coeffs, op.qubits[0], n)
+        elif op.kind == "cnot":
+            state = sv.apply_cnot(state, *op.qubits, n=n)
+        elif op.kind == "g2":
+            state = sv.apply_gate_2q(state, op.coeffs, *op.qubits, n=n)
+        elif op.kind == "diag1":
+            state = sv.apply_gate(state, diag1_gate(op.coeffs),
+                                  op.qubits[0], n)
+        elif op.kind == "diag2":
+            state = sv.apply_gate_2q(state, diag2_gate(op.coeffs),
+                                     *op.qubits, n=n)
+        else:
+            raise ValueError(f"unknown IR op kind {op.kind!r}")
+    return state
 
 
 def layer_slice(op: StackedOp, layer: int) -> StackedOp:
@@ -956,13 +1176,14 @@ def apply_scan(state: CArray, n: int, program: ScanProgram,
     kernel sweep when ``scan_body.route_ok`` accepts the program (the
     reference's Pallas branch), else as a torch loop over the layers
     (the reference's ``lax.scan`` branch). The imaginary part is
-    materialized up front, as there."""
+    materialized up front, as there. A dense state runs as its batched
+    slab (one group axis at most on the coefficients)."""
     from qfedx_tpu_torch.ops import scan_body
 
     if not batched:
-        raise NotImplementedError(
-            "the dense (2,)*n engine is not ported; run batched=True"
-        )
+        lead = tuple(state.shape[: state.ndim - n])
+        out = apply_scan(sv.to_slab(state, n), n, program, batched=True)
+        return sv.from_slab(out, lead, n)
     if scan_body.route_ok(state, n, program, batched):
         return scan_body.apply_scan_pallas(state, n, program, batched)
     state = CArray(state.re, state.imag_or_zeros())

@@ -329,17 +329,14 @@ def _products(dtype: str) -> str:
     return "mma" if dtype == "bfloat16" else "ffma"
 
 
-def _cluster_smem(spec: _KernelSpec, k: int,
-                  products: str | None = None) -> int | None:
+def _cluster_smem(spec: _KernelSpec, k: int) -> int | None:
     """Dynamic shared memory of one CTA of the cluster instance, or None
     where it does not fit: two ping-pong buffers of its R/K rows (re and
     im, f32), with tensor-core products ("mma", the bf16 instance) the
     bf16 copy of those rows, the descriptor table, and a stage region of
     as many units as the rest of the block's shared memory holds, 4 to 8
-    (128 KB in f32, 64 KB in bf16; with "mma" 4 to 16, 128 KB).
-    ``products`` defaults to the dtype's (``_products``); "ffma" in bf16
-    sizes the earlier FFMA design."""
-    products = products or _products(spec.dtype)
+    in f32 (128 KB), 4 to 16 with "mma" (128 KB)."""
+    products = _products(spec.dtype)
     rows = (1 << (spec.n - _LANE_BITS)) // k
     fixed = 2 * 2 * rows * _LANES * 4 + len(spec.ops) * _DESC_W * 4
     most = _MAX_UNITS
@@ -381,23 +378,8 @@ def _launch_config(spec: _KernelSpec) -> LaunchConfig:
     return LaunchConfig("cluster", k, smem, spec.dtype, products)
 
 
-def ffma_config(cfg: LaunchConfig, spec: _KernelSpec) -> LaunchConfig:
-    """``cfg`` on the bf16 cluster instance's earlier design, its lane and
-    row products as FFMAs (same K, the FFMA ring's shared memory): a
-    yardstick ``prepare_launch`` takes for timing; ``scan_body`` never
-    launches it."""
-    if cfg.instance != "cluster" or cfg.dtype != "bfloat16":
-        raise ValueError(f"no FFMA yardstick for {cfg}")
-    return cfg._replace(smem=_cluster_smem(spec, cfg.cluster, "ffma"),
-                        products="ffma")
-
-
-def _instance_code(cfg: LaunchConfig) -> int:
-    """The C entries' instance code (csrc/scan_body.cu): 0 = f32, 1 =
-    bf16, 2 = bf16 cluster with FFMA products."""
-    if cfg.dtype == "float32":
-        return 0
-    return 2 if cfg.instance == "cluster" and cfg.products == "ffma" else 1
+# The C entries' instance code of each dtype (csrc/scan_body.cu).
+_DTYPE_CODE = {"float32": 0, "bfloat16": 1}
 
 
 def _check_coeffs(spec: _KernelSpec, xs, device) -> None:
@@ -626,18 +608,16 @@ class _Prepared(NamedTuple):
 
 
 def prepare_launch(packed, spec: _KernelSpec, xs,
-                   with_boundaries: bool = False,
-                   config: LaunchConfig | None = None) -> _Prepared:
+                   with_boundaries: bool = False) -> _Prepared:
     """Pack ``xs`` (rounded to the spec's dtype), allocate the output,
     scratch and boundary buffers, and bind the launch's arguments (CUDA
     tensors). The state, the coefficients and the outputs share the
     spec's dtype, which selects the instance; a state of another dtype
-    raises. ``config`` replaces ``_launch_config(spec)`` (a timing
-    yardstick, ``ffma_config``)."""
+    raises."""
     if _dtype_name(packed.dtype) != spec.dtype:
         raise TypeError(f"a {packed.dtype} state for a {spec.dtype} launch")
     lib = load_kernel()
-    cfg = config or _launch_config(spec)
+    cfg = _launch_config(spec)
     desc, statics = _device_tables(spec, packed.device)
     coeffs = (_pack_coeffs(spec, xs, cfg.products == "mma") if xs
               else torch.zeros(1, dtype=packed.dtype,  # static ops only
@@ -666,7 +646,7 @@ def prepare_launch(packed, spec: _KernelSpec, xs,
         coeffs.data_ptr(), statics.data_ptr(),
         spec.tb, spec.n, spec.length, packed.device.index or 0, stream,
         cfg.cluster if cfg.instance == "cluster" else 0, cfg.smem,
-        _instance_code(cfg),
+        _DTYPE_CODE[cfg.dtype],
     )
     return _Prepared(lib, args, (packed, desc, statics, coeffs, tmp), out,
                      bnd, cfg)
@@ -691,7 +671,7 @@ def resident_clusters(cfg: LaunchConfig) -> int:
     lib = load_kernel()
     active = ctypes.c_int()
     err = lib.qfx_scan_body_max_clusters(cfg.cluster, cfg.smem,
-                                         _instance_code(cfg),
+                                         _DTYPE_CODE[cfg.dtype],
                                          ctypes.byref(active))
     if err != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error "
@@ -702,15 +682,11 @@ def resident_clusters(cfg: LaunchConfig) -> int:
 def instance_attrs() -> dict:
     """Registers, local-memory (spill) bytes and static shared memory of
     each compiled instance, as the runtime reports them (bf16 instances
-    under a ``_bf16`` suffix; the bf16 cluster instance's FFMA yardstick
-    under ``_bf16_ffma``)."""
+    under a ``_bf16`` suffix)."""
     lib = load_kernel()
     out = {}
-    for sfx, code, names in (
-        ("", 0, ("global", "cluster")), ("_bf16", 1, ("global", "cluster")),
-        ("_bf16_ffma", 2, ("cluster",)),
-    ):
-        for name in names:
+    for sfx, code in (("", 0), ("_bf16", 1)):
+        for name in ("global", "cluster"):
             cluster = int(name == "cluster")
             for bnd in (0, 1):
                 vals = [ctypes.c_int() for _ in range(3)]

@@ -8,10 +8,11 @@ numpy copies of the data modules (arrays equal to the reference's bit
 for bit); ``build_model`` builds the port's model on ``device`` (the
 card unless a caller passes another).
 
-``build_model`` builds the angle-encoded VQC on the batched engine
-(n ≥ 10). The other models (cnn, mps, qkernel; ROADMAP Queue 1 item
-11), the sv-sharded engine (item 12), noise (item 10), remat and the
-dense route below n = 10 (item 4) raise NotImplementedError.
+``build_model`` builds the angle-encoded VQC at every width (the dense
+engine below n = 10, the batched one above; ``remat`` passes through).
+The other models (cnn, mps, qkernel; ROADMAP Queue 1 item 11), the
+sv-sharded engine (item 12) and noise (item 10) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -163,8 +164,6 @@ def _apply_scan_layers(scan_layers: bool | None) -> None:
 
 def build_model(cfg: ExperimentConfig, num_classes: int, device=None):
     """ModelConfig → Model on ``device`` (None = the card)."""
-    from qfedx_tpu_torch.ops.batched import batched_enabled
-
     m = cfg.model
     # The pins are read when the model runs, so the config's explicit
     # route lands in the environment before anything runs it.
@@ -185,17 +184,6 @@ def build_model(cfg: ExperimentConfig, num_classes: int, device=None):
         raise NotImplementedError(
             "noise is not ported yet (ROADMAP Queue 1 item 10)"
         )
-    if m.remat:
-        raise NotImplementedError(
-            "remat applies to the dense route, which is not ported yet "
-            "(ROADMAP Queue 1 item 4)"
-        )
-    if not batched_enabled(m.n_qubits):
-        raise NotImplementedError(
-            f"n_qubits={m.n_qubits}: the port runs the batched engine at "
-            "n ≥ 10 with QFEDX_BATCHED on; the dense route below it is "
-            "not ported yet (ROADMAP Queue 1 item 4)"
-        )
     from qfedx_tpu_torch.models.vqc import make_vqc_classifier
 
     return make_vqc_classifier(
@@ -204,6 +192,7 @@ def build_model(cfg: ExperimentConfig, num_classes: int, device=None):
         num_classes=num_classes,
         encoding=m.encoding,
         init_scale=m.init_scale,
+        remat=m.remat,
         device=device,
     )
 

@@ -174,9 +174,14 @@ class ServeEngine:
             "num_classes": int(out.shape[-1]),
             "kernel_builds": scan_body.build_count - builds0,
             "route": {p: pins.str_pin(p, "") for p in _ROUTING_PINS},
+            # The pins' route beside the engine the model runs: the
+            # pins read fuse/scan/kernel on at every width, but below the
+            # slab widths the "vmap" engine runs none of them.
             "route_resolved": {
                 "dtype": str(state_dtype()).replace("torch.", ""),
                 "device": str(self.device),
+                "engine": (self.model.engine() if self.model.engine
+                           else None),
                 **scan_body.resolved_route(),
             },
         }

@@ -523,9 +523,8 @@ def test_launch_config_bf16_tensor_cores(n, tb, monkeypatch):
     """Every bf16 cluster launch (n = 10-17) runs its lane and row
     products on the tensor cores, chosen from the spec alone: K and rows
     per CTA as f32, up to 16 ring units of 8192 B with the bf16 copy of
-    the CTA's rows (272 B a row) before the descriptors, and the FFMA
-    yardstick (``ffma_config``) at the earlier design's 4 to 8 units on
-    the same K; the C entries' codes tell the three apart."""
+    the CTA's rows (272 B a row) before the descriptors; the C entries'
+    codes tell the f32 and bf16 instances apart."""
     def no_cuda(*a, **k):
         raise AssertionError("_launch_config touched the card")
 
@@ -546,13 +545,7 @@ def test_launch_config_bf16_tensor_cores(n, tb, monkeypatch):
     assert 4 <= units
     if rk <= 32:  # both glane branches' eight slabs in flight at once
         assert units == 16
-    ffma = scan_body.ffma_config(cfg, spec)
-    ffma_fixed = 16 * rk * 128 + 2 * 8 * 4
-    assert (ffma.cluster, ffma.products) == (cfg.cluster, "ffma")
-    assert ffma.smem == ffma_fixed + min(
-        8, (232_448 - ffma_fixed) // 8192) * 8192
-    assert [scan_body._instance_code(c) for c in (f32, cfg, ffma)] == [
-        0, 1, 2]
+    assert [scan_body._DTYPE_CODE[c.dtype] for c in (f32, cfg)] == [0, 1]
 
 
 def test_ring_swizzle_is_the_kernels_layout():
@@ -616,20 +609,6 @@ def test_swizzle_index_is_built_once_per_spec():
     flat = scan_body._pack_coeffs(spec, xs)
     assert torch.equal(flat.index_select(0, idx),
                        scan_body._pack_coeffs(spec, xs, swizzle=True))
-
-
-def test_ffma_yardstick_only_for_bf16_clusters():
-    """The FFMA yardstick exists for the bf16 cluster instance only; the
-    bf16 global instance (n >= 18) is FFMA and keeps code 1."""
-    spec = _spec_of(18, 8, "bfloat16")
-    cfg = scan_body._launch_config(spec)
-    assert (cfg.instance, cfg.products) == ("global", "ffma")
-    assert scan_body._instance_code(cfg) == 1
-    with pytest.raises(ValueError, match="no FFMA yardstick"):
-        scan_body.ffma_config(cfg, spec)
-    f32 = _spec_of(12, 8, "float32")
-    with pytest.raises(ValueError, match="no FFMA yardstick"):
-        scan_body.ffma_config(scan_body._launch_config(f32), f32)
 
 
 def test_wrapper_dtype_contract():

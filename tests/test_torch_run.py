@@ -446,7 +446,8 @@ def test_cli_train_then_serve(monkeypatch, tmp_path, small_data, capsys):
 @pytest.mark.parametrize("extra", [
     ["--plots"], ["--profile"], ["--trace"], ["--tuned", "x.json"],
     ["--dp-clip", "1.0"], ["--secure-agg"], ["--aggregator", "median"],
-    ["--staleness-mode", "poly"], ["--model", "cnn"], ["--qubits", "8"],
+    ["--staleness-mode", "poly"], ["--model", "cnn"],
+    ["--encoding", "reupload"],
     ["--sv-size", "2"], ["--shots", "100"],
 ])
 def test_cli_unported_paths_raise(tmp_path, small_data, extra):

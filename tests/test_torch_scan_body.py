@@ -365,7 +365,7 @@ def test_launch_config_f32_frozen(n, tb):
     assert cfg == scan_body.LaunchConfig("cluster", k, smem, "float32",
                                          "ffma")
     assert scan_body._cluster_smem(_spec_of(n, tb), k) == smem
-    assert scan_body._instance_code(cfg) == 0
+    assert scan_body._DTYPE_CODE[cfg.dtype] == 0
 
 
 def _csrc_copy(tmp_path, monkeypatch):

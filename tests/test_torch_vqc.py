@@ -105,22 +105,33 @@ def test_init_seeding():
 
 
 def test_unported_routes_raise(monkeypatch):
+    """Amplitude encoding still raises; the dense route below n = 10 and
+    the folded route off the scan (the per-layer ``fuse_ops`` pass) run
+    and match the batched route."""
     with pytest.raises(NotImplementedError, match="amplitude"):
         make_vqc_classifier(12, 3, 2, encoding="amplitude", device="cpu")
     small = make_vqc_classifier(8, 2, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense"):
-        small.apply(small.init(0), _features(8))
-    model = make_vqc_classifier(12, 3, 2, device="cpu")
+    logits = small.apply(small.init(0), _features(8))
+    assert small.engine() == "vmap" and tuple(logits.shape) == (4, 2)
+    model = make_vqc_classifier(12, 3, 2, init_scale=1.0, device="cpu")
     # bf16 states are ported: the pin runs (f32 logits), it does not raise.
     monkeypatch.setenv("QFEDX_DTYPE", "bf16")
     logits = model.apply(model.init(0), _features(12))
     assert logits.dtype == torch.float32 and tuple(logits.shape) == (4, 2)
     assert torch.isfinite(logits).all()
     monkeypatch.delenv("QFEDX_DTYPE")
-    monkeypatch.setenv("QFEDX_SCAN_LAYERS", "0")
     cparams = _client_params(model.init(0), 2)
-    with pytest.raises(NotImplementedError, match="fuse_ops"):
-        model.apply_clients(cparams, _features(12, 8).reshape(2, 4, 12))
+    x = _features(12, 8).reshape(2, 4, 12)
+    want = model.apply_clients(cparams, x)
+    dense_x = _features(12)
+    want_dense = model.apply(model.init(0), dense_x)
+    monkeypatch.setenv("QFEDX_SCAN_LAYERS", "0")
+    np.testing.assert_allclose(model.apply_clients(cparams, x).numpy(),
+                               want.numpy(), atol=1e-5, rtol=0)
+    monkeypatch.setenv("QFEDX_BATCHED", "0")
+    assert model.engine() == "vmap"
+    np.testing.assert_allclose(model.apply(model.init(0), dense_x).numpy(),
+                               want_dense.numpy(), atol=1e-5, rtol=0)
 
 
 def test_device_less_entry_points_raise_without_cuda(monkeypatch):
