@@ -123,11 +123,36 @@ Phases (any failure raises and exits non-zero):
    forward at the buckets (host clock, with ``torch.profiler``'s device
    kernels per forward and their device time) and one local step at the
    CLI's shape;
-14. print one JSON line describing each launch of the kernel, f32 and
-   bf16 instances (launches on the CLI run, and per path, the dense
-   paths included; max error; kernel-alone, plain and bound at the CLI
-   run's shape, and at the earlier slices' shapes);
-15. print the final ``{"ok": true, "device": {...}}`` line.
+14. the reupload and amplitude encodings and secure aggregation:
+   ``[reupload-parity]`` (and its bf16 twin) holds Launches A, B and C
+   against their plain versions on the port's own reupload programs —
+   served (per-sample stacks, G = tb) at n = 10, 12, 15 for tb = 1, 8,
+   32 and n = 16 at tb = 8, folded (per-sample beside per-client stacks)
+   at (C, B) = (2, 16) and (4, 8) — and ``ScanBodyFn``'s cotangents
+   (``[reupload-grad]``: the per-sample coefficient cotangents come back
+   as (L−1, tb, …) stacks) against plain autograd, and times A, B and C
+   at the (2, 16) fold; ``[reupload-serve]`` serves 256 requests of
+   ``make_vqc_classifier(12, 3, 2, encoding="reupload")`` (logits within
+   LOGIT_ATOL of the CPU port, exactly one Launch A per batch, no build
+   after warmup) and times A at each bucket's served program;
+   ``[reupload-cli-train]`` runs REUPLOAD_ARGV on the card and the CPU
+   (E·S_pad/B Launch B and as many C per round, no A: the evaluator's
+   tb = 256 leaves a stacked g1, as in the reference) and
+   ``[reupload-cli-serve]`` serves it; ``[amplitude-cli-train]`` and
+   ``[amplitude-cli-serve]`` do the same for AMPLITUDE_ARGV (n = 11 on
+   CIFAR-10, the widest the data allow; A in every evaluation);
+   ``[config4]`` runs BASELINE.md config 4 (CONFIG4_ARGV: 64 clients,
+   ring masks), the same with pairwise masks and without masks, on the
+   card, and one round of one local step of it on the card and the CPU:
+   masked runs equal the unmasked one within MASK_ATOL, the card the CPU
+   within TRAINED_LOGIT_ATOL, no kernel launch, and each round's wall
+   and client-rounds/s;
+15. print one JSON line describing each launch of the kernel, f32 and
+   bf16 instances (launches on the CLI run, and per path, the dense,
+   reupload, amplitude and config-4 paths included; max error;
+   kernel-alone, plain and bound at the CLI run's shape, and at the
+   earlier slices' and the reupload shapes);
+16. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -177,7 +202,7 @@ CLI_ARGV = ["train", "--model", "vqc", "--qubits", str(N_QUBITS), "--layers",
             str(TRAIN_CLIENTS), "--rounds", "3", "--local-epochs", "1",
             "--checkpoint-every", "1"]
 CLI_ROUNDS = 3
-RATE_ROUNDS = 16  # timed rounds of [cli-rate], after one warm-up round
+RATE_ROUNDS = 8  # timed rounds of [cli-rate], after one warm-up round
 N_SERVE_REQUESTS = 64
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
 # bf16 on the tensor cores (bf16 operands, f32 accumulation), HBM3.
@@ -1612,12 +1637,14 @@ def phase_cli_rate(root, unchunked: dict, argv=CLI_ARGV, tag="cli-rate",
 
 
 def phase_cli_serve(root, run_dir, dtype=torch.float32,
-                    shape=(N_QUBITS, N_LAYERS, 2), tag="cli-serve") -> dict:
+                    shape=(N_QUBITS, N_LAYERS, 2), tag="cli-serve",
+                    encoding="angle") -> dict:
     """``serve --run-dir`` (in-process) on the trained run: 64 requests
     and one malformed line, answered in order; the logits against the CPU
     port's ``model.apply`` on the restored checkpoint (in bf16 under the
     pin, which the caller sets: every launch on the bf16 instance).
-    ``shape`` is the run's (qubits, layers, classes); below the slab
+    ``shape`` is the run's (qubits, layers, classes) and ``encoding`` its
+    encoding (amplitude requests carry 2^n features); below the slab
     widths the model runs no kernel and the phase requires 0 launches."""
     n_qubits, n_layers, n_classes = shape
     dense = n_qubits < 10
@@ -1626,7 +1653,8 @@ def phase_cli_serve(root, run_dir, dtype=torch.float32,
     from qfedx_tpu_torch.run import cli
     from qfedx_tpu_torch.run.checkpoint import Checkpointer
 
-    x = np.random.default_rng(17).uniform(0, 1, (N_SERVE_REQUESTS, n_qubits))
+    width = (1 << n_qubits) if encoding == "amplitude" else n_qubits
+    x = np.random.default_rng(17).uniform(0, 1, (N_SERVE_REQUESTS, width))
     x = x.astype(np.float32)
     lines = [json.dumps({"id": f"q{i}", "features": v.tolist()})
              for i, v in enumerate(x)]
@@ -1646,7 +1674,8 @@ def phase_cli_serve(root, run_dir, dtype=torch.float32,
     bad = [r for r in resp if "error" in r]
     if len(bad) != 1 or bad[0]["code"] != 400 or bad[0]["id"] != 10:
         raise AssertionError(f"error responses {bad}")
-    model = make_vqc_classifier(n_qubits, n_layers, n_classes, device="cpu")
+    model = make_vqc_classifier(n_qubits, n_layers, n_classes,
+                                encoding=encoding, device="cpu")
     params, _ = Checkpointer(run_dir / "checkpoints").restore_latest(
         model.init(0))
     with torch.no_grad():
@@ -1672,6 +1701,11 @@ def phase_cli_serve(root, run_dir, dtype=torch.float32,
     if launches["fwd"] < summary["batches"] or launches["fwd_bnd"] or \
             launches["adj"]:
         raise AssertionError(f"serving launched {launches}")
+    if encoding == "reupload" and launches["fwd"] != summary["batches"] + len(
+            BUCKETS):
+        raise AssertionError(f"{summary['batches']} served batches and a "
+                             f"warmup of {len(BUCKETS)} buckets launched "
+                             f"{launches}: one A each")
     want_dt = "bfloat16" if _is_bf16(dtype) else "float32"
     if by_dtype[want_dt] != launches["fwd"]:
         raise AssertionError(f"serving ran instances {by_dtype}")
@@ -1952,8 +1986,10 @@ def _run_shape(argv) -> tuple:
     """(qubits, layers, classes, clients) the CLI builds from ``argv``."""
     from qfedx_tpu_torch.run import cli
 
+    from qfedx_tpu_torch.serve.engine import infer_num_classes
+
     cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
-    return (cfg.model.n_qubits, cfg.model.n_layers, len(cfg.data.classes),
+    return (cfg.model.n_qubits, cfg.model.n_layers, infer_num_classes(cfg),
             cfg.data.num_clients)
 
 
@@ -2251,6 +2287,451 @@ def phase_dense_times(device) -> dict:
     return rows
 
 
+# --- reupload and amplitude encodings, secure aggregation --------------------
+
+# The reupload CLI run: BASELINE.md config 4's model at a fold the kernel
+# takes (2 clients x batch 16: tb = 32, the mixed-group body), one local
+# epoch so that the CPU twin stays short.
+REUPLOAD_ARGV = ["train", "--model", "vqc", "--qubits", "12", "--layers",
+                 "3", "--encoding", "reupload", "--classes", "0,1",
+                 "--clients", "2", "--batch-size", "16", "--rounds",
+                 str(CLI_ROUNDS), "--local-epochs", "1",
+                 "--checkpoint-every", "1"]
+# Amplitude at the widest width the data allow: CIFAR-10's 3072 features
+# give 2^11 = 2048 PCA components (MNIST's 784 stop at n = 9).
+AMPLITUDE_ARGV = ["train", "--model", "vqc", "--qubits", "11", "--layers",
+                  "3", "--encoding", "amplitude", "--dataset", "cifar10",
+                  "--classes", "all", "--clients", "4", "--rounds", "2",
+                  "--local-epochs", "1", "--checkpoint-every", "1"]
+# BASELINE.md config 4: 12-qubit reupload VQC, Fashion-MNIST, 64 clients,
+# secure-aggregation masks (ring), 2 rounds; each round synchronous so
+# that time_s is its wall.
+CONFIG4_ARGV = ["train", "--model", "vqc", "--qubits", "12", "--layers", "3",
+                "--encoding", "reupload", "--dataset", "fashion_mnist",
+                "--clients", "64", "--secure-agg", "--rounds", "2",
+                "--checkpoint-every", "1", "--pipeline-depth", "0"]
+MASK_ATOL = 1e-5  # a masked run vs the same run without masks
+
+
+class _Captured(Exception):
+    def __init__(self, state, program):
+        super().__init__("captured")
+        self.state, self.program = state, program
+
+
+@contextlib.contextmanager
+def capture_scan():
+    """Inside the block, the kernel branch of ``fuse.apply_scan`` raises
+    ``_Captured`` with the state and program it was handed instead of
+    launching: the main path's exact kernel inputs."""
+    from qfedx_tpu_torch.ops import scan_body
+
+    orig = scan_body.apply_scan_pallas
+
+    def grab(state, n, program, batched=False):
+        raise _Captured(state, program)
+
+    scan_body.apply_scan_pallas = grab
+    try:
+        yield
+    finally:
+        scan_body.apply_scan_pallas = orig
+
+
+def reupload_scan_inputs(n: int, tb: int, clients, device, seed: int,
+                         dtype=torch.float32):
+    """(packed, spec, xs) of the reupload circuit's scanned blocks: served
+    (``clients`` None: ``data_reuploading_b`` on (tb, n) features) or
+    folded (``data_reuploading_cb`` on C clients of tb/C samples), with
+    seeded parameters; in ``dtype``'s state under its pin."""
+    from qfedx_tpu_torch.circuits import ansatz
+
+    rng = np.random.default_rng(seed)
+    shape = ((clients,) if clients else ()) + (N_LAYERS, n)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    p = {"rx": t(rng.uniform(-2, 2, shape)), "rz": t(rng.uniform(-2, 2, shape)),
+         "enc_w": t(1 + 0.5 * rng.normal(size=shape)),
+         "enc_b": t(rng.uniform(-1, 1, shape))}
+    x = t(rng.uniform(0, 1, (tb, n)))
+    pins = {"QFEDX_DTYPE": "bf16"} if _is_bf16(dtype) else {}
+    with env_pins(**pins), capture_scan():
+        try:
+            if clients:
+                ansatz.data_reuploading_cb(x.reshape(clients, -1, n), p)
+            else:
+                ansatz.data_reuploading_b(x, p)
+        except _Captured as got:
+            return kernel_inputs(got.state, n, got.program)
+    raise AssertionError(f"the reupload program at n={n} tb={tb} "
+                         "C={clients} did not reach the kernel")
+
+
+def reupload_cases() -> list:
+    """(name, n, tb, clients) of ``[reupload-parity]``: the served program
+    (per-sample stacks, G = tb) at the engine's buckets and widths n = 10,
+    12, 15 (and 16 at tb = 8), and the folded one (per-sample beside
+    per-client stacks) at the trainer's (C, B) = (2, 16) and (4, 8)."""
+    cases = [(f"served n={n} tb={tb}", n, tb, None)
+             for n in (10, 12, 15) for tb in BUCKETS]
+    cases.append(("served n=16 tb=8", 16, 8, None))
+    cases += [(f"folded n=12 C={c} B={b}", 12, c * b, c)
+              for c, b in ((2, 16), (4, 8))]
+    return cases
+
+
+def phase_reupload_parity(device, dtype=torch.float32) -> dict:
+    """``[reupload-parity]``: Launches A, B and C against their plain
+    versions on the port's own reupload programs (``reupload_cases``):
+    max abs ≤ KERNEL_ATOL in f32, relative norm ≤ BF16_RTOL in bf16 (each
+    bf16 line says whether the kernel equals the plain sweep bit for
+    bit); ``ScanBodyFn``'s state and coefficient cotangents (Launch C and
+    the per-sample (L−1, tb, …) coefficient stacks) against plain
+    autograd, ≤ GRAD_ATOL (bf16: BF16_GRAD_RTOL). Times A, B and C at the
+    reupload CLI run's fold (C = 2, B = 16)."""
+    from qfedx_tpu_torch.ops import scan_body
+
+    bf = _is_bf16(dtype)
+    worst = {"A": 0.0, "B": 0.0, "C": 0.0, "rel": 0.0, "grad": 0.0}
+    rows = {}
+    bit_equal = []
+    t0 = time.perf_counter()
+    for i, (name, n, tb, clients) in enumerate(reupload_cases()):
+        packed, spec, xs = reupload_scan_inputs(n, tb, clients, device,
+                                                seed=500 + i, dtype=dtype)
+        groups = sorted({op.groups for op in spec.ops if op.stacked})
+        if tb > 1 and tb not in groups:
+            raise AssertionError(f"{name}: no per-sample stack ({groups})")
+        aspec = scan_body._adjoint_spec(spec)
+        axs = scan_body._adjoint_xs(spec, xs)
+        cot = random_state(n, tb, device, seed=600 + i, dtype=dtype)
+        cot = torch.stack([cot.re, cot.im]).reshape(packed.shape)
+        with torch.no_grad():
+            outs = {
+                "A": ([scan_body.scan_body(packed, spec, xs)],
+                      [scan_body.scan_body_plain(packed, spec, xs)]),
+                "B": (scan_body.scan_body(packed, spec, xs,
+                                          with_boundaries=True),
+                      scan_body.scan_body_plain(packed, spec, xs, True)),
+                "C": (scan_body.scan_body(cot, aspec, axs,
+                                          with_boundaries=True, adjoint=True),
+                      scan_body.scan_body_plain(cot, aspec, axs, True)),
+            }
+            torch.cuda.synchronize()
+        errs = {k: _max_err(*o) for k, o in outs.items()}
+        rels = {k: _rel_err(*o) for k, o in outs.items()} if bf else errs
+        body = ",".join(f"{op.kind}(G={op.groups})" if op.stacked else op.kind
+                        for op in spec.ops)
+        extra = ""
+        if bf:
+            equal = all(e == 0.0 for e in errs.values())
+            bit_equal.append(equal)
+            extra = (f"; ||kernel-plain||/||plain||: A {rels['A']:.3e}, B "
+                     f"{rels['B']:.3e}, C {rels['C']:.3e} (rtol "
+                     f"{BF16_RTOL:g}); bit for bit: {equal}")
+        print(f"{_tag('reupload-parity', dtype)} {name} ({config_text(spec)}) "
+              f"body=[{body}] max|kernel-plain|: A {errs['A']:.3e}, B "
+              f"{errs['B']:.3e}, C {errs['C']:.3e}"
+              + (extra if bf else f" (atol {KERNEL_ATOL:g})"))
+        for launch in ("A", "B", "C"):
+            _require(rels[launch], BF16_RTOL if bf else KERNEL_ATOL,
+                     f"{spec.dtype} Launch {launch} on reupload {name}")
+            worst[launch] = max(worst[launch], errs[launch])
+            worst["rel"] = max(worst["rel"], rels[launch])
+        w = torch.as_tensor(np.random.default_rng(700 + i).normal(
+            size=tuple(packed.shape)), dtype=torch.float32, device=device)
+        before = dict(scan_body.launch_counts)
+        got = _cotangents(spec, packed, xs, w, "kernel")
+        launched = {k: scan_body.launch_counts[k] - before[k] for k in before}
+        want = _cotangents(spec, packed, xs, w, "plain")
+        torch.cuda.synchronize()
+        if bf:
+            e_state, e_coeff = _rel_err(got[:1], want[:1]), _rel_err(
+                got[1:], want[1:])
+        else:
+            e_state = float((got[0] - want[0]).abs().max())
+            e_coeff = _max_err(got[1:], want[1:])
+        per_sample = [tuple(g.shape[:2]) for g in got[1:]
+                      if g.shape[1] == tb and tb > 1]
+        print(f"{_tag('reupload-grad', dtype)} {name}: state cotangent "
+              f"{e_state:.3e}, coefficient cotangents {e_coeff:.3e} ("
+              + (f"relative norm, rtol {BF16_GRAD_RTOL:g}" if bf else
+                 f"atol {GRAD_ATOL:g}")
+              + f"), per-sample cotangent stacks {len(per_sample)}, "
+              f"launches {launched}")
+        if launched != {"fwd": 0, "fwd_bnd": 1, "adj": 1}:
+            raise AssertionError(f"ScanBodyFn on {name} launched {launched}")
+        _require(max(e_state, e_coeff), BF16_GRAD_RTOL if bf else GRAD_ATOL,
+                 f"{spec.dtype} gradients on reupload {name}")
+        worst["grad"] = max(worst["grad"], e_state, e_coeff)
+        if name == "folded n=12 C=2 B=16":
+            rows.update(time_launches(f"the reupload fold ({name}, mixed G "
+                                      f"{groups})", packed, spec, xs, cot,
+                                      aspec, axs, errs, ("A", "B", "C")))
+    print(f"{_tag('reupload-parity', dtype)} {len(reupload_cases())} cases "
+          f"in {time.perf_counter() - t0:.2f} s (host clock)"
+          + (f"; bit for bit on {sum(bit_equal)} of {len(bit_equal)}"
+             if bf else ""))
+    return dict(worst, rows=rows)
+
+
+def phase_reupload_serve(device) -> dict:
+    """``[reupload-serve]``: ``make_vqc_classifier(12, 3, 2,
+    encoding="reupload")`` with seeded weights behind ``ServeEngine``
+    (buckets 1/8/32) and ``MicroBatcher``, 256 requests in waves of 1, 5
+    and 250: logits within LOGIT_ATOL of the CPU port, exactly one Launch
+    A per batch, no build after warmup; then at each bucket the served
+    program's kernel inputs (per-sample stacks, G = tb): kernel vs plain,
+    kernel alone, wrapper call, plain and bound."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.serve import MicroBatcher, ServeConfig, ServeEngine
+
+    model = make_vqc_classifier(N_QUBITS, N_LAYERS, N_CLASSES,
+                                encoding="reupload", init_scale=1.0)
+    params = model.init(0)
+    engine = ServeEngine(
+        model, params, (N_QUBITS,),
+        config=ServeConfig(buckets=BUCKETS, deadline_ms=2.0, max_queue=512),
+    )
+    engine.warmup()
+    builds_after_warmup = scan_body.build_count
+    x = np.random.default_rng(19).uniform(0, 1, (N_REQUESTS, N_QUBITS))
+    x = x.astype(np.float32)
+    scan_body.reset_counts()
+    batcher = MicroBatcher(engine).start()
+    futures = []
+    for lo, hi in ((0, 1), (1, 6), (6, N_REQUESTS)):
+        wave = [batcher.submit(x[i]) for i in range(lo, hi)]
+        for f in wave:
+            f.result(timeout=60)
+        futures += wave
+    batcher.close(drain=True)
+    launches = dict(scan_body.launch_counts)
+    batches = batcher.stats["batches"]
+    builds = scan_body.build_count - builds_after_warmup
+    logits = np.stack([f.result()["logits"] for f in futures])
+    lat_ms = np.array([(f.done_t - f.submit_t) * 1e3 for f in futures])
+    cpu_model = make_vqc_classifier(N_QUBITS, N_LAYERS, N_CLASSES,
+                                    encoding="reupload", init_scale=1.0,
+                                    device="cpu")
+    cpu_params = {g: {k: v.cpu() for k, v in d.items()}
+                  for g, d in params.items()}
+    with torch.no_grad():
+        ref = cpu_model.apply(cpu_params, x).numpy()
+    err = float(np.abs(logits - ref).max())
+    print(f"[reupload-serve] {N_REQUESTS} requests, batches={batches}, "
+          f"kernel launches {launches}, builds after warmup={builds}; latency"
+          f" p50={np.percentile(lat_ms, 50):.4f} ms p95="
+          f"{np.percentile(lat_ms, 95):.4f} ms; logits max|card-cpu|="
+          f"{err:.3e} (atol {LOGIT_ATOL:g})")
+    if launches != {"fwd": batches, "fwd_bnd": 0, "adj": 0}:
+        raise AssertionError(f"{batches} batches launched {launches}: "
+                             "exactly one Launch A each")
+    if builds:
+        raise AssertionError("the kernel library was built after warmup")
+    if logits.shape != (N_REQUESTS, N_CLASSES) or not np.isfinite(
+            logits).all():
+        raise AssertionError(f"bad logits: shape {logits.shape}")
+    _require(err, LOGIT_ATOL, "reupload served logits vs cpu")
+    rows = {}
+    for b in BUCKETS:
+        xb = torch.as_tensor(x[:b], device=device)
+        with capture_scan():
+            try:
+                model.apply(params, xb)
+                raise AssertionError(f"bucket {b} did not reach the kernel")
+            except _Captured as got:
+                packed, spec, xs = kernel_inputs(got.state, N_QUBITS,
+                                                 got.program)
+        require_cluster(spec, f"the reupload sweep at bucket {b}")
+        with torch.no_grad():
+            kerr = float((scan_body.scan_body(packed, spec, xs)
+                          - scan_body.scan_body_plain(packed, spec, xs))
+                         .abs().max())
+        _require(kerr, KERNEL_ATOL, f"reupload kernel at bucket {b}")
+        row = time_launches(f"reupload bucket {b} (G=tb)", packed, spec, xs,
+                            None, None, None, {"A": kerr}, ("A",))[("A", b)]
+        engine._forward(x[:b])
+        t0 = time.perf_counter()
+        for _ in range(20):
+            engine._forward(x[:b])
+        row["forward_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        rows[b] = row
+        print(f"[time] reupload bucket {b}: served forward "
+              f"{row['forward_ms']:.4f} ms (host clock), body=["
+              + ",".join(f"{op.kind}(G={op.groups})" for op in spec.ops)
+              + "]")
+    return {"launches": launches, "logit_err": err, "rows": rows,
+            "p50": float(np.percentile(lat_ms, 50)),
+            "p95": float(np.percentile(lat_ms, 95))}
+
+
+def phase_encoding_cli_train(root, argv, name: str, tag: str,
+                             encoding: str) -> dict:
+    """``train`` of a reupload or amplitude run (in-process) on the card,
+    then on the CPU: a complete run directory, per-round loss and final θ
+    card vs CPU within TRAINED_LOGIT_ATOL, accuracy within one evaluation
+    sample, E·S_pad/B Launch B and as many C per round, and Launch A only
+    where the evaluator's tb = 256 reaches the kernel (the HEA body of
+    amplitude; reupload's per-sample banks at 256 groups do not, as in the
+    reference), no build after round 1."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.run.checkpoint import Checkpointer
+
+    n, layers, classes, clients = _run_shape(argv)
+    shapes = expected_shapes(argv)
+    rounds_n = int(argv[argv.index("--rounds") + 1])
+    t0 = time.perf_counter()
+    summary, launches, rounds, _ = cli_train(
+        argv + ["--run-root", str(root), "--name", name], None)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli_train(argv + ["--run-root", str(root / "cpu"), "--name", name], "cpu")
+    cpu_wall = time.perf_counter() - t0
+    run, cpu_run = root / name, root / "cpu" / name
+    batch = int(argv[argv.index("--batch-size") + 1]) if (
+        "--batch-size" in argv) else 32
+    print(f"[{tag}] {' '.join(argv)}: n={n} L={layers} classes={classes} "
+          f"{clients} clients x S_pad={shapes['s_pad']}, {shapes['steps']} "
+          f"local steps per round at tb={clients * batch}; eval sets "
+          f"{shapes['n_val']} / {shapes['n_test']}; card {wall:.2f} s, cpu "
+          f"{cpu_wall:.2f} s (host clock, in-process)")
+    ckpt = Checkpointer(run / "checkpoints", every=1)
+    for r in range(1, rounds_n + 1):
+        ckpt.verify(r)
+    rows, cpu_rows = _rows(run), _rows(cpu_run)
+    if [r["round"] for r in rows] != list(range(1, rounds_n + 1)):
+        raise AssertionError(f"metrics.jsonl rounds {rows}")
+    for row, cpu in zip(rows, cpu_rows):
+        loss_err = abs(row["loss"] - cpu["loss"])
+        print(f"[{tag}] round {row['round']}: loss card {row['loss']!r} cpu "
+              f"{cpu['loss']!r} |err|={loss_err:.3e} (atol "
+              f"{TRAINED_LOGIT_ATOL:g}), accuracy card {row['accuracy']!r} "
+              f"cpu {cpu['accuracy']!r} (n={row['n']}), time_s "
+              f"{row['time_s']:.4f} (host clock, drain to drain)")
+        _require(loss_err, TRAINED_LOGIT_ATOL, f"{tag} round loss")
+        _require(abs(row["accuracy"] - cpu["accuracy"]),
+                 1.0 / row["n"] + 1e-12, f"{tag} accuracy, card vs cpu")
+    template = make_vqc_classifier(n, layers, classes, encoding=encoding,
+                                   device="cpu").init(0)
+    theta = ckpt.restore(rounds_n, template)
+    cpu_theta = Checkpointer(cpu_run / "checkpoints").restore(rounds_n,
+                                                              template)
+    theta_err = _max_err(
+        [v for d in theta.values() for v in d.values()],
+        [v for d in cpu_theta.values() for v in d.values()])
+    steps = shapes["steps"]
+    want_round = {"fwd": 0, "fwd_bnd": steps, "adj": steps}
+    evals = 0
+    if encoding == "amplitude":
+        evals = _batches(shapes["n_val"]) * (1 + rounds_n) + _batches(
+            shapes["n_test"])
+    want = {"fwd": evals, "fwd_bnd": rounds_n * steps,
+            "adj": rounds_n * steps}
+    print(f"[{tag}] final theta max|card-cpu|={theta_err:.3e} (atol "
+          f"{TRAINED_LOGIT_ATOL:g}); launches {launches} (expected {want}); "
+          f"per round {[c for c, _ in rounds]}; builds after each round "
+          f"{[b for _, b in rounds]}; summary {json.dumps(summary)}")
+    _require(theta_err, TRAINED_LOGIT_ATOL, f"{tag} final theta")
+    if [c for c, _ in rounds] != [want_round] * rounds_n or launches != want:
+        raise AssertionError(f"{tag} launched {launches}, rounds {rounds}")
+    if len({b for _, b in rounds}) != 1:
+        raise AssertionError(f"{tag}: the kernel library was built after "
+                             "round 1")
+    return {"run": run, "rows": rows, "launches": launches,
+            "theta_err": theta_err, "shape": (n, layers, classes),
+            "summary": summary}
+
+
+def _round_rows(root, argv, name, device) -> tuple:
+    """A config-4 run: its rows, θ after each round (from its
+    checkpoints, as flat leaves) and its launches."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.run.checkpoint import Checkpointer
+
+    summary, launches, rounds, _ = cli_train(
+        argv + ["--run-root", str(root), "--name", name], device)
+    n, layers, classes, _ = _run_shape(argv)
+    template = make_vqc_classifier(n, layers, classes, encoding="reupload",
+                                   device="cpu").init(0)
+    ckpt = Checkpointer(root / name / "checkpoints")
+    rows = _rows(root / name)
+    thetas = [[v for d in ckpt.restore(r["round"], template).values()
+               for v in d.values()] for r in rows]
+    return rows, thetas, launches, rounds, summary
+
+
+def phase_config4(root) -> dict:
+    """``[config4]``: BASELINE.md config 4 (CONFIG4_ARGV: reupload n = 12,
+    L = 3, Fashion-MNIST, 64 clients, ring masks) on the card, the same
+    with ``--secure-agg-mode pairwise`` and without masks, and the ring
+    run on the CPU: masked losses and θ equal the unmasked run's within
+    MASK_ATOL; one round of one local step (the fold, masks and
+    aggregation of config 4, a fifth of its local work: a full round
+    takes minutes on the host's CPU) on the card and the CPU, within
+    TRAINED_LOGIT_ATOL; no
+    kernel launch anywhere (the fold is C·B = 2048 samples: 2048-group
+    banks leave a stacked g1, so ``route_ok`` refuses, as in the
+    reference); each round's wall (synchronous) and client-rounds/s with
+    masks on and off."""
+    plain_argv = [a for a in CONFIG4_ARGV if a != "--secure-agg"]
+    runs = {}
+    for label, argv in (("ring", CONFIG4_ARGV),
+                        ("pairwise", CONFIG4_ARGV + ["--secure-agg-mode",
+                                                     "pairwise"]),
+                        ("no masks", plain_argv)):
+        t0 = time.perf_counter()
+        runs[label] = _round_rows(root, argv, f"c4-{label.replace(' ', '')}",
+                                  None) + (time.perf_counter() - t0,)
+    short = list(CONFIG4_ARGV) + ["--local-epochs", "1"]
+    short[short.index("--rounds") + 1] = "1"
+    card = _round_rows(root, short, "c4-short", None)
+    t0 = time.perf_counter()
+    cpu = _round_rows(root / "cpu", short, "c4-short", "cpu")
+    cpu_wall = time.perf_counter() - t0
+    shapes = expected_shapes(CONFIG4_ARGV)
+    clients = shapes["clients"]
+    plain_rows, plain_theta = runs["no masks"][0], runs["no masks"][1][-1]
+    out = {"launches": {}, "rates": {}}
+    for label, (rows, theta, launches, rounds, summary, wall) in runs.items():
+        times = [r["time_s"] for r in rows]
+        loss_err = max(abs(r["loss"] - p["loss"])
+                       for r, p in zip(rows, plain_rows))
+        theta_err = _max_err(theta[-1], plain_theta)
+        rate = clients / times[-1]
+        out["launches"][label] = launches
+        out["rates"][label] = {"round_s": times, "rate": rate}
+        print(f"[config4] {label}: {clients} clients x S_pad="
+              f"{shapes['s_pad']}, {shapes['steps']} local steps per round "
+              f"at tb={clients * 32}; round wall (synchronous, host clock) "
+              f"{', '.join(f'{t:.5f}' for t in times)} s, last round "
+              f"{rate:.4f} client-rounds/s; whole run {wall:.2f} s; losses "
+              f"{[r['loss'] for r in rows]}; vs no masks: loss "
+              f"{loss_err:.3e}, theta {theta_err:.3e} (atol {MASK_ATOL:g}); "
+              f"launches {launches}; final accuracy "
+              f"{summary['final_accuracy']!r}")
+        _require(loss_err, MASK_ATOL, f"config4 {label} loss vs no masks")
+        _require(theta_err, MASK_ATOL, f"config4 {label} theta vs no masks")
+        if launches != NO_LAUNCH or any(c != NO_LAUNCH for c, _ in rounds):
+            raise AssertionError(f"config4 {label} launched {launches}")
+    loss_err = abs(card[0][0]["loss"] - cpu[0][0]["loss"])
+    theta_err = _max_err(card[1][0], cpu[1][0])
+    if card[2] != NO_LAUNCH:
+        raise AssertionError(f"config4 short run launched {card[2]}")
+    print(f"[config4] {' '.join(short)}, card vs cpu: loss {loss_err:.3e}, "
+          f"theta "
+          f"{theta_err:.3e} (atol {TRAINED_LOGIT_ATOL:g}); cpu run "
+          f"{cpu_wall:.2f} s, cpu round wall "
+          f"{[round(r['time_s'], 5) for r in cpu[0]]} s")
+    _require(loss_err, TRAINED_LOGIT_ATOL, "config4 loss, card vs cpu")
+    _require(theta_err, TRAINED_LOGIT_ATOL, "config4 theta, card vs cpu")
+    out["theta_err"] = theta_err
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -2276,6 +2757,9 @@ def main() -> int:
     bf16_worst = phase_kernel_parity(device, bf16)
     bf16_grad_err = phase_grad_parity(device, bf16)
     bf16_tiles = phase_bf16_tiles(device)
+    reupload = phase_reupload_parity(device)
+    bf16_reupload = phase_reupload_parity(device, bf16)
+    reupload_served = phase_reupload_serve(device)
     bf16_served = phase_bf16_serve(device, served)
     bf16_times = phase_bf16_times(device, bf16_served["params"], times,
                                   shapes["rows"], train_times,
@@ -2307,6 +2791,18 @@ def main() -> int:
         with bf16_pin():
             phase_dense_cli_train(root, DENSE_ARGV, "dense-bf16",
                                   "dense-cli-train", bf16, dense_run)
+        reupload_run = phase_encoding_cli_train(
+            root, REUPLOAD_ARGV, "reupload", "reupload-cli-train", "reupload")
+        reupload_cli_served = phase_cli_serve(
+            root, reupload_run["run"], shape=reupload_run["shape"],
+            tag="reupload-cli-serve", encoding="reupload")
+        amplitude_run = phase_encoding_cli_train(
+            root, AMPLITUDE_ARGV, "amplitude", "amplitude-cli-train",
+            "amplitude")
+        amplitude_served = phase_cli_serve(
+            root, amplitude_run["run"], shape=amplitude_run["shape"],
+            tag="amplitude-cli-serve", encoding="amplitude")
+        config4 = phase_config4(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     dense_route = phase_dense_route(device)
@@ -2324,9 +2820,26 @@ def main() -> int:
         "dense-route-serve": dense_route["served"],
         "dense-route-step": dense_route["step"],
         "dense-cli-train (n=8)": dense_run["launches"],
+        "reupload-serve": reupload_served["launches"],
+        "reupload-cli-train": reupload_run["launches"],
+        "reupload-cli-serve": reupload_cli_served["launches"],
+        "amplitude-cli-train (n=11)": amplitude_run["launches"],
+        "amplitude-cli-serve": amplitude_served["launches"],
+        **{f"config4 ({k})": v for k, v in config4["launches"].items()},
     }
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
+
+    # The reupload slice's shapes: Launch A on per-sample stacks (G = tb)
+    # at the served buckets, B and C on the fold's mixed groups.
+    reupload_shapes = {
+        "A": {f"reupload bucket {b} (G=tb)": r
+              for b, r in reupload_served["rows"].items()},
+        "B": {"reupload fold C=2 B=16 (mixed G)":
+              reupload["rows"]["B", 32]},
+        "C": {"reupload fold C=2 B=16 (mixed G)":
+              reupload["rows"]["C", 32]},
+    }
 
     def entry(name, launch, key, replaces, earlier, earlier_shape, tb):
         # ms/plain_ms/bound_ms at the main path's shape (the CLI run's,
@@ -2340,7 +2853,8 @@ def main() -> int:
             "replaces": f"{kernel} via _run :491 from {replaces}",
             "launches": cli_run["launches"][key],
             "max_abs_err": max(shapes["worst"][launch],
-                               earlier["max_abs_err"], worst[launch]),
+                               earlier["max_abs_err"], worst[launch],
+                               reupload[launch]),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                    "bound_by")},
             "library_ms": None,
@@ -2349,7 +2863,9 @@ def main() -> int:
                           for (l, t), r in shapes["rows"].items()
                           if l == launch},
                        earlier_shape: {k: earlier[k] for k in keys
-                                       if k in earlier}},
+                                       if k in earlier},
+                       **{s_: {k: r[k] for k in keys}
+                          for s_, r in reupload_shapes[launch].items()}},
         }
 
     bf16_paths = {
@@ -2371,6 +2887,7 @@ def main() -> int:
                         "(its bf16 instance: _run :498, _emit :279-282)",
             "launches": bf16_cli["launches"][key],
             "max_abs_err": max(bf16_worst[launch], bf16_tiles[launch],
+                               bf16_reupload[launch],
                                *(r["max_abs_err"] for (lk, _), r in
                                  bf16_times.items() if lk == launch)),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -2425,6 +2942,17 @@ def main() -> int:
           f"{bf16_served['logit_err']:.3e} (vs the f32 logits "
           f"{bf16_served['f32_diff']:.3e}); trained run served "
           f"max|card-cpu| {bf16_cli_served['logit_err']:.3e}")
+    print(f"[summary] reupload: kernel max|kernel-plain| A "
+          f"{reupload['A']:.3e} B {reupload['B']:.3e} C {reupload['C']:.3e},"
+          f" gradients {reupload['grad']:.3e}; bf16 relative norm "
+          f"{bf16_reupload['rel']:.3e}, gradients {bf16_reupload['grad']:.3e};"
+          f" served logits max|card-cpu| {reupload_served['logit_err']:.3e};"
+          f" CLI run theta max|card-cpu| {reupload_run['theta_err']:.3e}; "
+          f"amplitude (n=11) CLI run theta {amplitude_run['theta_err']:.3e};"
+          f" config 4 theta card vs cpu {config4['theta_err']:.3e}, round "
+          "rate (client-rounds/s) "
+          + ", ".join(f"{k}: {v['rate']:.4f}"
+                      for k, v in config4["rates"].items()))
     print(card_line())
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

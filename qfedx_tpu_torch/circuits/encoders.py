@@ -1,10 +1,13 @@
 """Data encoders: classical feature vector → per-qubit amplitudes.
 
 Counterpart of ``qfedx_tpu/circuits/encoders.py`` (``angle_amplitudes``,
-``angle_encode``). Angle encoding is one rotation per qubit on |0…0⟩,
-i.e. a product state: the dense engine builds it from these 2-vectors by
-sequential outer products (``ops/statevector.product_state``), the
-batched engine by ``ops/batched.bstate_product`` or its log-depth tree.
+``angle_encode``, ``amplitude_encode``). Angle encoding is one rotation
+per qubit on |0…0⟩, i.e. a product state: the dense engine builds it
+from these 2-vectors by sequential outer products
+(``ops/statevector.product_state``), the batched engine by
+``ops/batched.bstate_product`` or its log-depth tree. Amplitude encoding
+takes the ℓ2-normalised features as the state itself (its batched twin
+is ``ops/batched.bstate_amplitude``).
 """
 
 from __future__ import annotations
@@ -45,3 +48,16 @@ def angle_encode(features: torch.Tensor, basis: str = "ry") -> CArray:
     """Features in [0,1], shape (*lead, n) → dense state (*lead, 2, …, 2)
     via R_basis(π·f_k) on each qubit."""
     return product_state(angle_amplitudes(features * math.pi, basis))
+
+
+def amplitude_encode(x) -> CArray:
+    """Features of length 2^n, shape (*lead, 2^n) → real dense state
+    (*lead, 2, …, 2): ``bstate_amplitude``'s ℓ2-normalised rows (the
+    uniform state for an all-zero row) in the state dtype."""
+    from qfedx_tpu_torch.ops.batched import bstate_amplitude
+
+    x = torch.as_tensor(x, dtype=torch.float32)
+    lead, size = tuple(x.shape[:-1]), x.shape[-1]
+    slab = bstate_amplitude(x.reshape(math.prod(lead), size), state_dtype())
+    return CArray(slab.re.reshape(lead + (2,) * (size.bit_length() - 1)),
+                  None)

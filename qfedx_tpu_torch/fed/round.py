@@ -7,11 +7,16 @@ client's update is post-processed — the non-finite quarantine under
 guards (the default program), weight = n × participation × finite — and
 the weighted sum is applied, θ_new = θ + Σ wΔ / Σ w
 (``_finalize_partial``, with the ``min_participation`` identity).
+With ``secure_agg`` each client's weighted contribution carries its
+ring or pairwise mask (``fed/secure_agg.py``), drawn over the round's
+effective participants from the round's secure-agg seed; a quarantined
+client's masks stay in the sum, so the masks cancel exactly.
 
-Not ported yet, each raising NotImplementedError: DP, secure
-aggregation, the robust aggregators and a finite ``clip_bound``,
-byzantine inputs, client sampling below 1, the vmap (unfolded) client
-path, and more than one device (the mesh, waves and partial rounds).
+Not ported yet, each raising NotImplementedError: DP, the robust
+aggregators and a finite ``clip_bound`` (secure aggregation with a
+robust rule raises ValueError, as in the reference), byzantine inputs,
+client sampling below 1, the vmap (unfolded) client path, and more than
+one device (the mesh, waves and partial rounds).
 """
 
 from __future__ import annotations
@@ -19,15 +24,21 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from qfedx_tpu_torch.fed.client import make_local_update_clients
 from qfedx_tpu_torch.fed.config import FedConfig
 from qfedx_tpu_torch.fed.sampling import participation_mask
+from qfedx_tpu_torch.fed.secure_agg import cohort_masks
 from qfedx_tpu_torch.models.api import Model
 from qfedx_tpu_torch.utils import pins, trees
 
 AGGREGATORS = ("mean", "clip_mean", "trimmed_mean", "median")
+ROBUST_AGGREGATORS = ("trimmed_mean", "median")
+
+# Salt of the per-round secure-agg seed (the reference's SA_KEY_SALT).
+SA_SEED_SALT = 0x5EC
 
 
 class RoundStats(NamedTuple):
@@ -120,23 +131,32 @@ def _per_client(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
                    num_devices: int = 1):
     """Build ``round_fn(params, cx, cy, cmask, generator=None,
-    perms=None, survivors=None, byzantine=None) -> (params, stats)``.
+    perms=None, survivors=None, byzantine=None, sa_seed=None) ->
+    (params, stats)``.
 
     ``cx/cy/cmask``: packed client data [C, S, ...] on the parameters'
     device; ``generator``/``perms`` give the local shuffles
     (``fed/client``). With guards on, ``survivors`` [C] 0/1 excludes
-    mid-round casualties from the aggregate (the round then equals the
-    survivor-only round); with guards off it must be None."""
+    mid-round casualties from the aggregate and from the secure-agg pair
+    graph (the round then equals the survivor-only round); with guards
+    off it must be None. ``sa_seed``: the round's secure-agg seed
+    (``run/trainer.py`` derives one per round), required with
+    ``cfg.secure_agg``."""
     if num_devices != 1:
         raise NotImplementedError(
             "the port's round runs on one device; the multi-device mesh is "
             "not ported yet"
         )
+    agg = resolve_aggregator(cfg)
+    if agg in ROBUST_AGGREGATORS and cfg.secure_agg:
+        raise ValueError(
+            f"aggregator={agg!r} needs per-client visibility, which "
+            "secure_agg masks remove on the flat one-program round — "
+            "it would silently degenerate to plain masked mean. Use "
+            "secure_agg=False; clip_mean composes with masking."
+        )
     if cfg.dp is not None:
         raise NotImplementedError("DP is not ported yet")
-    if cfg.secure_agg:
-        raise NotImplementedError("secure aggregation is not ported yet")
-    agg = resolve_aggregator(cfg)
     if agg not in ("mean", "clip_mean"):
         raise NotImplementedError(f"aggregator={agg!r} is not ported yet")
     if agg == "clip_mean" and math.isfinite(cfg.clip_bound):
@@ -152,7 +172,7 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
     local_update_c = make_local_update_clients(model, cfg)
 
     def round_fn(params, cx, cy, cmask, generator=None, perms=None,
-                 survivors=None, byzantine=None):
+                 survivors=None, byzantine=None, sa_seed=None):
         if byzantine is not None:
             raise NotImplementedError("byzantine inputs are not ported yet")
         if survivors is not None and not guards:
@@ -166,6 +186,8 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
                              f"was built for {num_clients}")
         device = trees.tree_leaves(params)[0].device
         part = participation_mask(num_clients, cfg.client_fraction, device)
+        if cfg.secure_agg and sa_seed is None:
+            raise ValueError("secure_agg needs the round's sa_seed")
         eff = part
         if survivors is not None:
             eff = part * torch.as_tensor(survivors, dtype=torch.float32,
@@ -197,11 +219,25 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
             else:
                 n_part = torch.sum(part)
                 rejected = dropped = torch.zeros((), device=device)
+            contrib = trees.tree_map(
+                lambda d: d * _per_client(weight, d), deltas)
+            if cfg.secure_agg:
+                # The pair graph runs over the effective participants
+                # (sampled ∧ surviving; participation_mask is all ones at
+                # the one fraction the port samples): a quarantined
+                # client's masks stay in the sum, so they cancel.
+                sa_part = (np.ones(num_clients, np.float32)
+                           if survivors is None else
+                           np.asarray(torch.as_tensor(survivors).cpu(),
+                                      dtype=np.float32))
+                masks = cohort_masks(
+                    sa_seed, contrib, sa_part, cfg.secure_agg_scale,
+                    cfg.secure_agg_mode, cfg.secure_agg_neighbors,
+                )
+                contrib = trees.tree_add(contrib, masks)
             partial = RoundPartial(
                 update_sum=trees.tree_map(
-                    lambda d: torch.sum(d * _per_client(weight, d), dim=0),
-                    deltas,
-                ),
+                    lambda c: torch.sum(c, dim=0), contrib),
                 weight_sum=torch.sum(weight),
                 loss_sum=torch.sum(weight * losses),
                 num_participants=n_part,

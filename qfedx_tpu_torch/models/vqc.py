@@ -2,8 +2,11 @@
 ansatz → ⟨Z⟩ readout → logits.
 
 Counterpart of ``qfedx_tpu/models/vqc.py`` (``make_vqc_classifier``'s
-routes for angle encoding: ``init``/``apply``/``apply_clients``/
-``wrap_delta``/``name``), with the reference's routing:
+three encodings — ``angle`` (one RY(π·f) per qubit), ``amplitude``
+(2^n features as the state's amplitudes) and ``reupload`` (the
+data-reuploading circuit, BASELINE.md config 4) — in
+``init``/``apply``/``apply_clients``/``wrap_delta``/``name``), with the
+reference's routing:
 
 - **batched** (``batched_enabled(n)``: the slab widths n ≥ 10 with
   QFEDX_BATCHED on, and no remat): the batch folded into slab rows — the
@@ -22,11 +25,13 @@ routes for angle encoding: ``init``/``apply``/``apply_clients``/
   (C, B, n) features with (C, …) parameters broadcasts the client axis
   in front of it — the reference's ``jax.vmap(apply)``.
 
-Not ported yet: amplitude and reupload encodings, noise (so
-``apply_train`` is None) — each raises NotImplementedError.
+The reupload circuit scans its L − 1 [bank + layer] blocks (layer 0
+encodes |0…0⟩ alone), so its scan route engages one layer shallower
+(``_scan_on``). Not ported yet: noise (so ``apply_train`` is None).
 
-``params_from_jax`` carries the reference's parameter pytree across,
-shared (L, n) or client-stacked (C, L, n) alike.
+``params_from_jax`` carries the reference's parameter pytree across
+(``enc_w``/``enc_b`` too), shared (L, n) or client-stacked (C, L, n)
+alike.
 """
 
 from __future__ import annotations
@@ -37,16 +42,25 @@ import numpy as np
 import torch
 
 from qfedx_tpu_torch.circuits.ansatz import (
+    data_reuploading,
+    data_reuploading_b,
     hardware_efficient,
     hardware_efficient_b,
     init_ansatz_params,
+    init_reuploading_params,
 )
-from qfedx_tpu_torch.circuits.encoders import angle_amplitudes, angle_encode
+from qfedx_tpu_torch.circuits.encoders import (
+    amplitude_encode,
+    angle_amplitudes,
+    angle_encode,
+)
 from qfedx_tpu_torch.circuits.readout import init_readout_params, z_logits
 from qfedx_tpu_torch.models.api import Model
 from qfedx_tpu_torch.ops import fuse
+from qfedx_tpu_torch.ops.cpx import state_dtype
 from qfedx_tpu_torch.ops.batched import (
     batched_enabled,
+    bstate_amplitude,
     bstate_product,
     bstate_product_tree,
     expect_z_all_b,
@@ -87,17 +101,14 @@ def make_vqc_classifier(
     device=None,
 ) -> Model:
     """Build the VQC classifier Model. Input features: (B, n_qubits) in
-    [0,1]. ``remat`` checkpoints each ansatz layer (the dense route).
+    [0,1] for the angle and reupload encodings, (B, 2^n_qubits) for
+    amplitude. ``remat`` checkpoints each ansatz layer (the dense route).
     ``device=None`` means the card and raises without one."""
     if num_classes > n_qubits:
         raise ValueError(f"need n_qubits ≥ num_classes ({num_classes})")
     if encoding not in ("angle", "amplitude", "reupload"):
         raise ValueError(f"unknown encoding {encoding!r}")
-    if encoding != "angle":
-        raise NotImplementedError(
-            f"encoding={encoding!r} is not ported yet; the port runs angle"
-        )
-    if basis == "rz":
+    if encoding == "angle" and basis == "rz":
         import warnings
 
         # RZ(θ)|0⟩ is a global phase: the features never reach the circuit.
@@ -112,10 +123,10 @@ def make_vqc_classifier(
     def init(seed) -> dict:
         """Parameters on the model's device; ``seed`` as in
         ``circuits.ansatz.init_ansatz_params``."""
+        init_fn = (init_reuploading_params if encoding == "reupload"
+                   else init_ansatz_params)
         return {
-            "ansatz": init_ansatz_params(
-                seed, n_qubits, n_layers, init_scale, dev
-            ),
+            "ansatz": init_fn(seed, n_qubits, n_layers, init_scale, dev),
             "readout": init_readout_params(num_classes, dev),
         }
 
@@ -127,33 +138,47 @@ def make_vqc_classifier(
             return "vmap"
         return "batched"
 
-    def _encode(x):
-        # The scan route pairs with the log-depth product state; scan-off
-        # keeps the sequential encoder, as the reference does.
-        enc_fn = (
-            bstate_product_tree
-            if fuse.scan_active(n_qubits, n_layers)
-            else bstate_product
-        )
-        return enc_fn(angle_amplitudes(x * math.pi, basis))
+    def _scan_on() -> bool:
+        # Reupload scans its L − 1 [bank + layer] blocks (layer 0 encodes
+        # |0…0⟩ alone), so its route gates one layer shallower.
+        eff = n_layers - 1 if encoding == "reupload" else n_layers
+        return fuse.scan_active(n_qubits, eff)
+
+    def _forward_b(a, x):
+        """(B, feat) features → (B, 2^n) slab (a: shared or per-client
+        ansatz parameters over the client-major rows)."""
+        if encoding == "reupload":
+            return data_reuploading_b(x, a)
+        if encoding == "amplitude":
+            state = bstate_amplitude(x, state_dtype())
+        else:
+            # The scan route pairs with the log-depth product state;
+            # scan-off keeps the sequential encoder, as the reference.
+            enc_fn = bstate_product_tree if _scan_on() else bstate_product
+            state = enc_fn(angle_amplitudes(x * math.pi, basis))
+        return hardware_efficient_b(state, n_qubits, a)
 
     def _features(params, x):
         return torch.as_tensor(x, dtype=torch.float32,
                                device=params["ansatz"]["rx"].device)
 
     def _apply_dense(params, x):
-        """(*lead, n) features with (*g, …) parameters, g a prefix of
+        """(*lead, feat) features with (*g, …) parameters, g a prefix of
         lead → (*lead, k) logits through the dense engine."""
-        state = hardware_efficient(angle_encode(x, basis), n_qubits,
-                                   params["ansatz"], remat=remat)
+        a = params["ansatz"]
+        if encoding == "reupload":
+            state = data_reuploading(x, a, remat=remat)
+        else:
+            enc = (angle_encode(x, basis) if encoding == "angle"
+                   else amplitude_encode(x))
+            state = hardware_efficient(enc, n_qubits, a, remat=remat)
         return z_logits(state, params["readout"], n_qubits)
 
     def apply(params: dict, x) -> torch.Tensor:
         x = _features(params, x)
         if engine() == "vmap":
             return _apply_dense(params, x)
-        a = params["ansatz"]
-        state = hardware_efficient_b(_encode(x), n_qubits, a)
+        state = _forward_b(params["ansatz"], x)
         k = params["readout"]["scale"].shape[0]
         z = expect_z_all_b(state, n_qubits)[:, :k]
         return params["readout"]["scale"] * z + params["readout"]["bias"]
@@ -167,8 +192,8 @@ def make_vqc_classifier(
         if engine() == "vmap":
             return _apply_dense(cparams, x)
         c, bsz = x.shape[0], x.shape[1]
-        state = _encode(x.reshape((c * bsz,) + tuple(x.shape[2:])))
-        state = hardware_efficient_b(state, n_qubits, cparams["ansatz"])
+        state = _forward_b(cparams["ansatz"],
+                           x.reshape((c * bsz,) + tuple(x.shape[2:])))
         k = cparams["readout"]["scale"].shape[-1]
         z = expect_z_all_b(state, n_qubits)[:, :k].reshape(c, bsz, k)
         return (
@@ -189,7 +214,8 @@ def make_vqc_classifier(
 
 def params_from_jax(tree, device=None) -> dict:
     """The reference's parameter pytree ``{"ansatz": {"rx": (L,n), "rz":
-    (L,n)}, "readout": {"scale": (k,), "bias": (k,)}}`` (numpy or
+    (L,n)[, "enc_w": (L,n), "enc_b": (L,n)]}, "readout": {"scale": (k,),
+    "bias": (k,)}}`` (numpy or
     array-likes) → the port's dict of f32 tensors on ``device``. Leaf
     shapes carry over as they are, so a client-stacked tree ((C, L, n)
     angles, (C, k) readout) converts the same way."""

@@ -133,6 +133,24 @@ def bstate_product_tree(amps: CArray) -> CArray:
     return out if carry is None else _outer_flat(out, carry)
 
 
+def bstate_amplitude(x, dtype) -> CArray:
+    """ℓ2-normalised amplitudes: (B, 2^n) features → real (B, 2^n) state
+    of ``dtype`` (normalised in f32), the uniform state for an all-zero
+    row; a feature count that is not 2^n raises."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    size = x.shape[-1]
+    n = size.bit_length() - 1
+    if size <= 0 or (1 << n) != size:
+        raise ValueError(f"amplitude encoding needs 2^n features, got {size}")
+    norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    uniform = torch.full_like(x, 1.0 / size ** 0.5)
+    safe = torch.where(
+        norm > 0, x / torch.where(norm > 0, norm, torch.ones_like(norm)),
+        uniform,
+    )
+    return CArray(safe.to(dtype), None)
+
+
 def _row_view(s: torch.Tensor, b: int, n: int, qubit: int,
               groups: int | None):
     """Row view splitting the row index at ``qubit``: (B·a, 2, c, 128)

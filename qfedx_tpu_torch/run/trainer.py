@@ -21,10 +21,11 @@ through ``on_round_end`` — with the reference's row semantics:
   drained; a crash drains the writer without masking the exception.
 
 Two things differ from the reference by necessity. The rounds' shuffles
-come from a ``torch.Generator`` seeded from ``(seed, round)`` — stateless
-in the round index like the reference's ``fold_in``, so a resumed run
-equals an uninterrupted one — because jax.random streams cannot be
-matched. And the pipelined loop overlaps host work with the device only
+come from a ``torch.Generator`` seeded from ``(seed, round)``, and with
+secure aggregation the round's mask seed from ``(seed, round, salt)`` —
+stateless in the round index like the reference's ``fold_in``, so a
+resumed run equals an uninterrupted one — because jax.random streams
+cannot be matched. And the pipelined loop overlaps host work with the device only
 as far as the CUDA stream's asynchrony does (results are the same at any
 ``pipeline_depth``, as in the reference).
 
@@ -49,10 +50,12 @@ import torch
 from qfedx_tpu_torch.fed.config import FedConfig
 from qfedx_tpu_torch.fed.evaluate import make_evaluator
 from qfedx_tpu_torch.fed.round import (
+    SA_SEED_SALT,
     guards_enabled,
     make_fed_round,
     resolve_aggregator,
 )
+from qfedx_tpu_torch.fed.secure_agg import round_seed
 from qfedx_tpu_torch.models.api import Model
 from qfedx_tpu_torch.utils import pins, trees
 
@@ -194,9 +197,13 @@ def train_federated(
         result.accuracies.append(evaluate(params, test_x, test_y)["accuracy"])
 
     def run_round(p, r):
+        kw = {}
+        if cfg.secure_agg:
+            kw["sa_seed"] = round_seed(seed, r, SA_SEED_SALT)
         if perms_for_round is not None:
-            return round_fn(p, dcx, dcy, dcm, perms=perms_for_round(r))
-        return round_fn(p, dcx, dcy, dcm, generator=_round_generator(seed, r))
+            return round_fn(p, dcx, dcy, dcm, perms=perms_for_round(r), **kw)
+        return round_fn(p, dcx, dcy, dcm,
+                        generator=_round_generator(seed, r), **kw)
 
     def chunk_accuracy(p) -> torch.Tensor:
         with torch.inference_mode():

@@ -234,14 +234,19 @@ def infer_num_classes(cfg) -> int:
 
 def feature_shape_for(cfg) -> tuple[int, ...]:
     """Per-request feature shape implied by an ExperimentConfig, as
-    ``run/config.build_data`` shapes the features: one angle per qubit
-    for the angle-encoded VQC, the one model the port builds."""
+    ``run/config.build_data`` shapes the features: 2^n amplitudes for
+    the amplitude-encoded VQC, the image for the CNN, else one feature
+    per qubit (angle and reupload)."""
+    from qfedx_tpu_torch.data.datasets import SPECS
+
     m = cfg.model
-    if (m.model, m.encoding) != ("vqc", "angle"):
-        raise NotImplementedError(
-            f"model={m.model!r} with encoding={m.encoding!r} is not ported "
-            "yet (ROADMAP Queue 1 item 11); the port serves the angle VQC"
-        )
+    if m.model == "cnn":
+        spec = SPECS[cfg.data.dataset]
+        if spec.channels == 1:
+            return (spec.height, spec.width)
+        return (spec.height, spec.width, spec.channels)
+    if m.model == "vqc" and m.encoding == "amplitude":
+        return (1 << m.n_qubits,)
     return (m.n_qubits,)
 
 

@@ -318,7 +318,8 @@ def test_min_participation_makes_the_round_the_identity():
     "kwargs,num_devices,call,match",
     [
         (dict(dp=DPConfig()), 1, {}, "DP"),
-        (dict(secure_agg=True), 1, {}, "secure aggregation"),
+        (dict(secure_agg=True, client_fraction=0.5), 1, {},
+         "client_fraction"),
         (dict(aggregator="median"), 1, {}, "median"),
         (dict(aggregator="clip_mean", clip_bound=1.0), 1, {}, "clip_bound"),
         (dict(optimizer="spsa"), 1, {}, "vmap"),

@@ -445,9 +445,10 @@ def test_cli_train_then_serve(monkeypatch, tmp_path, small_data, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--plots"], ["--profile"], ["--trace"], ["--tuned", "x.json"],
-    ["--dp-clip", "1.0"], ["--secure-agg"], ["--aggregator", "median"],
+    ["--dp-clip", "1.0"], ["--secure-agg", "--client-fraction", "0.5"],
+    ["--aggregator", "median"],
     ["--staleness-mode", "poly"], ["--model", "cnn"],
-    ["--encoding", "reupload"],
+    ["--optimizer", "spsa"],
     ["--sv-size", "2"], ["--shots", "100"],
 ])
 def test_cli_unported_paths_raise(tmp_path, small_data, extra):
@@ -484,11 +485,7 @@ def test_feature_shape_for(model, encoding):
         return mod.ExperimentConfig(model=mod.ModelConfig(
             model=model, n_qubits=N, encoding=encoding))
 
-    if (model, encoding) == ("vqc", "angle"):
-        assert feature_shape_for(cfg(pconfig)) == ref_shape(cfg(rconfig))
-    else:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            feature_shape_for(cfg(pconfig))
+    assert feature_shape_for(cfg(pconfig)) == ref_shape(cfg(rconfig))
 
 
 def test_build_model_scan_layers_ledger_restores_the_pin(monkeypatch):

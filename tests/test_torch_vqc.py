@@ -105,11 +105,14 @@ def test_init_seeding():
 
 
 def test_unported_routes_raise(monkeypatch):
-    """Amplitude encoding still raises; the dense route below n = 10 and
-    the folded route off the scan (the per-layer ``fuse_ops`` pass) run
-    and match the batched route."""
-    with pytest.raises(NotImplementedError, match="amplitude"):
-        make_vqc_classifier(12, 3, 2, encoding="amplitude", device="cpu")
+    """An unknown encoding raises and noise is not ported (no
+    ``apply_train``); the dense route below n = 10 and the folded route
+    off the scan (the per-layer ``fuse_ops`` pass) run and match the
+    batched route."""
+    with pytest.raises(ValueError, match="unknown encoding"):
+        make_vqc_classifier(12, 3, 2, encoding="basis", device="cpu")
+    assert make_vqc_classifier(12, 3, 2, encoding="amplitude",
+                               device="cpu").apply_train is None
     small = make_vqc_classifier(8, 2, 2, device="cpu")
     logits = small.apply(small.init(0), _features(8))
     assert small.engine() == "vmap" and tuple(logits.shape) == (4, 2)
