@@ -147,12 +147,30 @@ Phases (any failure raises and exits non-zero):
    masked runs equal the unmasked one within MASK_ATOL, the card the CPU
    within TRAINED_LOGIT_ATOL, no kernel launch, and each round's wall
    and client-rounds/s;
-15. print one JSON line describing each launch of the kernel, f32 and
+15. the rest of the federation options: ``[dp-client]`` runs
+   DP_CLIENT_ARGV (client-mode DP, ``--client-fraction 0.5``) on the card
+   and the CPU (loss and θ within TRAINED_LOGIT_ATOL, ε per row and
+   final_epsilon equal, one B and one C per local step, A in
+   evaluation, no build after round 1); ``[spsa]`` runs SPSA_ARGV (one
+   Launch A per local step on θ ± cΔ as 2C client groups, no B or C) and
+   holds and times A on that forward's program; ``[dp-example]`` runs
+   DP_EXAMPLE_ARGV (per-example DP, C = 2, B = 16: one B and one C per
+   step on 32 one-sample groups) and holds A, B, C and ScanBodyFn's
+   cotangents on that per-sample program (G = tb), timing B and C;
+   ``[config2]`` runs BASELINE.md config 2 (CONFIG2_ARGV: n = 8, eight
+   classes, 10 Dirichlet clients, DP-SGD σ = 1.4) on the card and the CPU
+   (no launch, θ within TRAINED_LOGIT_ATOL, a finite final_epsilon equal
+   to the CPU's, round walls and client-rounds/s); ``[robust]`` runs
+   library rounds at n = 12 under mean, trimmed_mean, median and
+   clip_mean with a byzantine input (and one absent client) on the card
+   and the CPU (θ within ROUND_ATOL, the ledgers equal, each rule closer
+   to the honest round than plain mean, NaN sorted last on the card);
+16. print one JSON line describing each launch of the kernel, f32 and
    bf16 instances (launches on the CLI run, and per path, the dense,
-   reupload, amplitude and config-4 paths included; max error;
-   kernel-alone, plain and bound at the CLI run's shape, and at the
-   earlier slices' and the reupload shapes);
-16. print the final ``{"ok": true, "device": {...}}`` line.
+   reupload, amplitude, config-4 and federation-option paths included;
+   max error; kernel-alone, plain and bound at the CLI run's shape, and
+   at the earlier slices', the reupload, SPSA and per-example shapes);
+17. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -2570,14 +2588,16 @@ def phase_reupload_serve(device) -> dict:
 
 
 def phase_encoding_cli_train(root, argv, name: str, tag: str,
-                             encoding: str) -> dict:
-    """``train`` of a reupload or amplitude run (in-process) on the card,
-    then on the CPU: a complete run directory, per-round loss and final θ
-    card vs CPU within TRAINED_LOGIT_ATOL, accuracy within one evaluation
-    sample, E·S_pad/B Launch B and as many C per round, and Launch A only
-    where the evaluator's tb = 256 reaches the kernel (the HEA body of
-    amplitude; reupload's per-sample banks at 256 groups do not, as in the
-    reference), no build after round 1."""
+                             encoding: str, per_step=None) -> dict:
+    """``train`` of a run at n >= 10 (in-process) on the card, then on
+    the CPU: a complete run directory, per-round loss and final θ card vs
+    CPU within TRAINED_LOGIT_ATOL, accuracy within one evaluation sample,
+    the row fields of EXACT_ROW_KEYS (ε, the defenses' ledgers) and
+    ``final_epsilon`` equal, ``per_step`` launches per local step (default
+    one Launch B and one C), and Launch A in evaluation only where the
+    evaluator's tb = 256 reaches the kernel (the HEA body of the angle and
+    amplitude encodings; reupload's per-sample banks at 256 groups do not,
+    as in the reference), no build after round 1."""
     from qfedx_tpu_torch.models.vqc import make_vqc_classifier
     from qfedx_tpu_torch.run.checkpoint import Checkpointer
 
@@ -2589,7 +2609,8 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
         argv + ["--run-root", str(root), "--name", name], None)
     wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cli_train(argv + ["--run-root", str(root / "cpu"), "--name", name], "cpu")
+    cpu_summary, _, _, _ = cli_train(
+        argv + ["--run-root", str(root / "cpu"), "--name", name], "cpu")
     cpu_wall = time.perf_counter() - t0
     run, cpu_run = root / name, root / "cpu" / name
     batch = int(argv[argv.index("--batch-size") + 1]) if (
@@ -2615,6 +2636,15 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
         _require(loss_err, TRAINED_LOGIT_ATOL, f"{tag} round loss")
         _require(abs(row["accuracy"] - cpu["accuracy"]),
                  1.0 / row["n"] + 1e-12, f"{tag} accuracy, card vs cpu")
+        exact = {k: row[k] for k in EXACT_ROW_KEYS if k in row}
+        if exact:
+            print(f"[{tag}] round {row['round']}: {exact}")
+        if exact != {k: cpu[k] for k in EXACT_ROW_KEYS if k in cpu}:
+            raise AssertionError(f"{tag} round {row['round']}: {exact} vs "
+                                 f"the cpu row {cpu}")
+    if summary["final_epsilon"] != cpu_summary["final_epsilon"]:
+        raise AssertionError(f"{tag} final_epsilon {summary} vs "
+                             f"{cpu_summary}")
     template = make_vqc_classifier(n, layers, classes, encoding=encoding,
                                    device="cpu").init(0)
     theta = ckpt.restore(rounds_n, template)
@@ -2624,13 +2654,13 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
         [v for d in theta.values() for v in d.values()],
         [v for d in cpu_theta.values() for v in d.values()])
     steps = shapes["steps"]
-    want_round = {"fwd": 0, "fwd_bnd": steps, "adj": steps}
+    want_round = {k: steps * v for k, v in (per_step or STEP_BC).items()}
     evals = 0
-    if encoding == "amplitude":
+    if encoding != "reupload":
         evals = _batches(shapes["n_val"]) * (1 + rounds_n) + _batches(
             shapes["n_test"])
-    want = {"fwd": evals, "fwd_bnd": rounds_n * steps,
-            "adj": rounds_n * steps}
+    want = {k: rounds_n * v for k, v in want_round.items()}
+    want["fwd"] += evals
     print(f"[{tag}] final theta max|card-cpu|={theta_err:.3e} (atol "
           f"{TRAINED_LOGIT_ATOL:g}); launches {launches} (expected {want}); "
           f"per round {[c for c, _ in rounds]}; builds after each round "
@@ -2732,6 +2762,360 @@ def phase_config4(root) -> dict:
     return out
 
 
+# --- the rest of the federation options: DP, robust rules, sampling, SPSA ---
+
+# Client-mode DP with sampling below 1 at the CLI run's width.
+DP_CLIENT_ARGV = ["train", "--model", "vqc", "--qubits", "12", "--layers",
+                  "3", "--classes", "0,1", "--clients", "4", "--rounds", "2",
+                  "--local-epochs", "1", "--dp-clip", "1.0", "--dp-sigma",
+                  "1.0", "--client-fraction", "0.5", "--checkpoint-every",
+                  "1"]
+SPSA_ARGV = ["train", "--model", "vqc", "--qubits", "12", "--layers", "3",
+             "--classes", "0,1", "--clients", "4", "--rounds", "1",
+             "--local-epochs", "1", "--optimizer", "spsa",
+             "--checkpoint-every", "1"]
+# Per-example DP: C = 2 clients x B = 16, one-sample groups (C*B = 32,
+# the most one stacked program hands the kernel).
+DP_EXAMPLE_ARGV = ["train", "--model", "vqc", "--qubits", "12", "--layers",
+                   "3", "--classes", "0,1", "--clients", "2", "--batch-size",
+                   "16", "--dp-clip", "1.0", "--dp-sigma", "1.0",
+                   "--dp-mode", "example", "--rounds", "1", "--local-epochs",
+                   "1", "--checkpoint-every", "1"]
+# BASELINE.md config 2: 8-qubit VQC, MNIST, 10 non-IID clients, FedAvg +
+# DP-SGD (sigma 1.4, C 1.0: the README's DP-SGD line). Eight classes, not
+# ten: the VQC needs n >= classes.
+CONFIG2_ARGV = ["train", "--model", "vqc", "--qubits", "8", "--layers", "2",
+                "--classes", "0,1,2,3,4,5,6,7", "--clients", "10",
+                "--partition", "dirichlet", "--dp-clip", "1.0", "--dp-sigma",
+                "1.4", "--dp-mode", "example", "--rounds", "2",
+                "--local-epochs", "1", "--pipeline-depth", "0"]
+ROUND_ATOL = 1e-5  # library rounds, card vs CPU (the SGD round tolerance)
+# Row fields that must equal card vs CPU: the accountant's and the
+# defenses' ledgers depend on the config and the counts alone.
+EXACT_ROW_KEYS = ("epsilon", "epsilon_accounting", "aggregator",
+                  "clipped_clients", "trimmed_fraction")
+STEP_BC = {"fwd": 0, "fwd_bnd": 1, "adj": 1}  # a local step's launches
+
+
+def hold_program(tag: str, name: str, packed, spec, xs, seed: int,
+                 timed=()) -> tuple[dict, dict]:
+    """Launches A, B and C on a main-path program against the plain
+    sweep (KERNEL_ATOL), ``ScanBodyFn``'s cotangents against plain
+    autograd (GRAD_ATOL, one B and one C), and ``timed`` launches timed;
+    returns the errors and the timing rows."""
+    from qfedx_tpu_torch.ops import scan_body
+
+    aspec = scan_body._adjoint_spec(spec)
+    axs = scan_body._adjoint_xs(spec, xs)
+    cot = random_state(spec.n, spec.tb, packed.device, seed=seed)
+    cot = torch.stack([cot.re, cot.im]).reshape(packed.shape)
+    with torch.no_grad():
+        outs = {
+            "A": ([scan_body.scan_body(packed, spec, xs)],
+                  [scan_body.scan_body_plain(packed, spec, xs)]),
+            "B": (scan_body.scan_body(packed, spec, xs, with_boundaries=True),
+                  scan_body.scan_body_plain(packed, spec, xs, True)),
+            "C": (scan_body.scan_body(cot, aspec, axs, with_boundaries=True,
+                                      adjoint=True),
+                  scan_body.scan_body_plain(cot, aspec, axs, True)),
+        }
+        torch.cuda.synchronize()
+    errs = {k: _max_err(*o) for k, o in outs.items()}
+    body = ",".join(f"{op.kind}(G={op.groups})" if op.stacked else op.kind
+                    for op in spec.ops)
+    print(f"[{tag}] {name} ({config_text(spec)}) body=[{body}] "
+          f"max|kernel-plain|: A {errs['A']:.3e}, B {errs['B']:.3e}, C "
+          f"{errs['C']:.3e} (atol {KERNEL_ATOL:g})")
+    for launch in ("A", "B", "C"):
+        _require(errs[launch], KERNEL_ATOL, f"{tag} Launch {launch}")
+    w = torch.as_tensor(np.random.default_rng(seed + 1).normal(
+        size=tuple(packed.shape)), dtype=torch.float32, device=packed.device)
+    before = dict(scan_body.launch_counts)
+    got = _cotangents(spec, packed, xs, w, "kernel")
+    launched = {k: scan_body.launch_counts[k] - before[k] for k in before}
+    want = _cotangents(spec, packed, xs, w, "plain")
+    torch.cuda.synchronize()
+    e_state = float((got[0] - want[0]).abs().max())
+    e_coeff = _max_err(got[1:], want[1:])
+    print(f"[{tag}] {name}: ScanBodyFn state cotangent {e_state:.3e}, "
+          f"coefficient cotangents {e_coeff:.3e} (atol {GRAD_ATOL:g}), "
+          f"launches {launched}")
+    if launched != STEP_BC:
+        raise AssertionError(f"ScanBodyFn on {name} launched {launched}")
+    _require(max(e_state, e_coeff), GRAD_ATOL, f"{tag} gradients")
+    errs["grad"] = max(e_state, e_coeff)
+    rows = (time_launches(name, packed, spec, xs, cot, aspec, axs, errs,
+                          timed) if timed else {})
+    return errs, rows
+
+
+def captured_program(forward, n: int):
+    """(packed, spec, xs) that ``forward()`` hands the kernel first."""
+    with capture_scan():
+        try:
+            forward()
+        except _Captured as cap:
+            return kernel_inputs(cap.state, n, cap.program)
+    raise AssertionError("the forward never reached the kernel")
+
+
+def phase_spsa(root, device) -> dict:
+    """``[spsa]``: ``train --optimizer spsa`` at n = 12 (SPSA_ARGV) on the
+    card and the CPU: exactly one Launch A per local step (θ ± cΔ of the
+    4 clients as the 8 client groups of one forward under no_grad) and
+    none of B or C, A also in evaluation; θ and loss card vs CPU within
+    TRAINED_LOGIT_ATOL. Then Launch A on that forward's own program (2C
+    groups at tb = 2·C·B) against the plain sweep, and timed."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+
+    run = phase_encoding_cli_train(root, SPSA_ARGV, "spsa", "spsa", "angle",
+                                   per_step={"fwd": 1, "fwd_bnd": 0,
+                                             "adj": 0})
+    n, layers, classes, clients = _run_shape(SPSA_ARGV)
+    base, leaves, xb, _ = _client_batch(n, layers, classes, 2 * clients,
+                                        TRAIN_BATCH, device, seed=910)
+    model = make_vqc_classifier(n, layers, classes, device=device)
+
+    def forward():
+        with torch.no_grad():
+            model.apply_clients(leaves, xb)
+
+    errs, rows = hold_program("spsa", f"SPSA forward, {2 * clients} client "
+                              f"groups x {TRAIN_BATCH}",
+                              *captured_program(forward, n), seed=911,
+                              timed=("A",))
+    run.update(errs=errs, rows=rows)
+    return run
+
+
+def phase_dp_example(root, device) -> dict:
+    """``[dp-example]``: per-example DP at n = 12, C = 2, B = 16
+    (DP_EXAMPLE_ARGV) on the card and the CPU: one Launch B and one C per
+    local step on the C·B one-sample groups (G = tb = 32), A in
+    evaluation, θ and loss card vs CPU within TRAINED_LOGIT_ATOL, ε equal.
+    Then Launches A, B and C on that per-sample program against the plain
+    sweep and ScanBodyFn's cotangents (the coefficient cotangents as
+    (L, tb, …) stacks) against plain autograd, as [reupload-parity] holds
+    G = tb; B and C timed."""
+    from qfedx_tpu_torch.fed.client import apply_groups
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+
+    run = phase_encoding_cli_train(root, DP_EXAMPLE_ARGV, "dp-example",
+                                   "dp-example", "angle")
+    n, layers, classes, clients = _run_shape(DP_EXAMPLE_ARGV)
+    batch = 16
+    groups = clients * batch
+    base, leaves, xb, _ = _client_batch(n, layers, classes, groups, 1,
+                                        device, seed=920)
+    model = make_vqc_classifier(n, layers, classes, device=device)
+    packed, spec, xs = captured_program(
+        lambda: apply_groups(model, leaves, xb), n)
+    stacked = sorted({op.groups for op in spec.ops if op.stacked})
+    if stacked != [groups] or spec.tb != groups:
+        raise AssertionError(f"the per-example program has groups {stacked}"
+                             f" at tb={spec.tb}, expected G = tb = {groups}")
+    errs, rows = hold_program("dp-example", f"per-example groups C={clients} "
+                              f"B={batch} (G=tb={groups})", packed, spec, xs,
+                              seed=921, timed=("B", "C"))
+    run.update(errs=errs, rows=rows)
+    return run
+
+
+def phase_dp_client(root) -> dict:
+    """``[dp-client]``: client-mode DP with sampling (DP_CLIENT_ARGV) on
+    the card and the CPU: loss and θ within TRAINED_LOGIT_ATOL, ε per row
+    equal, E·S_pad/B Launch B and as many C per round, A in evaluation,
+    no build after round 1."""
+    return phase_encoding_cli_train(root, DP_CLIENT_ARGV, "dp-client",
+                                    "dp-client", "angle")
+
+
+def phase_robust(device) -> dict:
+    """``[robust]``: library rounds at n = 12, L = 3, 4 clients x 16
+    samples, batch 8 (tb = 32: two local steps) under mean, trimmed_mean,
+    median and clip_mean (finite bound), with a byzantine input (client 1
+    scale:100, client 2 sign_flip) and once with client 3 absent (a NaN
+    in every coordinate's sort), on the card and the CPU: θ within
+    ROUND_ATOL, clipped_clients and trimmed_fraction equal, 2 B + 2 C per
+    round, and each rule's θ closer to the honest round's than plain
+    mean's under the same attack; a client-mode DP round beside them. Each
+    card round runs twice and the second is timed (synchronised, host
+    clock): what the rule's post-processing adds to a round. ``torch.sort``
+    puts NaN last on the card as on the CPU."""
+    from qfedx_tpu_torch.fed.config import DPConfig, FedConfig
+    from qfedx_tpu_torch.fed.round import RoundDraws, make_fed_round
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.ops import scan_body
+
+    v = torch.tensor([[3.0, float("nan")], [float("nan"), -1.0],
+                      [-2.0, 5.0]])
+    on_card = torch.sort(v.to(device), dim=0).values.cpu()
+    if not torch.equal(torch.nan_to_num(on_card, nan=9.0), torch.nan_to_num(
+            torch.sort(v, dim=0).values, nan=9.0)):
+        raise AssertionError(f"torch.sort with NaN on the card: {on_card}")
+    n, layers, clients, samples, batch = 12, 3, 4, 16, 8
+    rng = np.random.default_rng(930)
+    data = (rng.uniform(0, 1, (clients, samples, n)).astype(np.float32),
+            rng.integers(0, 2, (clients, samples)),
+            np.ones((clients, samples), np.float32))
+    perms = torch.stack([torch.stack([torch.randperm(
+        samples, generator=torch.Generator().manual_seed(c))])
+        for c in range(clients)])
+    byz = np.array([[1, 0], [100, 0], [-1, 0], [1, 0]], np.float32)
+    cases = [("mean", {}, None, None), ("mean", {}, byz, None),
+             ("trimmed_mean", dict(aggregator="trimmed_mean",
+                                   trim_fraction=0.25), byz, None),
+             ("median", dict(aggregator="median"), byz, None),
+             ("clip_mean", dict(aggregator="clip_mean", clip_bound=0.05),
+              byz, None),
+             ("median", dict(aggregator="median"), byz,
+              np.array([1, 1, 1, 0], np.float32)),
+             ("mean, client DP", dict(dp=DPConfig(clip_norm=1.0)), None,
+              None)]
+    steps = samples // batch
+    out = {"launches": dict(NO_LAUNCH), "theta_err": 0.0}
+    thetas = {}
+    for agg, kw, attack, survivors in cases:
+        cfg = FedConfig(local_epochs=1, batch_size=batch, learning_rate=0.1,
+                        momentum=0.9, **kw)
+        res = {}
+        for timed, dev in ((True, device), (False, "cpu")):
+            model = make_vqc_classifier(n, layers, 2, device=dev)
+            params = {g: {k: t * 8.0 for k, t in d.items()}
+                      for g, d in model.init(7).items()}
+            rf = make_fed_round(model, cfg, num_clients=clients)
+            tdata = [torch.as_tensor(a, device=dev) for a in data]
+
+            def run():
+                return rf(params, *tdata, perms=perms, byzantine=attack,
+                          survivors=survivors, draws=RoundDraws(930, 0))
+
+            before = dict(scan_body.launch_counts)
+            theta, stats = run()
+            stats = {k: float(t) for k, t in stats._asdict().items()}
+            launched = {k: scan_body.launch_counts[k] - before[k]
+                        for k in before}
+            wall = None
+            if timed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            res[timed] = (theta, stats, launched, wall)
+        (theta, stats, launched, wall), (ctheta, cstats, _, _) = res[
+            True], res[False]
+        flat = [t for d in theta.values() for t in d.values()]
+        err = _max_err([t.cpu() for t in flat],
+                       [t for d in ctheta.values() for t in d.values()])
+        label = (f"{agg}" + (", byzantine" if attack is not None else "")
+                 + (", client 3 absent" if survivors is not None else ""))
+        thetas[label] = [t.cpu() for t in flat]
+        print(f"[robust] {label}: theta max|card-cpu| {err:.3e} (atol "
+              f"{ROUND_ATOL:g}); clipped_clients {stats['clipped_clients']}"
+              f" (cpu {cstats['clipped_clients']}), trimmed_fraction "
+              f"{stats['trimmed_fraction']} (cpu "
+              f"{cstats['trimmed_fraction']}), participants "
+              f"{stats['num_participants']}, loss {stats['mean_loss']!r}; "
+              f"launches {launched}; round wall {wall:.3f} ms (second "
+              "call, synchronised, host clock)")
+        _require(err, ROUND_ATOL, f"robust {label} theta, card vs cpu")
+        for k in ("clipped_clients", "trimmed_fraction", "num_participants",
+                  "dropped_clients"):
+            if stats[k] != cstats[k]:
+                raise AssertionError(f"robust {label} {k}: {stats[k]} vs "
+                                     f"{cstats[k]}")
+        if launched != {k: steps * v for k, v in STEP_BC.items()}:
+            raise AssertionError(f"robust {label} launched {launched}")
+        out["launches"] = {k: out["launches"][k] + launched[k]
+                           for k in launched}
+        out["theta_err"] = max(out["theta_err"], err)
+        out.setdefault("walls", {})[label] = wall
+
+    def dist(a, b):
+        return math.sqrt(sum(float(((x - y) ** 2).sum())
+                             for x, y in zip(a, b)))
+
+    honest = thetas["mean"]
+    pull = {k: dist(t, honest) for k, t in thetas.items()
+            if k not in ("mean", "mean, client DP")}
+    print("[robust] distance of theta from the honest mean round: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in pull.items()))
+    for k, v in pull.items():
+        if "absent" not in k and k != "mean, byzantine" and not (
+                v < pull["mean, byzantine"]):
+            raise AssertionError(f"{k} pulled {v} >= plain mean's "
+                                 f"{pull['mean, byzantine']}")
+    out["pull"] = pull
+    return out
+
+
+def phase_config2(root) -> dict:
+    """``[config2]``: BASELINE.md config 2 (CONFIG2_ARGV) on the card and
+    the CPU: the dense engine (no launch, no build), loss per round and
+    the final θ within TRAINED_LOGIT_ATOL, a finite final_epsilon equal
+    to the CPU run's and ε per row equal; the synchronous round walls
+    and client-rounds/s (host clock)."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run.checkpoint import Checkpointer
+
+    n, layers, classes, clients = _run_shape(CONFIG2_ARGV)
+    shapes = expected_shapes(CONFIG2_ARGV)
+    builds = scan_body.build_count
+    t0 = time.perf_counter()
+    summary, launches, rounds, _ = cli_train(
+        CONFIG2_ARGV + ["--run-root", str(root), "--name", "config2"], None)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_summary, _, _, _ = cli_train(
+        CONFIG2_ARGV + ["--run-root", str(root / "cpu"), "--name",
+                        "config2"], "cpu")
+    cpu_wall = time.perf_counter() - t0
+    rows, cpu_rows = _rows(root / "config2"), _rows(root / "cpu" / "config2")
+    print(f"[config2] {' '.join(CONFIG2_ARGV)}: n={n} L={layers} "
+          f"classes={classes} {clients} clients x S_pad={shapes['s_pad']}, "
+          f"{shapes['steps']} local steps per round, each {clients} x 32 "
+          f"one-sample groups; card {wall:.2f} s, cpu {cpu_wall:.2f} s "
+          "(host clock, in-process, data build included)")
+    for row, cpu in zip(rows, cpu_rows):
+        loss_err = abs(row["loss"] - cpu["loss"])
+        print(f"[config2] round {row['round']}: loss card {row['loss']!r} "
+              f"cpu {cpu['loss']!r} |err|={loss_err:.3e}, epsilon "
+              f"{row['epsilon']!r} (cpu {cpu['epsilon']!r}), accuracy "
+              f"{row['accuracy']!r}, time_s {row['time_s']!r} (cpu "
+              f"{cpu['time_s']!r}; rounds of one chunk share its wall)")
+        _require(loss_err, TRAINED_LOGIT_ATOL, "config2 round loss")
+        for k in EXACT_ROW_KEYS:
+            if row.get(k) != cpu.get(k):
+                raise AssertionError(f"config2 {k}: {row.get(k)!r} vs "
+                                     f"{cpu.get(k)!r}")
+    template = make_vqc_classifier(n, layers, classes, device="cpu").init(0)
+    rounds_n = len(rows)
+    theta = Checkpointer(root / "config2" / "checkpoints").restore(
+        rounds_n, template)
+    cpu_theta = Checkpointer(root / "cpu" / "config2" / "checkpoints"
+                             ).restore(rounds_n, template)
+    theta_err = _max_err([v for d in theta.values() for v in d.values()],
+                         [v for d in cpu_theta.values() for v in d.values()])
+    eps, cpu_eps = summary["final_epsilon"], cpu_summary["final_epsilon"]
+    times = [r["time_s"] for r in rows]
+    rate = clients * len(times) / sum(times)
+    print(f"[config2] final theta max|card-cpu| {theta_err:.3e} (atol "
+          f"{TRAINED_LOGIT_ATOL:g}); final_epsilon {eps!r} (cpu {cpu_eps!r},"
+          f" delta 1e-5); launches {launches}, kernel builds "
+          f"{scan_body.build_count - builds}; round walls (synchronous, "
+          f"host clock) {times} s, {rate:.4f} client-rounds/s; final "
+          f"accuracy {summary['final_accuracy']!r}")
+    _require(theta_err, TRAINED_LOGIT_ATOL, "config2 final theta")
+    if not (eps is not None and math.isfinite(eps) and eps == cpu_eps):
+        raise AssertionError(f"config2 final_epsilon {eps!r} vs {cpu_eps!r}")
+    if launches != NO_LAUNCH or scan_body.build_count != builds:
+        raise AssertionError(f"config2 launched {launches} or built")
+    return {"launches": launches, "rate": rate, "times": times,
+            "epsilon": eps, "theta_err": theta_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -2803,11 +3187,16 @@ def main() -> int:
             root, amplitude_run["run"], shape=amplitude_run["shape"],
             tag="amplitude-cli-serve", encoding="amplitude")
         config4 = phase_config4(root)
+        dp_client = phase_dp_client(root)
+        spsa = phase_spsa(root, device)
+        dp_example = phase_dp_example(root, device)
+        config2 = phase_config2(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     dense_route = phase_dense_route(device)
     remat = phase_remat(device)
     dense_times = phase_dense_times(device)
+    robust = phase_robust(device)
     source = "qfedx_tpu_torch/ops/csrc/scan_body.cu"
     kernel = "qfedx_tpu/ops/pallas_body.py:401"
     by_path = {
@@ -2826,19 +3215,30 @@ def main() -> int:
         "amplitude-cli-train (n=11)": amplitude_run["launches"],
         "amplitude-cli-serve": amplitude_served["launches"],
         **{f"config4 ({k})": v for k, v in config4["launches"].items()},
+        "dp-client": dp_client["launches"],
+        "robust (6 library rounds)": robust["launches"],
+        "spsa": spsa["launches"],
+        "dp-example": dp_example["launches"],
+        "config2 (n=8)": config2["launches"],
     }
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
 
     # The reupload slice's shapes: Launch A on per-sample stacks (G = tb)
     # at the served buckets, B and C on the fold's mixed groups.
+    # The federation slice's shapes: Launch A on SPSA's 2C client groups,
+    # B and C on per-example DP's one-sample groups (G = tb).
+    spsa_tb = max(t for _, t in spsa["rows"])
     reupload_shapes = {
-        "A": {f"reupload bucket {b} (G=tb)": r
-              for b, r in reupload_served["rows"].items()},
+        "A": {**{f"reupload bucket {b} (G=tb)": r
+                 for b, r in reupload_served["rows"].items()},
+              f"spsa forward tb={spsa_tb} (G=8)": spsa["rows"]["A", spsa_tb]},
         "B": {"reupload fold C=2 B=16 (mixed G)":
-              reupload["rows"]["B", 32]},
+              reupload["rows"]["B", 32],
+              "dp-example C=2 B=16 (G=tb)": dp_example["rows"]["B", 32]},
         "C": {"reupload fold C=2 B=16 (mixed G)":
-              reupload["rows"]["C", 32]},
+              reupload["rows"]["C", 32],
+              "dp-example C=2 B=16 (G=tb)": dp_example["rows"]["C", 32]},
     }
 
     def entry(name, launch, key, replaces, earlier, earlier_shape, tb):
@@ -2854,7 +3254,8 @@ def main() -> int:
             "launches": cli_run["launches"][key],
             "max_abs_err": max(shapes["worst"][launch],
                                earlier["max_abs_err"], worst[launch],
-                               reupload[launch]),
+                               reupload[launch], spsa["errs"][launch],
+                               dp_example["errs"][launch]),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                    "bound_by")},
             "library_ms": None,
@@ -2953,6 +3354,15 @@ def main() -> int:
           "rate (client-rounds/s) "
           + ", ".join(f"{k}: {v['rate']:.4f}"
                       for k, v in config4["rates"].items()))
+    print(f"[summary] federation options: dp-client theta max|card-cpu| "
+          f"{dp_client['theta_err']:.3e}, final_epsilon "
+          f"{dp_client['summary']['final_epsilon']!r}; robust rounds theta "
+          f"{robust['theta_err']:.3e}; spsa theta {spsa['theta_err']:.3e}, "
+          f"launches {spsa['launches']}; dp-example theta "
+          f"{dp_example['theta_err']:.3e}, launches "
+          f"{dp_example['launches']}; config 2 theta "
+          f"{config2['theta_err']:.3e}, final_epsilon "
+          f"{config2['epsilon']!r}, {config2['rate']:.4f} client-rounds/s")
     print(card_line())
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,44 @@
-"""Local client training, client-folded.
+"""Local client training: folded (all clients at once) and one client.
 
-Counterpart of ``qfedx_tpu/fed/client.py``'s ``make_optimizer`` and
-``make_local_update_clients``. The C clients of a round train together:
-their parameter trees carry a leading client axis, the model's
-``apply_clients`` runs every client's batch as one (C·B, 2^n) slab with
-per-client coefficient groups (through the scan-body kernel on the
-card), and the loss is Σ_c mean-CE_c — each client's gradient lands in
-its own parameter slice. E epochs of shuffled batches; returns each
-client's wrapped update Δθ, its sample count and its mean epoch loss.
+Counterpart of ``qfedx_tpu/fed/client.py``: ``make_optimizer``,
+``make_spsa_grad``, the per-example DP-SGD gradient
+(``_make_dp_example_grad``), ``make_local_update`` (one client) and
+``make_local_update_clients`` (client-folded). In the folded form the C
+clients of a round train together: their parameter trees carry a
+leading client axis, the model's ``apply_clients`` runs every client's
+batch as one (C·B, 2^n) slab with per-client coefficient groups
+(through the scan-body kernel on the card), and the loss is Σ_c
+mean-CE_c, so each client's gradient lands in its own parameter slice.
+E epochs of shuffled batches; each returns the wrapped update Δθ, the
+sample count and the mean epoch loss.
+
+Three gradient routes, on either form:
+
+- the plain gradient (torch autograd: Launches B and C on the card);
+- SPSA: the loss at θ ± cΔ with a Rademacher Δ, forward only (under
+  ``torch.no_grad``, so Launch A on the card); folded, θ_c + cΔ_c and
+  θ_c − cΔ_c run as the 2C client groups of one forward;
+- per-example DP-SGD: every example's gradient clipped to C, summed,
+  one N(0, σ²C²I) draw added per local step, divided by the static lot
+  B. Folded, the C·B examples run as C·B groups of one sample each with
+  θ broadcast, so one forward and one backward give every per-example
+  gradient; one client alone loops over its examples.
+
+Folded SPSA and per-example DP split their groups into forwards of at
+most 32 (``apply_groups``), the most a stacked program hands the kernel.
+
+The reference keeps SPSA and per-example DP on its vmap path because
+their PRNG keys live inside the traced estimator. The port's random
+trees come from outside (``step_draws``: SPSA's Δ or the DP noise, one
+tree per local step, drawn by ``fed/round.RoundDraws`` or injected by
+the parity tests), so nothing forces the unfolded path.
 
 The optimizers are explicit, functional, per-client update rules that
 reproduce ``optax.adam(lr)`` and ``optax.sgd(lr, momentum)`` step for
-step (``torch.optim`` is not used). Shuffles come from the caller: a
-``torch.Generator`` draws each client's per-epoch permutation, or an
-explicit (C, E, S) ``perms`` tensor gives them (the parity tests inject
-the permutations the reference drew from its key stream).
-
-Not ported yet (the reference's vmap client path): SPSA and per-example
-DP, which raise NotImplementedError.
+step (``torch.optim`` is not used); SPSA updates like SGD. Shuffles come
+from the caller: a ``torch.Generator`` draws each client's per-epoch
+permutation, or an explicit (C, E, S) ``perms`` tensor gives them (the
+parity tests inject the permutations the reference drew).
 """
 
 from __future__ import annotations
@@ -27,7 +48,13 @@ from typing import Callable, NamedTuple
 import torch
 
 from qfedx_tpu_torch.fed.config import FedConfig
+from qfedx_tpu_torch.fed.privacy import (
+    batched_global_norm,
+    clip_factor,
+    lead_scale,
+)
 from qfedx_tpu_torch.models.api import Model
+from qfedx_tpu_torch.ops.fuse import _ROWMAT_GROUP_MAX
 from qfedx_tpu_torch.utils import trees
 
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
@@ -108,27 +135,251 @@ def draw_perms(generator: torch.Generator, clients: int, epochs: int,
     ])
 
 
+def _unflatten(leaves_like, flat) -> dict:
+    it = iter(flat)
+    return trees.tree_map(lambda _: next(it), leaves_like)
+
+
+def apply_groups(model: Model, cparams, x) -> torch.Tensor:
+    """``model.apply_clients`` over G groups, on the batched engine in
+    chunks of at most ``_ROWMAT_GROUP_MAX`` groups: a stacked program of
+    more groups keeps a per-group ``g1`` that the kernel does not take
+    (``scan_body.route_ok``), so SPSA's 2C and per-example DP's C·B
+    groups reach the kernel at any count, as the reference's vmapped
+    per-client and per-example forwards do."""
+    g = x.shape[0]
+    batched = model.engine is not None and model.engine() == "batched"
+    if not batched or g <= _ROWMAT_GROUP_MAX:
+        return model.apply_clients(cparams, x)
+    return torch.cat([
+        model.apply_clients(
+            trees.tree_map(lambda p: p[i:i + _ROWMAT_GROUP_MAX], cparams),
+            x[i:i + _ROWMAT_GROUP_MAX])
+        for i in range(0, g, _ROWMAT_GROUP_MAX)])
+
+
+def make_spsa_grad(loss_fn: Callable, c: float, folded: bool = False
+                   ) -> Callable:
+    """SPSA: ĝ = [L(θ+cΔ) − L(θ−cΔ)] / (2c) · Δ with a Rademacher Δ
+    (Δ⁻¹ = Δ). ``spsa_grad(params, global_params, xb, yb, mb, delta)``
+    returns ((L₊+L₋)/2, ĝ); ``loss_fn`` is the route's loss. Folded
+    (per-client (C, …) leaves), θ ± cΔ run as the 2C client groups of one
+    forward; forward only either way."""
+
+    def spsa_grad(params, global_params, xb, yb, mb, delta):
+        plus = trees.tree_map(lambda p, d: p + c * d, params, delta)
+        minus = trees.tree_map(lambda p, d: p - c * d, params, delta)
+        with torch.no_grad():
+            if folded:
+                both = trees.tree_map(lambda a, b: torch.cat([a, b]), plus,
+                                      minus)
+                lp, lm = loss_fn(both, global_params,
+                                 *(torch.cat([a, a]) for a in (xb, yb, mb))
+                                 ).chunk(2)
+            else:
+                lp = loss_fn(plus, global_params, xb, yb, mb)
+                lm = loss_fn(minus, global_params, xb, yb, mb)
+        return (lp + lm) / 2.0, lead_scale(delta, (lp - lm) / (2.0 * c))
+
+    return spsa_grad
+
+
+def _dp_noised_mean(ex_grads, mb, noise, dp, lot: int):
+    """(Σ_i min(1, C/max(‖g_i‖, 1e-12))·m_i·g_i + σC·z) / lot, the
+    example axis being ``mb``'s last: ``ex_grads`` leaves (…, B, *shape),
+    ``mb`` (…, B), ``noise`` leaves (…, *shape)."""
+    k = mb.ndim
+    factor = clip_factor(batched_global_norm(ex_grads, k), dp.clip_norm) * mb
+    scale = dp.noise_multiplier * dp.clip_norm
+    return trees.tree_map(
+        lambda g, z: (torch.sum(g, dim=k - 1) + scale * z) / float(lot),
+        lead_scale(ex_grads, factor), noise,
+    )
+
+
+def _make_dp_example_grad(model: Model, cfg: FedConfig, folded: bool
+                          ) -> Callable:
+    """Per-example DP-SGD gradient (BASELINE.md config 2), the Abadi et
+    al. estimator with lot size B:
+
+        g̃ = ( Σ_i min(1, C/max(‖g_i‖, 1e-12))·m_i·g_i + N(0, σ²C²I) ) / B
+
+    with one noise tree per local step (``noise``). Padded examples
+    (m_i = 0) contribute nothing, and B stays the static batch size, so
+    padding never changes the noise scale. The FedProx gradient
+    μ(θ − θ_global) is added outside the clipped sum. Returns the
+    masked mean example loss and g̃."""
+    dp = cfg.dp
+    lot = cfg.batch_size
+
+    def folded_grads(cparams, xb, yb):
+        # C·B groups of one sample each, θ_c broadcast over its B
+        # examples: the gradient of Σ CE by group is every example's own.
+        c, b = xb.shape[0], xb.shape[1]
+        leaves = trees.tree_map(
+            lambda p: p[:, None].expand((c, b) + tuple(p.shape[1:]))
+            .reshape((c * b,) + tuple(p.shape[1:])).detach()
+            .requires_grad_(True), cparams)
+        with torch.enable_grad():
+            logits = apply_groups(
+                model, leaves, xb.reshape((c * b, 1) + tuple(xb.shape[2:])))
+            ce = _cross_entropy(logits[:, 0], yb.reshape(c * b))
+            grads = torch.autograd.grad(ce.sum(), trees.tree_leaves(leaves))
+        grads = [g.reshape((c, b) + tuple(g.shape[1:])) for g in grads]
+        return ce.detach().reshape(c, b), _unflatten(cparams, grads)
+
+    def client_grads(params, xb, yb):
+        # One client alone: one forward and backward per example.
+        losses, per_ex = [], []
+        for i in range(xb.shape[0]):
+            leaves = trees.tree_map(
+                lambda p: p.detach().requires_grad_(True), params)
+            with torch.enable_grad():
+                ce = _cross_entropy(model.apply(leaves, xb[i:i + 1]),
+                                    yb[i:i + 1])[0]
+                per_ex.append(torch.autograd.grad(
+                    ce, trees.tree_leaves(leaves)))
+            losses.append(ce.detach())
+        grads = [torch.stack(g) for g in zip(*per_ex)]
+        return torch.stack(losses), _unflatten(params, grads)
+
+    def grad_fn(params, global_params, xb, yb, mb, noise):
+        losses, ex_grads = (folded_grads if folded else client_grads)(
+            params, xb, yb)
+        with torch.no_grad():
+            g = _dp_noised_mean(ex_grads, mb, noise, dp, lot)
+            if cfg.algorithm == "fedprox":
+                g = trees.tree_map(
+                    lambda gi, p, gp: gi + cfg.prox_mu * (p - gp),
+                    g, params, global_params)
+            loss = torch.sum(losses * mb, dim=-1) / torch.clamp(
+                torch.sum(mb, dim=-1), min=1.0)
+        return loss, g
+
+    return grad_fn
+
+
+def _autograd_grad(loss_fn: Callable) -> Callable:
+    """``jax.value_and_grad`` of ``loss_fn``; a per-client loss (C,) is
+    summed, so each client's gradient lands in its own slice."""
+
+    def grad_fn(params, global_params, xb, yb, mb, _draw=None):
+        leaves = trees.tree_map(lambda p: p.detach().requires_grad_(True),
+                                params)
+        with torch.enable_grad():
+            loss = loss_fn(leaves, global_params, xb, yb, mb)
+            grads = torch.autograd.grad(loss.sum(), trees.tree_leaves(leaves))
+        return loss.detach(), _unflatten(leaves, grads)
+
+    return grad_fn
+
+
+def _grad_route(model: Model, cfg: FedConfig, loss_fn: Callable,
+                folded: bool) -> tuple[Callable, bool]:
+    """The config's gradient estimator and whether it takes a random tree
+    per local step."""
+    if cfg.dp is not None and cfg.dp.mode == "example":
+        return _make_dp_example_grad(model, cfg, folded), True
+    if cfg.optimizer == "spsa":
+        return make_spsa_grad(loss_fn, cfg.spsa_c, folded), True
+    return _autograd_grad(loss_fn), False
+
+
+def _local_steps(tx: Optimizer, grad_fn: Callable, params, global_params,
+                 batches, draw_at: Callable, n_batches: int):
+    """Run the local steps ``batches`` yields in order (E epochs of
+    ``n_batches``); returns the final parameters and the mean over epochs
+    of each epoch's mean step loss."""
+    opt_state = tx.init(params)
+    losses = []
+    for t, (xb, yb, mb) in enumerate(batches):
+        loss, grads = grad_fn(params, global_params, xb, yb, mb, draw_at(t))
+        with torch.no_grad():
+            updates, opt_state = tx.update(grads, opt_state)
+            params = trees.tree_add(
+                trees.tree_map(torch.Tensor.detach, params), updates)
+        losses.append(loss)
+    per_epoch = torch.stack(losses).reshape(
+        (-1, n_batches) + tuple(losses[0].shape)).mean(dim=1)
+    return params, per_epoch.mean(dim=0)
+
+
+def _check_steps(cfg: FedConfig, s: int, needs_draws: bool, step_draws):
+    if s % cfg.batch_size != 0:
+        raise ValueError(
+            f"padded client size {s} not a multiple of batch "
+            f"{cfg.batch_size}"
+        )
+    if needs_draws and step_draws is None:
+        raise ValueError("SPSA and per-example DP need step_draws (one "
+                         "random tree per local step)")
+
+
+def make_local_update(model: Model, cfg: FedConfig) -> Callable:
+    """Build ``local_update(global_params, x, y, mask, perms,
+    step_draws=None)`` for ONE client: x [S, ...], y [S], mask [S],
+    perms (E, S) → (delta, n_samples, mean_loss). ``step_draws``: a tree
+    of (E·S/B, …) leaves, the random tree of each local step (SPSA's Δ,
+    per-example DP's noise). Runs ``model.apply``, so it serves models
+    without ``apply_clients`` and ``QFEDX_FOLD_CLIENTS=0``."""
+    tx = make_optimizer(cfg)
+
+    def loss_fn(params, global_params, xb, yb, mb):
+        ce = _cross_entropy(model.apply(params, xb), yb)
+        loss = torch.sum(ce * mb) / torch.clamp(torch.sum(mb), min=1.0)
+        if cfg.algorithm == "fedprox":
+            loss = loss + 0.5 * cfg.prox_mu * trees.global_norm_sq(
+                trees.tree_sub(params, global_params))
+        return loss
+
+    grad_fn, needs_draws = _grad_route(model, cfg, loss_fn, folded=False)
+
+    def local_update(global_params, x, y, mask, perms, step_draws=None):
+        s = x.shape[0]
+        _check_steps(cfg, s, needs_draws, step_draws)
+        n_batches = s // cfg.batch_size
+        perms = torch.as_tensor(perms, dtype=torch.int64, device=x.device)
+
+        def batches():
+            for e in range(cfg.local_epochs):
+                perm = perms[e]
+                xs, ys, ms = (a[perm].reshape((n_batches, cfg.batch_size)
+                                              + tuple(a.shape[1:]))
+                              for a in (x, y, mask))
+                for b in range(n_batches):
+                    yield xs[b], ys[b], ms[b]
+
+        def draw_at(t):
+            if step_draws is None:
+                return None
+            return trees.tree_map(lambda d: d[t], step_draws)
+
+        params, loss = _local_steps(tx, grad_fn, global_params,
+                                    global_params, batches(), draw_at,
+                                    n_batches)
+        with torch.no_grad():
+            delta = model.wrap_delta(trees.tree_sub(params, global_params))
+        return delta, torch.sum(mask), loss
+
+    return local_update
+
+
 def make_local_update_clients(model: Model, cfg: FedConfig) -> Callable:
     """Build ``local_update_c(global_params, x, y, mask, generator=None,
-    perms=None)``: x [C, S, ...], y [C, S], mask [C, S] → (delta,
-    n_samples, mean_loss), each with leading client axis C. Exactly one
-    of ``generator``/``perms`` gives the shuffles."""
-    if cfg.optimizer == "spsa" or (
-        cfg.dp is not None and cfg.dp.mode == "example"
-    ):
-        raise NotImplementedError(
-            "SPSA and per-example DP run on the vmap client path, which "
-            "is not ported yet"
-        )
+    perms=None, step_draws=None)``: x [C, S, ...], y [C, S], mask [C, S]
+    → (delta, n_samples, mean_loss), each with leading client axis C.
+    Exactly one of ``generator``/``perms`` gives the shuffles;
+    ``step_draws`` (leaves (C, E·S/B, …)) the random tree of each client's
+    local steps where the route takes one."""
     if model.apply_clients is None:
-        raise NotImplementedError(
-            f"model {model.name} has no apply_clients; the vmap client "
-            "path is not ported yet"
+        raise ValueError(
+            f"model {model.name} has no apply_clients; use "
+            "make_local_update"
         )
     tx = make_optimizer(cfg)
 
     def loss_fn(cparams, global_params, xb, yb, mb):
-        logits = model.apply_clients(cparams, xb)  # (C, Bb, K)
+        logits = forward(model, cparams, xb)  # (C, Bb, K)
         ce = _cross_entropy(logits, yb)
         loss_c = torch.sum(ce * mb, dim=1) / torch.clamp(
             torch.sum(mb, dim=1), min=1.0
@@ -145,64 +396,63 @@ def make_local_update_clients(model: Model, cfg: FedConfig) -> Callable:
             loss_c = loss_c + 0.5 * cfg.prox_mu * prox
         return loss_c
 
+    # SPSA's 2C groups in chunks the kernel takes; the plain gradient
+    # keeps one program of C groups, as the reference's fold does.
+    forward = (apply_groups if cfg.optimizer == "spsa"
+               else lambda m, p, x: m.apply_clients(p, x))
+    grad_fn, needs_draws = _grad_route(model, cfg, loss_fn, folded=True)
+
     def local_update_c(global_params, x, y, mask, generator=None,
-                       perms=None):
+                       perms=None, step_draws=None):
         c, s = x.shape[0], x.shape[1]
-        if s % cfg.batch_size != 0:
-            raise ValueError(
-                f"padded client size {s} not a multiple of batch "
-                f"{cfg.batch_size}"
-            )
-        if (generator is None) == (perms is None):
-            raise ValueError("pass exactly one of generator and perms")
-        if perms is None:
-            perms = draw_perms(generator, c, cfg.local_epochs, s)
-        perms = torch.as_tensor(perms, dtype=torch.int64, device=x.device)
-        if tuple(perms.shape) != (c, cfg.local_epochs, s):
-            raise ValueError(
-                f"perms of shape {tuple(perms.shape)}, expected "
-                f"{(c, cfg.local_epochs, s)}"
-            )
+        _check_steps(cfg, s, needs_draws, step_draws)
+        perms = resolve_perms(cfg, c, s, generator, perms, x.device)
         n_batches = s // cfg.batch_size
         rows = torch.arange(c, device=x.device)[:, None]
+
+        def batches():
+            for e in range(cfg.local_epochs):
+                perm = perms[:, e]
+
+                def shuffle(a):  # (C, S, ...) → (C, nb, Bb, ...)
+                    return a[rows, perm].reshape(
+                        (c, n_batches, cfg.batch_size) + tuple(a.shape[2:]))
+
+                xs, ys, ms = shuffle(x), shuffle(y), shuffle(mask)
+                for b in range(n_batches):
+                    yield xs[:, b], ys[:, b], ms[:, b]
+
+        def draw_at(t):
+            if step_draws is None:
+                return None
+            return trees.tree_map(lambda d: d[:, t], step_draws)
+
         cparams = trees.tree_map(
             lambda p: p[None].expand((c,) + tuple(p.shape)).clone(),
             global_params,
         )
-        opt_state = tx.init(cparams)
-        epoch_losses = []
-        for e in range(cfg.local_epochs):
-            perm = perms[:, e]
-
-            def shuffle(a):  # (C, S, ...) → (C, nb, Bb, ...)
-                g = a[rows, perm]
-                return g.reshape((c, n_batches, cfg.batch_size)
-                                 + tuple(a.shape[2:]))
-
-            xs, ys, ms = shuffle(x), shuffle(y), shuffle(mask)
-            losses = []
-            for b in range(n_batches):
-                leaves = trees.tree_map(
-                    lambda p: p.detach().requires_grad_(True), cparams
-                )
-                with torch.enable_grad():
-                    loss_c = loss_fn(leaves, global_params, xs[:, b],
-                                     ys[:, b], ms[:, b])
-                    flat = trees.tree_leaves(leaves)
-                    grads = torch.autograd.grad(loss_c.sum(), flat)
-                with torch.no_grad():
-                    it = iter(grads)
-                    grads = trees.tree_map(lambda _: next(it), leaves)
-                    updates, opt_state = tx.update(grads, opt_state)
-                    cparams = trees.tree_add(
-                        trees.tree_map(torch.Tensor.detach, leaves), updates
-                    )
-                losses.append(loss_c.detach())
-            epoch_losses.append(torch.stack(losses).mean(dim=0))
+        cparams, loss = _local_steps(tx, grad_fn, cparams, global_params,
+                                     batches(), draw_at, n_batches)
         with torch.no_grad():
             # (C, …) − (…) broadcasts the global leaf over the clients.
             delta = model.wrap_delta(trees.tree_sub(cparams, global_params))
-        return delta, torch.sum(mask, dim=1), torch.stack(
-            epoch_losses).mean(dim=0)
+        return delta, torch.sum(mask, dim=1), loss
 
     return local_update_c
+
+
+def resolve_perms(cfg: FedConfig, clients: int, samples: int,
+                  generator=None, perms=None, device=None) -> torch.Tensor:
+    """The (C, E, S) shuffles: drawn from ``generator`` or given as
+    ``perms`` (exactly one of the two)."""
+    if (generator is None) == (perms is None):
+        raise ValueError("pass exactly one of generator and perms")
+    if perms is None:
+        perms = draw_perms(generator, clients, cfg.local_epochs, samples)
+    perms = torch.as_tensor(perms, dtype=torch.int64, device=device)
+    if tuple(perms.shape) != (clients, cfg.local_epochs, samples):
+        raise ValueError(
+            f"perms of shape {tuple(perms.shape)}, expected "
+            f"{(clients, cfg.local_epochs, samples)}"
+        )
+    return perms

@@ -2,10 +2,10 @@
 
 Counterpart of ``qfedx_tpu/fed/config.py`` (a copy: the port imports
 nothing of the JAX package): the same ``DPConfig``/``FedConfig`` fields,
-defaults and validation, as plain frozen dataclasses. The port's round
-runs the subset a single device without DP, secure aggregation or robust
-rules needs (``fed/round.py``); the other fields are carried so one
-config describes a run on either package.
+defaults and validation, as plain frozen dataclasses. The port's
+one-device round (``fed/round.py``) runs every field but the staleness
+settings, which belong to the streamed trainer (ROADMAP Queue 1 item 9)
+and are carried so one config describes a run on either package.
 """
 
 from __future__ import annotations

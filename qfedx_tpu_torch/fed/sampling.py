@@ -1,10 +1,13 @@
 """Client sampling: cohort → participants.
 
-Counterpart of ``qfedx_tpu/fed/sampling.py``'s ``participation_mask``
-at full participation. Every cohort client trains every round (the
-program shape is static); sampling is a 0/1 mask on the aggregation
-weights. A fraction below 1 needs a Bernoulli draw from the round's key
-stream, which is not ported yet.
+Counterpart of ``qfedx_tpu/fed/sampling.py``'s ``participation_mask``.
+Every cohort client trains every round (the program shape is static);
+sampling is a 0/1 mask on the aggregation weights, a Bernoulli(p) draw
+per client when p < 1. The reference draws it from the round key; the
+port from a CPU ``torch.Generator`` the caller seeds per round
+(``fed/round.RoundDraws``), so the card and the CPU draw the same mask.
+``CohortSampler`` (registry → cohort) serves the streamed trainer and
+waits for it (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -13,11 +16,13 @@ import torch
 
 
 def participation_mask(num_clients: int, fraction: float,
-                       device) -> torch.Tensor:
-    """[num_clients] float 0/1 cohort mask: all ones when fraction ≥ 1."""
+                       generator: torch.Generator | None = None
+                       ) -> torch.Tensor:
+    """[num_clients] float32 0/1 cohort mask on the CPU: all ones when
+    fraction ≥ 1, else Bernoulli(fraction) from ``generator``."""
     if fraction >= 1.0:
-        return torch.ones((num_clients,), dtype=torch.float32, device=device)
-    raise NotImplementedError(
-        f"client_fraction={fraction} < 1 is not ported yet; the port "
-        "samples every client (fraction 1)"
-    )
+        return torch.ones((num_clients,), dtype=torch.float32)
+    if generator is None:
+        raise ValueError(f"client_fraction={fraction} < 1 needs a generator")
+    return (torch.rand((num_clients,), generator=generator)
+            < fraction).float()

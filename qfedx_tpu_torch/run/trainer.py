@@ -20,20 +20,33 @@ through ``on_round_end`` — with the reference's row semantics:
 - the final round is saved synchronously after the async writer has
   drained; a crash drains the writer without masking the exception.
 
-Two things differ from the reference by necessity. The rounds' shuffles
-come from a ``torch.Generator`` seeded from ``(seed, round)``, and with
-secure aggregation the round's mask seed from ``(seed, round, salt)`` —
-stateless in the round index like the reference's ``fold_in``, so a
-resumed run equals an uninterrupted one — because jax.random streams
-cannot be matched. And the pipelined loop overlaps host work with the device only
-as far as the CUDA stream's asynchrony does (results are the same at any
-``pipeline_depth``, as in the reference).
+With DP an ``RDPAccountant`` charges each round — client mode one step
+at q = client_fraction, example mode E·S_pad/B steps at q = B/S_pad —
+and each row carries ``epsilon`` (example mode's first row also the
+``epsilon_accounting`` convention); a resumed run charges the rounds
+its checkpoint covers first. Under ``clip_mean`` and the robust rules
+the rows carry ``aggregator`` and ``clipped_clients`` or
+``trimmed_fraction``.
 
-``params=`` and ``perms_for_round=`` exist for the parity tests only:
-initial parameters in place of ``model.init(seed)``, and a callable from
-the round index to the (C, E, S) shuffles that reference drew. DP
-(ROADMAP Queue 1 item 5), sv-sharded models (item 12) and
-``train_federated_streamed`` (item 9) raise NotImplementedError.
+Two things differ from the reference by necessity. The rounds' shuffles
+come from a ``torch.Generator`` seeded from ``(seed, round)``, the
+round's other draws (participation, DP noise, SPSA's Δ) from
+``fed/round.RoundDraws`` seeded from ``(seed, round, salt[, client])``,
+and with secure aggregation the round's mask seed from ``(seed, round,
+salt)`` — stateless in the round index like the reference's
+``fold_in``, so a resumed run equals an uninterrupted one — because
+jax.random streams cannot be matched. And the pipelined loop overlaps
+host work with the device only as far as the CUDA stream's asynchrony
+does (results are the same at any ``pipeline_depth``, as in the
+reference).
+
+``params=``, ``perms_for_round=`` and ``draws_for_round=`` exist for the
+parity tests only: initial parameters in place of ``model.init(seed)``,
+a callable from the round index to the (C, E, S) shuffles the reference
+drew, and one from the round index to the streams of ``RoundDraws``
+the reference drew (a dict by stream name). Sv-sharded models (ROADMAP
+Queue 1 item 12) and ``train_federated_streamed`` (item 9) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,13 +60,15 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from qfedx_tpu_torch.fed.accountant import RDPAccountant
 from qfedx_tpu_torch.fed.config import FedConfig
 from qfedx_tpu_torch.fed.evaluate import make_evaluator
+from qfedx_tpu_torch.fed.robust import resolve_aggregator
 from qfedx_tpu_torch.fed.round import (
     SA_SEED_SALT,
+    RoundDraws,
     guards_enabled,
     make_fed_round,
-    resolve_aggregator,
 )
 from qfedx_tpu_torch.fed.secure_agg import round_seed
 from qfedx_tpu_torch.models.api import Model
@@ -118,6 +133,7 @@ def train_federated(
     *,
     params=None,
     perms_for_round: Callable[[int], Any] | None = None,
+    draws_for_round: Callable[[int], dict] | None = None,
 ) -> TrainResult:
     """Run federated training on the model's device; returns params +
     metric history.
@@ -187,6 +203,22 @@ def train_federated(
         ey_dev = torch.as_tensor(np.asarray(test_y[:cap], dtype=np.int64),
                                  device=device)
 
+    accountant = RDPAccountant() if cfg.dp is not None else None
+    # Client mode: one mechanism invocation per round at q =
+    # client_fraction. Example mode: one per LOCAL step at q = B/S_pad
+    # (each epoch permutes S_pad slots into S_pad/B batches); client
+    # sampling is not folded into q there — a round's steps share one
+    # participation draw.
+    if accountant is not None and cfg.dp.mode == "example":
+        acct_q = min(1.0, cfg.batch_size / cx.shape[1])
+        acct_steps = cfg.local_epochs * (cx.shape[1] // cfg.batch_size)
+    else:
+        acct_q = cfg.client_fraction
+        acct_steps = 1
+    if accountant is not None and start_round > 0:
+        # The rounds the checkpoint covers spent privacy too.
+        accountant.step(q=acct_q, sigma=cfg.dp.noise_multiplier,
+                        num_steps=start_round * acct_steps)
     # Each participating client uploads Δθ and downloads θ.
     comm_mb = 2 * trees.tree_bytes(params) / 1e6
     result = TrainResult(
@@ -197,7 +229,8 @@ def train_federated(
         result.accuracies.append(evaluate(params, test_x, test_y)["accuracy"])
 
     def run_round(p, r):
-        kw = {}
+        kw = {"draws": RoundDraws(
+            seed, r, None if draws_for_round is None else draws_for_round(r))}
         if cfg.secure_agg:
             kw["sa_seed"] = round_seed(seed, r, SA_SEED_SALT)
         if perms_for_round is not None:
@@ -253,6 +286,18 @@ def train_federated(
                     metrics["clipped_clients"] = int(round(clipped))
                 else:
                     metrics["trimmed_fraction"] = round(trimmed, 4)
+            if accountant is not None:
+                accountant.step(q=acct_q, sigma=cfg.dp.noise_multiplier,
+                                num_steps=acct_steps)
+                eps = accountant.epsilon(cfg.dp.delta)
+                result.epsilons.append(eps)
+                metrics["epsilon"] = eps
+                if r == start_round and cfg.dp.mode == "example":
+                    metrics["epsilon_accounting"] = (
+                        "poisson-rdp at q=B/S_pad on a shuffle sampler "
+                        "(Opacus/TF-privacy convention; not a strict "
+                        "shuffle bound)"
+                    )
             if chunk_accs is not None:
                 acc = float(chunk_accs[i])
                 result.accuracies.append(acc)

@@ -48,7 +48,7 @@ from qfedx_tpu.fed.round import (
 from qfedx_tpu.models.vqc import make_vqc_classifier as ref_make
 from qfedx_tpu.ops import fuse as rfuse
 from qfedx_tpu_torch.fed import client as pclient
-from qfedx_tpu_torch.fed.config import DPConfig, FedConfig
+from qfedx_tpu_torch.fed.config import FedConfig
 from qfedx_tpu_torch.fed.round import make_fed_round
 from qfedx_tpu_torch.models.vqc import make_vqc_classifier, params_from_jax
 from qfedx_tpu_torch.ops import scan_body
@@ -317,18 +317,9 @@ def test_min_participation_makes_the_round_the_identity():
 @pytest.mark.parametrize(
     "kwargs,num_devices,call,match",
     [
-        (dict(dp=DPConfig()), 1, {}, "DP"),
-        (dict(secure_agg=True, client_fraction=0.5), 1, {},
-         "client_fraction"),
-        (dict(aggregator="median"), 1, {}, "median"),
-        (dict(aggregator="clip_mean", clip_bound=1.0), 1, {}, "clip_bound"),
-        (dict(optimizer="spsa"), 1, {}, "vmap"),
         ({}, 2, {}, "one device"),
-        ({}, 1, dict(byzantine=np.ones((C, 2), np.float32)), "byzantine"),
-        (dict(client_fraction=0.5), 1, {}, "client_fraction"),
     ],
-    ids=["dp", "secure-agg", "robust", "clip-bound", "spsa", "devices",
-         "byzantine", "sampling"],
+    ids=["devices"],
 )
 def test_unported_round_options_raise(kwargs, num_devices, call, match):
     model = make_vqc_classifier(N, L, 2, device="cpu")

@@ -445,10 +445,7 @@ def test_cli_train_then_serve(monkeypatch, tmp_path, small_data, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--plots"], ["--profile"], ["--trace"], ["--tuned", "x.json"],
-    ["--dp-clip", "1.0"], ["--secure-agg", "--client-fraction", "0.5"],
-    ["--aggregator", "median"],
     ["--staleness-mode", "poly"], ["--model", "cnn"],
-    ["--optimizer", "spsa"],
     ["--sv-size", "2"], ["--shots", "100"],
 ])
 def test_cli_unported_paths_raise(tmp_path, small_data, extra):
