@@ -165,12 +165,31 @@ Phases (any failure raises and exits non-zero):
    clip_mean with a byzantine input (and one absent client) on the card
    and the CPU (θ within ROUND_ATOL, the ledgers equal, each rule closer
    to the honest round than plain mean, NaN sorted last on the card);
-16. print one JSON line describing each launch of the kernel, f32 and
+16. the other model families, on which no kernel runs in either
+   package (cuDNN convolutions, batched ``torch.linalg.svd`` and
+   elementwise torch instead): ``[cnn]`` holds the TinyCNN at 28×28×1 and
+   32×32×3 card vs CPU (logits, ``apply_train`` under a fixed keep mask,
+   one step's gradients; CNN_ATOL) under the process's TF32 settings,
+   printing them and whether its convolutions rounded to TF32, and times
+   config 3's step; ``[config3]`` trains BASELINE.md config 3
+   (CONFIG3_ARGV: TinyCNN, synthetic CIFAR-10, 32 clients, FedProx) on
+   the card and the CPU (loss and θ within CNN_ATOL, one client at a
+   time, 0 launches, round walls and client-rounds/s) and serves it (64
+   image requests and a malformed line); ``[config5]`` trains BASELINE.md
+   config 5 (CONFIG5_ARGV: the 20-qubit kernel head, 256 clients) on the
+   folded route (QKERNEL_ATOL); ``[mps]`` holds the MPS at n = 8, χ = 16
+   against the dense statevector on the card (MPS_Z_ATOL,
+   MPS_GRAD_ATOL), counts and times the batched SVDs of an n = 24
+   forward and says whether each synchronises the host, and trains
+   MPS_ARGV (n = 24, χ = 16) card vs CPU (MPS_CLI_ATOL, every update
+   finite);
+17. print one JSON line describing each launch of the kernel, f32 and
    bf16 instances (launches on the CLI run, and per path, the dense,
-   reupload, amplitude, config-4 and federation-option paths included;
+   reupload, amplitude, config-4, federation-option and model-family
+   paths included;
    max error; kernel-alone, plain and bound at the CLI run's shape, and
    at the earlier slices', the reupload, SPSA and per-example shapes);
-17. print the final ``{"ok": true, "device": {...}}`` line.
+18. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -3116,6 +3135,438 @@ def phase_config2(root) -> dict:
             "epsilon": eps, "theta_err": theta_err}
 
 
+# --- the other model families: TinyCNN, kernel head, MPS (no kernel) ------
+
+# BASELINE.md config 3: the classical TinyCNN on CIFAR-10, 32 clients,
+# FedProx (the original QFedX's own main path). Synthetic CIFAR-10 here:
+# the checkout carries no CIFAR files.
+CONFIG3_ARGV = ["train", "--model", "cnn", "--dataset", "cifar10",
+                "--clients", "32", "--algorithm", "fedprox", "--prox-mu",
+                "0.01", "--rounds", "2", "--local-epochs", "1",
+                "--pipeline-depth", "0", "--checkpoint-every", "1"]
+# BASELINE.md config 5: the 20-qubit quantum-kernel head, 256 clients.
+CONFIG5_ARGV = ["train", "--model", "qkernel", "--qubits", "20",
+                "--landmarks", "16", "--clients", "256", "--rounds", "2",
+                "--local-epochs", "1", "--pipeline-depth", "0"]
+# The MPS classifier at a width the dense engine cannot hold (2^24
+# amplitudes a sample).
+MPS_ARGV = ["train", "--model", "mps", "--qubits", "24", "--layers", "2",
+            "--bond-dim", "16", "--classes", "0,1", "--clients", "4",
+            "--rounds", "2", "--local-epochs", "1", "--pipeline-depth", "0"]
+# TinyCNN card vs CPU: logits, and one step's gradients by relative norm.
+# f32 convolutions either side (TF32 off inside the module); cuDNN's
+# backward may sum in another order from run to run (~1e-7 relative).
+CNN_ATOL = 1e-4
+QKERNEL_ATOL = 1e-5  # the closed form's logits, loss and θ, card vs CPU
+# MPS at χ = 2^{n/2} against the dense statevector: the reference's own
+# bounds (tests/test_mps.py: ⟨Z⟩ 1e-4, ∂/∂θ 2e-3).
+MPS_Z_ATOL = 1e-4
+MPS_GRAD_ATOL = 2e-3
+# The n = 24 MPS run, loss and θ card vs CPU. The splits zero their null
+# space (ops/mps.py), so the SVD routine's basis choice does not enter;
+# what stays route-dependent is the kept subspace where two singular
+# values at the χ cutoff are within rounding of each other, and SGD over
+# 2 rounds of 6 steps carries the f32 differences of 46 SVDs a forward.
+# [cli-train]'s bound.
+MPS_CLI_ATOL = 1e-4
+
+
+# The TF32 settings a user's process starts with, read before ``main``
+# turns TF32 off for the kernel phases.
+PROCESS_TF32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
+
+@contextlib.contextmanager
+def process_tf32():
+    """``PROCESS_TF32`` for the block, the smoke's settings restored
+    after."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = PROCESS_TF32
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _flat(params) -> list:
+    from qfedx_tpu_torch.utils import trees
+
+    return [v.detach().cpu() for v in trees.tree_leaves(params)]
+
+
+def _grads(model, params, x, y, keep=None) -> list:
+    """∂ mean-CE / ∂θ of one batch (through ``apply_train`` with
+    ``keep``)."""
+    from qfedx_tpu_torch.fed.client import _cross_entropy
+    from qfedx_tpu_torch.utils import trees
+
+    leaves = trees.tree_map(lambda p: p.detach().requires_grad_(True),
+                            params)
+    logits = (model.apply(leaves, x) if keep is None
+              else model.apply_train(leaves, x, keep))
+    loss = _cross_entropy(logits, y).mean()
+    return [g.cpu() for g in torch.autograd.grad(
+        loss, trees.tree_leaves(leaves))]
+
+
+def phase_cnn(device) -> dict:
+    """``[cnn]``: the TinyCNN at 28×28×1 (3 classes) and 32×32×3 (10) on
+    64 images, card vs CPU on the same weights: logits and the
+    ``apply_train`` logits under one fixed keep mask within CNN_ATOL, one
+    step's gradients (with that mask) within CNN_ATOL by relative norm.
+    Under the process's TF32 settings: prints them, and the error of the
+    module's convolution (``_Conv5x5``) at Conv_1's shape beside a plain
+    cuDNN convolution's with TF32 on and off, against an f64 CPU
+    convolution; where TF32 shows in the plain one, the module's must
+    stay at the f32 level. Times one forward and one local step at
+    config 3's shape (B = 32, 32×32×3) with CUDA events."""
+    import torch.nn.functional as F
+
+    from qfedx_tpu_torch.models.cnn import _Conv5x5, make_tiny_cnn
+    from qfedx_tpu_torch.utils import trees
+
+    out = {}
+    with process_tf32():
+        print(f"[cnn] process TF32 settings: cudnn.allow_tf32="
+              f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32="
+              f"{torch.backends.cuda.matmul.allow_tf32} (the module runs "
+              "its convolutions with cudnn TF32 off)")
+        for (h, w, c, k) in ((28, 28, 1, 3), (32, 32, 3, 10)):
+            card = make_tiny_cnn(k, h, w, c, device=device)
+            cpu = make_tiny_cnn(k, h, w, c, device="cpu")
+            params = cpu.init(7)
+            dparams = trees.tree_map(lambda v: v.to(device), params)
+            g = torch.Generator().manual_seed(h + c)
+            x = torch.rand((64, h, w, c), generator=g)
+            if c == 1:
+                x = x[..., 0]
+            y = torch.randint(0, k, (64,), generator=g)
+            keep = torch.rand((64, 64), generator=g) < 0.5
+            errs = {
+                "logits": _max_err([card.apply(dparams, x.to(device)).cpu()],
+                                   [cpu.apply(params, x)]),
+                "apply_train": _max_err(
+                    [card.apply_train(dparams, x.to(device),
+                                     keep.to(device)).cpu()],
+                    [cpu.apply_train(params, x, keep)]),
+                "grad_rel": _rel_err(
+                    _grads(card, dparams, x.to(device), y.to(device),
+                           keep.to(device)),
+                    _grads(cpu, params, x, y, keep)),
+            }
+            # Conv_1's input shape (16 channels at H/2 × W/2), TF32 on/off.
+            xin = torch.rand((64, 16, h // 2, w // 2), generator=g)
+            wk = params["Conv_1"]["kernel"].permute(3, 2, 0, 1)
+            want = F.conv2d(xin.double(), wk.double(), padding=2)
+            conv = {}
+            for tf32 in (True, False):
+                torch.backends.cudnn.allow_tf32 = tf32
+                got = F.conv2d(xin.to(device), wk.to(device), padding=2)
+                conv[tf32] = float((got.double().cpu() - want).abs().max())
+            torch.backends.cudnn.allow_tf32 = PROCESS_TF32[0]
+            got = _Conv5x5.apply(xin.to(device), wk.to(device),
+                                 torch.zeros(wk.shape[0], device=device))
+            conv["module"] = float((got.double().cpu() - want).abs().max())
+            tf32_shows = conv[True] > 4 * conv[False]
+            print(f"[cnn] {h}x{w}x{c}, {k} classes, B=64: logits max|card-"
+                  f"cpu| {errs['logits']:.3e}, apply_train (fixed keep "
+                  f"mask) {errs['apply_train']:.3e}, one step's gradients "
+                  f"relative norm {errs['grad_rel']:.3e} (atol {CNN_ATOL:g});"
+                  f" Conv_1's convolution vs f64: the module's "
+                  f"{conv['module']:.3e}, plain cuDNN with TF32 on "
+                  f"{conv[True]:.3e}, off {conv[False]:.3e} ("
+                  + ("TF32 shows; the module's is at the f32 level"
+                     if tf32_shows else "cuDNN's algorithm for this shape "
+                     "does not round to TF32 either way") + ")")
+            for what, err in errs.items():
+                _require(err, CNN_ATOL, f"cnn {h}x{w}x{c} {what}")
+            if tf32_shows and conv["module"] > 4 * conv[False]:
+                raise AssertionError(f"cnn {h}x{w}x{c}: the module's "
+                                     f"convolution ran in TF32 ({conv})")
+            out[f"{h}x{w}x{c}"] = errs
+        card = make_tiny_cnn(3, 32, 32, 3, device=device)
+        dparams = card.init(0)
+        x = torch.rand((32, 32, 32, 3), device=device)
+        y = torch.randint(0, 3, (32,), device=device)
+        keep = torch.rand((32, 64), device=device) < 0.5
+        fwd = event_ms(lambda: card.apply(dparams, x), iters=50)
+        step = event_ms(lambda: _grads(card, dparams, x, y, keep), iters=20)
+        print(f"[time] cnn B=32 32x32x3 (config 3's step): forward "
+              f"{fwd:.5f} ms, forward+backward {step:.5f} ms (CUDA events; "
+              "cuDNN convolutions and torch elementwise, no hand kernel)")
+    out["forward_ms"], out["step_ms"] = fwd, step
+    out["logit_err"] = max(v["logits"] for k, v in out.items()
+                           if isinstance(v, dict))
+    return out
+
+
+def _run_theta(run_dir, rnd: int) -> list:
+    """θ of a run's checkpoint ``rnd`` as CPU tensors, the model built
+    from the run's own config.json."""
+    from qfedx_tpu_torch.run.checkpoint import Checkpointer
+    from qfedx_tpu_torch.run.config import (
+        build_model,
+        experiment_config_from_dict,
+    )
+    from qfedx_tpu_torch.serve.engine import infer_num_classes
+
+    cfg = experiment_config_from_dict(
+        json.loads((run_dir / "config.json").read_text()))
+    model = build_model(cfg, infer_num_classes(cfg), device="cpu")
+    return _flat(Checkpointer(run_dir / "checkpoints").restore(
+        rnd, model.init(0)))
+
+
+def family_cli_train(root, argv, name: str, tag: str, atol: float,
+                     expect_folded: bool) -> dict:
+    """A CLI run of a non-VQC family on the card, then on the CPU: no
+    scan-body launch and no build, loss per round and the final θ card
+    vs CPU within ``atol``, no quarantined update, every θ finite; the
+    local-update route (folded or one client at a time) as
+    ``expect_folded`` says; the synchronous round walls and
+    client-rounds/s (host clock)."""
+    from qfedx_tpu_torch.fed import round as fround
+    from qfedx_tpu_torch.ops import scan_body
+
+    routes = []
+    folded_fn, client_fn = (fround.make_local_update_clients,
+                            fround.make_local_update)
+
+    def spy(route, fn):
+        def build(*a, **k):
+            routes.append(route)
+            return fn(*a, **k)
+        return build
+
+    shapes = expected_shapes(argv)
+    builds = scan_body.build_count
+    fround.make_local_update_clients = spy("folded", folded_fn)
+    fround.make_local_update = spy("one client at a time", client_fn)
+    try:
+        t0 = time.perf_counter()
+        summary, launches, rounds, _ = cli_train(
+            argv + ["--run-root", str(root), "--name", name], None)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_summary, _, _, _ = cli_train(
+            argv + ["--run-root", str(root / "cpu"), "--name", name], "cpu")
+        cpu_wall = time.perf_counter() - t0
+    finally:
+        fround.make_local_update_clients = folded_fn
+        fround.make_local_update = client_fn
+    run, cpu_run = root / name, root / "cpu" / name
+    rows, cpu_rows = _rows(run), _rows(cpu_run)
+    clients = shapes["clients"]
+    print(f"[{tag}] {' '.join(argv)}: {clients} clients x S_pad="
+          f"{shapes['s_pad']}, {shapes['steps']} local steps per round, "
+          f"route {sorted(set(routes))}; card {wall:.2f} s, cpu "
+          f"{cpu_wall:.2f} s (host clock, in-process, data build included)")
+    want_route = "folded" if expect_folded else "one client at a time"
+    if set(routes) != {want_route}:
+        raise AssertionError(f"{tag} trained {routes}, not {want_route}")
+    for row, cpu in zip(rows, cpu_rows):
+        loss_err = abs(row["loss"] - cpu["loss"])
+        print(f"[{tag}] round {row['round']}: loss card {row['loss']!r} cpu "
+              f"{cpu['loss']!r} |err|={loss_err:.3e} (atol {atol:g}), "
+              f"accuracy card {row['accuracy']!r} cpu {cpu['accuracy']!r}, "
+              f"rejected {row['rejected_updates']}, time_s "
+              f"{row['time_s']!r} (cpu {cpu['time_s']!r}; a chunk of "
+              f"{row['chunk_rounds']} round(s) shares its wall)")
+        _require(loss_err, atol, f"{tag} round {row['round']} loss")
+        if row["rejected_updates"] or cpu["rejected_updates"]:
+            raise AssertionError(f"{tag}: a non-finite update was "
+                                 "quarantined")
+    theta = _run_theta(run, len(rows))
+    theta_err = _max_err(theta, _run_theta(cpu_run, len(rows)))
+    if not all(bool(torch.isfinite(t).all()) for t in theta):
+        raise AssertionError(f"{tag}: non-finite θ")
+    times = [r["time_s"] for r in rows]
+    rate = clients * len(times) / sum(times)
+    print(f"[{tag}] final theta max|card-cpu| {theta_err:.3e} (atol "
+          f"{atol:g}); launches {launches}, kernel builds "
+          f"{scan_body.build_count - builds}; round walls (synchronous, host "
+          f"clock) {times} s, {rate:.4f} client-rounds/s; final accuracy "
+          f"card {summary['final_accuracy']!r} cpu "
+          f"{cpu_summary['final_accuracy']!r}")
+    _require(theta_err, atol, f"{tag} final theta")
+    if launches != NO_LAUNCH or any(c != NO_LAUNCH for c, _ in rounds) or \
+            scan_body.build_count != builds:
+        raise AssertionError(f"{tag} launched {launches} or built")
+    return {"run": run, "launches": launches, "theta_err": theta_err,
+            "rate": rate, "times": times, "summary": summary,
+            "shapes": shapes}
+
+
+def phase_config3(root) -> dict:
+    """``[config3]``: BASELINE.md config 3 (CONFIG3_ARGV) through the CLI
+    under the process's TF32 settings, card vs CPU (loss and θ within
+    CNN_ATOL under SGD, 0 launches, one client at a time: dropout), then
+    ``serve --run-dir`` of it: 64 image requests and one malformed line,
+    logits card vs CPU within CNN_ATOL."""
+    from qfedx_tpu_torch.models.cnn import make_tiny_cnn
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run import cli
+    from qfedx_tpu_torch.run.checkpoint import Checkpointer
+
+    print("[config3] no --raw-folder and no CIFAR-10 files in the "
+          "checkout: build_data takes its synthetic CIFAR-10 (32x32x3, the "
+          "real set's shapes; real CIFAR-10 waits until its files are in "
+          "the repository)")
+    with process_tf32():
+        run = family_cli_train(root, CONFIG3_ARGV, "config3", "config3",
+                               CNN_ATOL, expect_folded=False)
+        x = np.random.default_rng(23).uniform(0, 1, (N_SERVE_REQUESTS, 32,
+                                                     32, 3))
+        x = x.astype(np.float32)
+        lines = [json.dumps({"id": i, "features": v.tolist()})
+                 for i, v in enumerate(x)]
+        lines.insert(10, "{malformed")
+        (root / "images.jsonl").write_text("\n".join(lines) + "\n")
+        out = root / "image-responses.jsonl"
+        scan_body.reset_counts()
+        summary = cli.main(["serve", "--run-dir", str(run["run"]),
+                            "--input", str(root / "images.jsonl"),
+                            "--output", str(out)])
+        launches = dict(scan_body.launch_counts)
+    resp = [json.loads(line) for line in out.read_text().splitlines()]
+    bad = [r for r in resp if "error" in r]
+    if len(resp) != N_SERVE_REQUESTS + 1 or len(bad) != 1 or \
+            bad[0]["code"] != 400:
+        raise AssertionError(f"config3 serve answered {len(resp)} lines, "
+                             f"errors {bad}")
+    model = make_tiny_cnn(3, 32, 32, 3, device="cpu")
+    params, _ = Checkpointer(run["run"] / "checkpoints").restore_latest(
+        model.init(0))
+    with torch.no_grad():
+        want = model.apply(params, x).numpy()
+    got = np.array([r["logits"] for r in resp if "logits" in r])
+    err = float(np.abs(got - want).max())
+    print(f"[config3] serve --run-dir: {summary['served']} image requests "
+          f"served, {summary['responses']} responses, batches "
+          f"{summary['batches']}, latency p50={summary['p50_ms']} ms p95="
+          f"{summary['p95_ms']} ms; logits max|card-cpu|={err:.3e} (atol "
+          f"{CNN_ATOL:g}); launches {launches}")
+    _require(err, CNN_ATOL, "config3 served logits vs cpu")
+    if launches != NO_LAUNCH:
+        raise AssertionError(f"config3 serve launched {launches}")
+    return {**run, "serve_launches": launches, "serve_err": err}
+
+
+def phase_config5(root) -> dict:
+    """``[config5]``: BASELINE.md config 5 (CONFIG5_ARGV) through the CLI,
+    card vs CPU: the folded route (one program of 256 clients), loss and
+    θ within QKERNEL_ATOL, 0 launches; round walls and client-rounds/s."""
+    return family_cli_train(root, CONFIG5_ARGV, "config5", "config5",
+                            QKERNEL_ATOL, expect_folded=True)
+
+
+def phase_mps(root, device) -> dict:
+    """``[mps]``: the MPS classifier.
+
+    - library, exact bond dimension (n = 8, χ = 16, L = 2, 64 samples):
+      ⟨Z⟩ and one loss's ∂/∂θ against the port's dense RY + CNOT-line
+      statevector on the card (MPS_Z_ATOL, MPS_GRAD_ATOL);
+    - the batched SVD at n = 24, χ = 16, B = 32: calls per forward
+      (L·(n−1)), one call's time (CUDA events), whether a call
+      synchronises the host (``torch.cuda.set_sync_debug_mode``), and its
+      share of one local step's forward+backward;
+    - MPS_ARGV through the CLI, card vs CPU within MPS_CLI_ATOL, every
+      update finite (no quarantined client), 0 launches, one client at a
+      time."""
+    import warnings
+
+    from qfedx_tpu_torch.circuits.encoders import angle_encode
+    from qfedx_tpu_torch.models.vqc_mps import _ry_mats, make_mps_classifier
+    from qfedx_tpu_torch.ops import gates, linalg, mps
+    from qfedx_tpu_torch.ops import statevector as sv
+
+    n, layers, chi = 8, 2, 16
+    g = torch.Generator().manual_seed(8)
+    ry = (0.8 * torch.randn((layers, n), generator=g)).to(device)
+    x = torch.rand((64, n), generator=g).to(device)
+    w = torch.randn(n, generator=g).to(device)
+
+    def mps_z(theta):
+        sites = mps.product_mps(_ry_mats(x * math.pi)[..., 0], chi)
+        for layer in range(layers):
+            sites = mps.apply_1q_all(sites, _ry_mats(theta[layer]))
+            sites = mps.apply_cnot_chain(sites)
+        return mps.expect_z_all(sites)
+
+    def dense_z(theta):
+        state = angle_encode(x)
+        for layer in range(layers):
+            for q in range(n):
+                state = sv.apply_gate(state, gates.ry(theta[layer, q]), q, n)
+            for q in range(n - 1):
+                state = sv.apply_gate_2q(state, gates.CNOT, q, q + 1, n)
+        return sv.expect_z_all(state, n)
+
+    def z_and_grad(fn):
+        theta = ry.clone().requires_grad_(True)
+        z = fn(theta)
+        loss = torch.sum(z * w) / z.shape[0]
+        return z.detach(), torch.autograd.grad(loss, theta)[0]
+
+    (zm, gm), (zd, gd) = z_and_grad(mps_z), z_and_grad(dense_z)
+    z_err, g_err = float((zm - zd).abs().max()), float((gm - gd).abs().max())
+    print(f"[mps] library n={n} chi={chi} L={layers}, 64 samples, on the "
+          f"card: <Z> max|mps-dense| {z_err:.3e} (atol {MPS_Z_ATOL:g}), "
+          f"d(mean w.<Z>)/dtheta max|mps-dense| {g_err:.3e} (atol "
+          f"{MPS_GRAD_ATOL:g}; max|grad| {float(gd.abs().max()):.3f})")
+    _require(z_err, MPS_Z_ATOL, "mps <Z> vs dense")
+    _require(g_err, MPS_GRAD_ATOL, "mps gradient vs dense")
+
+    n, layers, bsz = 24, 2, 32
+    model = make_mps_classifier(n, layers, 2, chi, device=device)
+    params = model.init(0)
+    xb = torch.rand((bsz, n), generator=g).to(device)
+    yb = torch.randint(0, 2, (bsz,), generator=g).to(device)
+    calls = []
+    stock = linalg.truncated_svd
+
+    def counted(m, k, eps=1e-10):
+        calls.append(tuple(m.shape))
+        return stock(m, k, eps)
+
+    mps.truncated_svd = counted
+    try:
+        model.apply(params, xb)
+    finally:
+        mps.truncated_svd = stock
+    m = torch.rand((bsz, 2 * chi, 2 * chi), generator=g).to(device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            torch.linalg.svd(m, full_matrices=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    n_sync = sum("synchronizing" in str(s.message) for s in syncs)
+    svd_ms = event_ms(lambda: torch.linalg.svd(m, full_matrices=False),
+                      iters=50)
+    step_ms = event_ms(lambda: _grads(model, params, xb, yb), iters=10)
+    share = len(calls) * svd_ms / step_ms
+    print(f"[mps] n={n} chi={chi} L={layers} B={bsz}: {len(calls)} batched "
+          f"SVD calls per forward (L*(n-1) = {layers * (n - 1)}) of "
+          f"{calls[0]}; one call {svd_ms:.5f} ms (CUDA events); each call "
+          f"synchronises the host: {'yes' if n_sync else 'no'} ({n_sync} "
+          f"sync points flagged by torch's sync debug mode: cuSOLVER's info "
+          f"check); one local step forward+backward {step_ms:.5f} ms, the "
+          f"forward's SVDs {share:.1%} of it")
+    if len(calls) != layers * (n - 1):
+        raise AssertionError(f"{len(calls)} SVD calls per forward")
+    run = family_cli_train(root, MPS_ARGV, "mps-cli", "mps", MPS_CLI_ATOL,
+                           expect_folded=False)
+    return {**run, "z_err": z_err, "grad_err": g_err, "svd_ms": svd_ms,
+            "step_ms": step_ms, "svd_calls": len(calls), "syncs": n_sync}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -3191,6 +3642,10 @@ def main() -> int:
         spsa = phase_spsa(root, device)
         dp_example = phase_dp_example(root, device)
         config2 = phase_config2(root)
+        cnn = phase_cnn(device)
+        config3 = phase_config3(root)
+        config5 = phase_config5(root)
+        mps_run = phase_mps(root, device)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     dense_route = phase_dense_route(device)
@@ -3220,6 +3675,10 @@ def main() -> int:
         "spsa": spsa["launches"],
         "dp-example": dp_example["launches"],
         "config2 (n=8)": config2["launches"],
+        "config3 (cnn)": config3["launches"],
+        "config3 serve": config3["serve_launches"],
+        "config5 (qkernel, n=20)": config5["launches"],
+        "mps (n=24)": mps_run["launches"],
     }
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -3363,6 +3822,17 @@ def main() -> int:
           f"{dp_example['launches']}; config 2 theta "
           f"{config2['theta_err']:.3e}, final_epsilon "
           f"{config2['epsilon']!r}, {config2['rate']:.4f} client-rounds/s")
+    print(f"[summary] model families (no kernel on their paths): cnn logits "
+          f"max|card-cpu| {cnn['logit_err']:.3e}; "
+          f"config 3 theta {config3['theta_err']:.3e}, "
+          f"{config3['rate']:.4f} client-rounds/s, served logits "
+          f"{config3['serve_err']:.3e}; config 5 theta "
+          f"{config5['theta_err']:.3e}, {config5['rate']:.4f} "
+          f"client-rounds/s; mps <Z> vs dense {mps_run['z_err']:.3e}, "
+          f"gradient {mps_run['grad_err']:.3e}, n=24 theta "
+          f"{mps_run['theta_err']:.3e}, {mps_run['rate']:.4f} "
+          f"client-rounds/s, {mps_run['svd_calls']} SVD calls per forward "
+          f"at {mps_run['svd_ms']:.5f} ms")
     print(card_line())
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

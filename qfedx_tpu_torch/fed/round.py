@@ -3,7 +3,8 @@
 Counterpart of ``qfedx_tpu/fed/round.py``'s ``make_fed_round`` with one
 client block and no mesh. The cohort's C clients train FOLDED into one
 engine batch (``fed/client.make_local_update_clients``; with
-``QFEDX_FOLD_CLIENTS=0`` or a model without ``apply_clients``, one
+``QFEDX_FOLD_CLIENTS=0``, a model without ``apply_clients`` (the MPS
+classifier) or one with ``apply_train`` (the TinyCNN's dropout), one
 client at a time, ``make_local_update``). Then each client's update is
 post-processed in the reference's order:
 
@@ -27,10 +28,10 @@ times their count, so ``_finalize_partial`` applies θ_new = θ + Σ wΔ /
 Σ w either way (with the ``min_participation`` identity).
 
 The random draws beyond the shuffles and masks (participation below
-fraction 1, DP noise, SPSA's Δ, the byzantine noise) come from
-``RoundDraws``. A robust rule with secure aggregation raises ValueError,
-as in the reference. More than one device (the mesh, waves and partial
-rounds) is not ported yet.
+fraction 1, DP noise, SPSA's Δ, the byzantine noise, the dropout keep
+masks) come from ``RoundDraws``. A robust rule with secure aggregation
+raises ValueError, as in the reference. More than one device (the mesh,
+waves and partial rounds) is not ported yet.
 """
 
 from __future__ import annotations
@@ -69,6 +70,9 @@ PARTICIPATION_SEED_SALT = 0x5A3D
 BYZ_SEED_SALT = 0xBAD
 SPSA_SEED_SALT = 0x59A
 EXAMPLE_SEED_SALT = 0xDE5
+# The reference has no dropout salt (its keys come from the client's
+# train key, split per epoch and per step); this one is the port's own.
+DROPOUT_SEED_SALT = 0xD20
 
 
 class RoundDraws:
@@ -87,11 +91,14 @@ class RoundDraws:
     - ``example_noise``: per-example DP's N(0, I) per local step, leaves
       (C, E·S/B, *leaf);
     - ``spsa_delta``: SPSA's Rademacher Δ per local step, leaves
-      (C, E·S/B, *leaf).
+      (C, E·S/B, *leaf);
+    - ``dropout_keep``: the keep masks of a model with ``apply_train``,
+      (C, E·S/B, B, *keep_mask.shape) bools, each True with probability
+      ``keep_mask.prob`` (salt ``DROPOUT_SEED_SALT``).
     """
 
     STREAMS = ("participation", "dp_noise", "byzantine_noise",
-               "example_noise", "spsa_delta")
+               "example_noise", "spsa_delta", "dropout_keep")
 
     def __init__(self, seed: int, round_idx: int, given: dict | None = None):
         unknown = set(given or {}) - set(self.STREAMS)
@@ -112,6 +119,19 @@ class RoundDraws:
         return participation_mask(
             num_clients, fraction,
             self._generator(PARTICIPATION_SEED_SALT)).numpy()
+
+    def keep_masks(self, spec, clients: int, steps: int, batch: int,
+                   device) -> torch.Tensor:
+        """``dropout_keep`` for ``spec`` (a ``models.api.KeepMask``) on
+        ``device``: client c's (steps, batch, *spec.shape) uniforms from
+        its own generator, kept below ``spec.prob``."""
+        if "dropout_keep" in self.given:
+            return torch.as_tensor(np.asarray(self.given["dropout_keep"],
+                                              bool), device=device)
+        shape = (steps, batch) + tuple(spec.shape)
+        return torch.stack([
+            torch.rand(shape, generator=self._generator(DROPOUT_SEED_SALT, c))
+            < spec.prob for c in range(clients)]).to(device)
 
     def tree(self, name: str, like, clients: int, steps: int | None = None):
         """Stream ``name`` as a tree shaped like ``like`` with (C[, steps])
@@ -174,9 +194,12 @@ def guards_enabled() -> bool:
 
 def fold_clients_enabled(model: Model, cfg: FedConfig) -> bool:
     """Fold the client axis into the engine batch? Eligible when the
-    model has ``apply_clients`` and no stochastic ``apply_train``; SPSA
-    and per-example DP fold too (their random trees come from outside,
-    unlike the reference's, which keeps them on its vmap path).
+    model has ``apply_clients`` and no stochastic ``apply_train``, so the
+    TinyCNN (dropout) and the MPS classifier (no ``apply_clients``)
+    train one client at a time, as in the reference, and the VQC and
+    the kernel head fold; SPSA and per-example DP fold too (their random
+    trees come from outside, unlike the reference's, which keeps them on
+    its vmap path).
     ``QFEDX_FOLD_CLIENTS`` pins the choice for eligible models."""
     eligible = model.apply_clients is not None and model.apply_train is None
     pinned = pins.bool_pin("QFEDX_FOLD_CLIENTS", True)
@@ -238,7 +261,8 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
     multiplier, noise σ), honest clients (1, 0). ``sa_seed``: the round's
     secure-agg seed, required with ``cfg.secure_agg``. ``draws``: the
     round's ``RoundDraws``, required when the config samples below
-    fraction 1, runs DP or SPSA, or an attacker's σ > 0."""
+    fraction 1, runs DP or SPSA, an attacker's σ > 0, or the model trains
+    through ``apply_train``."""
     if num_devices != 1:
         raise NotImplementedError(
             "the port's round runs on one device; the multi-device mesh is "
@@ -262,8 +286,10 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
     folded = fold_clients_enabled(model, cfg)
     local_update = (make_local_update_clients if folded
                     else make_local_update)(model, cfg)
+    keep_spec = model.keep_mask
 
-    def train_clients(params, cx, cy, cmask, generator, perms, step_draws):
+    def train_clients(params, cx, cy, cmask, generator, perms, step_draws,
+                      keep):
         if folded:
             return local_update(params, cx, cy, cmask, generator=generator,
                                 perms=perms, step_draws=step_draws)
@@ -272,7 +298,8 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
         outs = [local_update(
             params, cx[c], cy[c], cmask[c], perms[c],
             None if step_draws is None
-            else trees.tree_map(lambda d: d[c], step_draws))
+            else trees.tree_map(lambda d: d[c], step_draws),
+            None if keep is None else keep[c])
             for c in range(num_clients)]
         deltas = trees.tree_map(lambda *d: torch.stack(d),
                                 *(o[0] for o in outs))
@@ -301,12 +328,13 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
                     f"shape {tuple(byzantine.shape)}"
                 )
         needs_draws = (cfg.client_fraction < 1.0 or dp is not None
-                       or step_stream is not None
+                       or step_stream is not None or keep_spec is not None
                        or (byzantine is not None
                            and bool((byzantine[:, 1] > 0).any())))
         if needs_draws and draws is None:
             raise ValueError("this round needs its RoundDraws (sampling "
-                             "below 1, DP, SPSA or a byzantine sigma)")
+                             "below 1, DP, SPSA, a byzantine sigma or "
+                             "dropout)")
         device = trees.tree_leaves(params)[0].device
         # Participation is decided on the host (a CPU draw), so the
         # secure-agg pair graph needs no device read.
@@ -317,12 +345,15 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
             torch.as_tensor(survivors).cpu(), dtype=np.float32)
         part = torch.as_tensor(part_h, device=device)
         eff = torch.as_tensor(eff_h, device=device)
-        step_draws = None
+        steps = cfg.local_epochs * (cx.shape[1] // cfg.batch_size)
+        step_draws = keep = None
         if step_stream is not None:
-            steps = cfg.local_epochs * (cx.shape[1] // cfg.batch_size)
             step_draws = draws.tree(step_stream, params, num_clients, steps)
+        if keep_spec is not None:
+            keep = draws.keep_masks(keep_spec, num_clients, steps,
+                                    cfg.batch_size, device)
         deltas, ns, losses = train_clients(params, cx, cy, cmask, generator,
-                                           perms, step_draws)
+                                           perms, step_draws, keep)
         with torch.no_grad():
             if byzantine is not None:
                 # The adversary tampers after local training and before

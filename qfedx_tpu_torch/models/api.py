@@ -8,9 +8,23 @@ reference's pytree.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from qfedx_tpu_torch.utils import pins, trees
 
 Params = Any
+
+
+class KeepMask(NamedTuple):
+    """The keep mask ``apply_train`` takes each local step: every sample's
+    mask has ``shape`` and each entry is kept with probability ``prob``
+    (the TinyCNN's dropout: (64,), 0.5)."""
+
+    prob: float
+    shape: tuple[int, ...]
 
 
 def _identity(delta: Params) -> Params:
@@ -24,7 +38,11 @@ class Model:
     - ``wrap_delta(delta) -> delta`` — post-process a parameter update
       before aggregation (VQC angle deltas wrap to [−π, π)).
     - ``apply_train`` — optional stochastic training forward
-      ``(params, x, generator) -> logits``; None uses ``apply``.
+      ``(params, x, keep) -> logits`` with ``keep`` a (B, *shape) bool
+      mask drawn as ``keep_mask`` says; None uses ``apply``. The
+      reference passes a PRNG key instead; the port's masks come from
+      ``fed/round.RoundDraws`` (or the parity tests), so the card and
+      the CPU draw the same.
     - ``apply_clients`` — optional client-folded forward
       ``(cparams, x) -> logits``: every params leaf carries a leading
       client axis C and x is [C, B, ...] → [C, B, K]. The federated round
@@ -38,5 +56,18 @@ class Model:
     wrap_delta: Callable[[Params], Params] = field(default=_identity)
     name: str = "model"
     apply_train: Callable[..., Any] | None = None
+    keep_mask: KeepMask | None = None
     apply_clients: Callable[[Params, Any], Any] | None = None
     engine: Callable[[], str] | None = None
+
+
+def params_from_jax(tree, device=None) -> dict:
+    """A reference parameter pytree (a dict of numpy or array-like
+    leaves, nested or flat) → the port's dict of f32 tensors on
+    ``device`` (None = the card). Every family keeps the reference's keys
+    and leaf layouts, so shapes carry over as they are: a client-stacked
+    tree converts the same way."""
+    dev = pins.resolve_device(device)
+    return trees.tree_map(
+        lambda v: torch.as_tensor(np.array(v, dtype=np.float32), device=dev),
+        dict(tree))

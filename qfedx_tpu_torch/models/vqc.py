@@ -29,16 +29,15 @@ The reupload circuit scans its L − 1 [bank + layer] blocks (layer 0
 encodes |0…0⟩ alone), so its scan route engages one layer shallower
 (``_scan_on``). Not ported yet: noise (so ``apply_train`` is None).
 
-``params_from_jax`` carries the reference's parameter pytree across
-(``enc_w``/``enc_b`` too), shared (L, n) or client-stacked (C, L, n)
-alike.
+``params_from_jax`` (``models/api.py``) carries the reference's
+parameter pytree across (``enc_w``/``enc_b`` too), shared (L, n) or
+client-stacked (C, L, n) alike.
 """
 
 from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from qfedx_tpu_torch.circuits.ansatz import (
@@ -55,7 +54,10 @@ from qfedx_tpu_torch.circuits.encoders import (
     angle_encode,
 )
 from qfedx_tpu_torch.circuits.readout import init_readout_params, z_logits
-from qfedx_tpu_torch.models.api import Model
+from qfedx_tpu_torch.models.api import (  # noqa: F401 — re-exported
+    Model,
+    params_from_jax,
+)
 from qfedx_tpu_torch.ops import fuse
 from qfedx_tpu_torch.ops.cpx import state_dtype
 from qfedx_tpu_torch.ops.batched import (
@@ -210,20 +212,3 @@ def make_vqc_classifier(
         name=f"vqc{n_qubits}q{n_layers}l-{encoding}",
         engine=engine,
     )
-
-
-def params_from_jax(tree, device=None) -> dict:
-    """The reference's parameter pytree ``{"ansatz": {"rx": (L,n), "rz":
-    (L,n)[, "enc_w": (L,n), "enc_b": (L,n)]}, "readout": {"scale": (k,),
-    "bias": (k,)}}`` (numpy or
-    array-likes) → the port's dict of f32 tensors on ``device``. Leaf
-    shapes carry over as they are, so a client-stacked tree ((C, L, n)
-    angles, (C, k) readout) converts the same way."""
-    dev = pins.resolve_device(device)
-    return {
-        group: {
-            key: torch.as_tensor(np.array(val, dtype=np.float32), device=dev)
-            for key, val in leaves.items()
-        }
-        for group, leaves in tree.items()
-    }

@@ -9,17 +9,19 @@ prints the summary; ``serve --run-dir`` restores a run's checkpoint and
 answers a JSONL request stream. ``main(argv, device=None)`` runs on the
 card unless a caller passes ``device="cpu"`` (the tests do).
 
-Every ``--encoding`` (angle, amplitude, reupload), every federation
-option of the resident round — ``--secure-agg[-mode|-neighbors]``,
+Every ``--model`` (vqc, cnn, qkernel, mps, with ``--bond-dim`` and
+``--landmarks``), every ``--encoding`` (angle, amplitude, reupload),
+every federation option of the resident round — ``--algorithm
+fedprox`` with ``--prox-mu``, ``--secure-agg[-mode|-neighbors]``,
 ``--dp-clip/--dp-sigma/--dp-mode client|example`` (the summary's
 ``final_epsilon``), ``--aggregator``, ``--clip-bound``,
 ``--trim-fraction``, ``--client-fraction`` and ``--optimizer spsa`` —
 run. Not ported yet, each raising NotImplementedError: ``--plots``,
 ``--profile``, ``--trace`` and ``--tuned`` (ROADMAP Queue 1 item 14);
-the staleness settings (item 9); models other than ``vqc``, sharding and
-noise (``run/config.build_model``, items 11, 12 and 10); and the
-``tune``, ``inspect``, ``demo``, ``sweep`` and ``bench`` subcommands
-(item 14) and ``lint`` (item 15).
+the staleness settings (item 9); sharding and noise on the VQC
+(``run/config.build_model``, items 12 and 10); and the ``tune``,
+``inspect``, ``demo``, ``sweep`` and ``bench`` subcommands (item 14) and
+``lint`` (item 15).
 """
 
 from __future__ import annotations
@@ -295,8 +297,8 @@ def config_from_args(a: argparse.Namespace) -> ExperimentConfig:
 
 def _refuse_unported_train_flags(a: argparse.Namespace) -> None:
     """Flags whose paths the port does not have yet raise; they never
-    silently run something else. (Other models, sharding and noise raise
-    in ``run/config.build_model``.)"""
+    silently run something else. (Sharding and noise raise in
+    ``run/config.build_model``.)"""
     for flag, on, item in (
         ("--plots", a.plots, 14), ("--profile", a.profile, 14),
         ("--trace", a.trace, 14), ("--tuned", a.tuned is not None, 14),

@@ -8,11 +8,13 @@ numpy copies of the data modules (arrays equal to the reference's bit
 for bit); ``build_model`` builds the port's model on ``device`` (the
 card unless a caller passes another).
 
-``build_model`` builds the angle-encoded VQC at every width (the dense
-engine below n = 10, the batched one above; ``remat`` passes through).
-The other models (cnn, mps, qkernel; ROADMAP Queue 1 item 11), the
-sv-sharded engine (item 12) and noise (item 10) raise
-NotImplementedError.
+``build_model`` builds every model family: the VQC at every width and
+encoding (the dense engine below n = 10, the batched one above;
+``remat`` passes through), the TinyCNN at the dataset's image shape,
+the MPS classifier and the quantum-kernel head, with the reference's
+ValueErrors (mps with a non-angle encoding, noise or ``sv_size > 1``;
+qkernel with noise). The sv-sharded engine (ROADMAP Queue 1 item 12)
+and noise on the VQC (item 10) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -168,19 +170,61 @@ def build_model(cfg: ExperimentConfig, num_classes: int, device=None):
     # The pins are read when the model runs, so the config's explicit
     # route lands in the environment before anything runs it.
     _apply_scan_layers(m.scan_layers)
-    if m.model != "vqc":
-        if m.model not in ("cnn", "mps", "qkernel"):
-            raise ValueError(f"unknown model {m.model!r}")
-        raise NotImplementedError(
-            f"model={m.model!r} is not ported yet (ROADMAP Queue 1 item "
-            "11); the port builds model='vqc'"
+    noisy = m.depolarizing_p or m.amp_damping_gamma or m.readout_flip \
+        or m.shots
+    if m.model == "cnn":
+        from qfedx_tpu_torch.data.datasets import SPECS
+        from qfedx_tpu_torch.models.cnn import make_tiny_cnn
+
+        spec = SPECS[cfg.data.dataset]
+        return make_tiny_cnn(num_classes=num_classes, height=spec.height,
+                             width=spec.width, in_channels=spec.channels,
+                             device=device)
+    if m.model == "mps":
+        from qfedx_tpu_torch.models.vqc_mps import make_mps_classifier
+
+        if m.encoding != "angle":
+            raise ValueError(
+                "model='mps' simulates the real-amplitudes circuit family "
+                f"(angle/RY encoding only); got encoding={m.encoding!r}"
+            )
+        if noisy:
+            raise ValueError(
+                "model='mps' has no noise support; noise channels are a "
+                "dense/sv-sharded engine feature"
+            )
+        if m.sv_size > 1:
+            raise ValueError(
+                "model='mps' is single-device per sample (O(n·χ²) memory); "
+                "sv_size>1 applies to the dense sharded engine"
+            )
+        return make_mps_classifier(m.n_qubits, n_layers=m.n_layers,
+                                   num_classes=num_classes,
+                                   bond_dim=m.bond_dim,
+                                   init_scale=m.init_scale, device=device)
+    if m.model == "qkernel":
+        from qfedx_tpu_torch.models.kernel import (
+            make_quantum_kernel_classifier,
         )
+
+        if noisy:
+            # The kernel head evaluates fidelities in closed form, not a
+            # statevector the channels could act on.
+            raise ValueError(
+                "model='qkernel' has no noise support; noise channels are "
+                "a vqc-engine feature (use --model vqc)"
+            )
+        return make_quantum_kernel_classifier(
+            m.n_qubits, n_landmarks=m.n_landmarks, num_classes=num_classes,
+            device=device)
+    if m.model != "vqc":
+        raise ValueError(f"unknown model {m.model!r}")
     if m.sv_size > 1:
         raise NotImplementedError(
             "sv_size > 1 (the sharded statevector) is not ported yet "
             "(ROADMAP Queue 1 item 12)"
         )
-    if m.depolarizing_p or m.amp_damping_gamma or m.readout_flip or m.shots:
+    if noisy:
         raise NotImplementedError(
             "noise is not ported yet (ROADMAP Queue 1 item 10)"
         )

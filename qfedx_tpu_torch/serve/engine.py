@@ -17,8 +17,9 @@ Counterpart of ``qfedx_tpu/serve/engine.py`` (``ServeConfig``,
 
 ``engine_from_run_dir`` restores a tracked run directory (its
 ``config.json`` and newest last-good checkpoint, written by either
-package) into an engine; ``python -m qfedx_tpu_torch serve --run-dir``
-(``run/cli.py``) serves it.
+package) of any model family — the VQC, the TinyCNN (image requests),
+the MPS classifier, the kernel head — into an engine; ``python -m
+qfedx_tpu_torch serve --run-dir`` (``run/cli.py``) serves it.
 
 Not ported yet: the telemetry/flight/watch/tune/fault hooks (ROADMAP
 Queue 1 item 14).
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from qfedx_tpu_torch.serve.forward import _ROUTING_PINS, persistent_forward
-from qfedx_tpu_torch.utils import pins
+from qfedx_tpu_torch.utils import pins, trees
 from qfedx_tpu_torch.utils.retry import retry_with_deadline
 
 
@@ -119,10 +120,7 @@ class ServeEngine:
     ):
         self.device = pins.resolve_device(device)
         self.model = model
-        self.params = {
-            group: {k: v.to(self.device) for k, v in leaves.items()}
-            for group, leaves in params.items()
-        }
+        self.params = trees.tree_map(lambda v: v.to(self.device), params)
         self.feature_shape = tuple(int(s) for s in feature_shape)
         self.config = config or ServeConfig.resolve()
         self._fwd = persistent_forward(model.apply)

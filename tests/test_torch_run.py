@@ -445,7 +445,7 @@ def test_cli_train_then_serve(monkeypatch, tmp_path, small_data, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--plots"], ["--profile"], ["--trace"], ["--tuned", "x.json"],
-    ["--staleness-mode", "poly"], ["--model", "cnn"],
+    ["--staleness-mode", "poly"],
     ["--sv-size", "2"], ["--shots", "100"],
 ])
 def test_cli_unported_paths_raise(tmp_path, small_data, extra):
