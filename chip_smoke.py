@@ -183,13 +183,29 @@ Phases (any failure raises and exits non-zero):
    forward and says whether each synchronises the host, and trains
    MPS_ARGV (n = 24, χ = 16) card vs CPU (MPS_CLI_ATOL, every update
    finite);
-17. print one JSON line describing each launch of the kernel, f32 and
+17. noise on the VQC: ``[noise-readout]`` trains NOISE_ARGV (n = 12,
+   L = 3, depolarizing, damping, readout flip, 1024 shots, readout
+   placement) on the card and the CPU (loss and θ within
+   TRAINED_LOGIT_ATOL, one Launch A per client per local step, A in
+   evaluation, the ansatz leaves of every checkpoint equal to their
+   initial values: shot counts carry no gradient) and serves it
+   (``[noise-readout-serve]``: logits within LOGIT_ATOL, one A per batch
+   and per warmed bucket); ``[noise-circuit]`` does the same under
+   ``--noise-placement circuit`` (no launch in a local step, the Kraus
+   branch choices that differ card vs CPU printed, round time and
+   client-rounds/s) and serves it on the composed strengths;
+   ``[noise-trajectory]`` holds 4096 trajectories of depolarizing and of
+   damping at n = 12 within TRAJECTORY_SIGMAS of the analytic ⟨Z⟩ map,
+   their first TRAJECTORY_TWINS against the CPU; ``[noise-probe]`` counts
+   the launches of one evaluation and one local step under each noise
+   mode (NOISE_PROBE, the port's column of the CPU test's probe);
+18. print one JSON line describing each launch of the kernel, f32 and
    bf16 instances (launches on the CLI run, and per path, the dense,
-   reupload, amplitude, config-4, federation-option and model-family
-   paths included;
+   reupload, amplitude, config-4, federation-option, model-family and
+   noise paths included;
    max error; kernel-alone, plain and bound at the CLI run's shape, and
    at the earlier slices', the reupload, SPSA and per-example shapes);
-18. print the final ``{"ok": true, "device": {...}}`` line.
+19. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -2607,7 +2623,8 @@ def phase_reupload_serve(device) -> dict:
 
 
 def phase_encoding_cli_train(root, argv, name: str, tag: str,
-                             encoding: str, per_step=None) -> dict:
+                             encoding: str, per_step=None,
+                             record=None) -> dict:
     """``train`` of a run at n >= 10 (in-process) on the card, then on
     the CPU: a complete run directory, per-round loss and final θ card vs
     CPU within TRAINED_LOGIT_ATOL, accuracy within one evaluation sample,
@@ -2616,20 +2633,25 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
     one Launch B and one C), and Launch A in evaluation only where the
     evaluator's tb = 256 reaches the kernel (the HEA body of the angle and
     amplitude encodings; reupload's per-sample banks at 256 groups do not,
-    as in the reference), no build after round 1."""
+    as in the reference), no build after round 1. ``record`` (a dict)
+    receives each run's Kraus branch choices under "card" and "cpu"."""
     from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.noise.trajectory import record_branches
     from qfedx_tpu_torch.run.checkpoint import Checkpointer
 
     n, layers, classes, clients = _run_shape(argv)
     shapes = expected_shapes(argv)
     rounds_n = int(argv[argv.index("--rounds") + 1])
+    record = {} if record is None else record
     t0 = time.perf_counter()
-    summary, launches, rounds, _ = cli_train(
-        argv + ["--run-root", str(root), "--name", name], None)
+    with record_branches() as record["card"]:
+        summary, launches, rounds, _ = cli_train(
+            argv + ["--run-root", str(root), "--name", name], None)
     wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cpu_summary, _, _, _ = cli_train(
-        argv + ["--run-root", str(root / "cpu"), "--name", name], "cpu")
+    with record_branches() as record["cpu"]:
+        cpu_summary, _, _, _ = cli_train(
+            argv + ["--run-root", str(root / "cpu"), "--name", name], "cpu")
     cpu_wall = time.perf_counter() - t0
     run, cpu_run = root / name, root / "cpu" / name
     batch = int(argv[argv.index("--batch-size") + 1]) if (
@@ -2692,7 +2714,7 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
                              "round 1")
     return {"run": run, "rows": rows, "launches": launches,
             "theta_err": theta_err, "shape": (n, layers, classes),
-            "summary": summary}
+            "summary": summary, "wall": wall, "cpu_wall": cpu_wall}
 
 
 def _round_rows(root, argv, name, device) -> tuple:
@@ -3207,7 +3229,7 @@ def _grads(model, params, x, y, keep=None) -> list:
     leaves = trees.tree_map(lambda p: p.detach().requires_grad_(True),
                             params)
     logits = (model.apply(leaves, x) if keep is None
-              else model.apply_train(leaves, x, keep))
+              else model.apply_train(leaves, x, {"dropout_keep": keep}))
     loss = _cross_entropy(logits, y).mean()
     return [g.cpu() for g in torch.autograd.grad(
         loss, trees.tree_leaves(leaves))]
@@ -3250,9 +3272,9 @@ def phase_cnn(device) -> dict:
                 "logits": _max_err([card.apply(dparams, x.to(device)).cpu()],
                                    [cpu.apply(params, x)]),
                 "apply_train": _max_err(
-                    [card.apply_train(dparams, x.to(device),
-                                     keep.to(device)).cpu()],
-                    [cpu.apply_train(params, x, keep)]),
+                    [card.apply_train(dparams, x.to(device), {
+                        "dropout_keep": keep.to(device)}).cpu()],
+                    [cpu.apply_train(params, x, {"dropout_keep": keep})]),
                 "grad_rel": _rel_err(
                     _grads(card, dparams, x.to(device), y.to(device),
                            keep.to(device)),
@@ -3567,6 +3589,345 @@ def phase_mps(root, device) -> dict:
             "step_ms": step_ms, "svd_calls": len(calls), "syncs": n_sync}
 
 
+# --- noise on the VQC (noise/) -----------------------------------------------
+
+NOISE_ARGV = ["train", "--model", "vqc", "--qubits", "12", "--layers", "3",
+              "--classes", "0,1", "--clients", "4", "--rounds", "3",
+              "--local-epochs", "1", "--checkpoint-every", "1",
+              "--depolarizing", "0.02", "--damping", "0.01",
+              "--readout-flip", "0.02", "--shots", "1024"]
+NOISE_CIRCUIT_ARGV = NOISE_ARGV + ["--noise-placement", "circuit"]
+TRAJECTORIES = 4096
+TRAJECTORY_SIGMAS = 4.0  # trajectory mean vs the analytic map, in σ
+# Beyond the σ bound: f32 rounding of the trajectories' mean ⟨Z⟩ (a
+# qubit near |0⟩ has σ ≈ 0 under damping).
+TRAJECTORY_ROUND = 2e-6
+TRAJECTORY_TWINS = 256  # trajectories rerun on the CPU on the same draws
+
+
+def _noise_model_of(argv, device="cpu"):
+    from qfedx_tpu_torch.run import cli
+    from qfedx_tpu_torch.run.config import build_model
+    from qfedx_tpu_torch.serve.engine import infer_num_classes
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    return cfg, build_model(cfg, infer_num_classes(cfg), device=device)
+
+
+def noisy_step_ms(argv, batch: int = 32, iters: int = 10) -> float:
+    """One local step's ``apply_train`` at ``batch`` on the card, no
+    autograd (under shots the step's only forward): host clock around
+    ``synchronize``, mean of ``iters`` calls after one warm-up."""
+    from qfedx_tpu_torch.fed.round import RoundDraws
+    from qfedx_tpu_torch.utils import pins
+
+    device = pins.resolve_device(None)
+    cfg, model = _noise_model_of(argv, device)
+    params = model.init(cfg.seed)
+    x = torch.rand((batch, cfg.model.n_qubits),
+                   generator=torch.Generator().manual_seed(940)).to(device)
+    draws = {k: v[0, 0] for k, v in RoundDraws(cfg.seed, 0).train_draws(
+        model.train_draws, 1, 1, batch, device).items()}
+    with torch.no_grad():
+        model.apply_train(params, x, draws)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model.apply_train(params, x, draws)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def phase_noise_cli(root, argv, name: str, tag: str) -> dict:
+    """``[noise-readout]``/``[noise-circuit]``: a noisy ``train`` at
+    n = 12 (``argv``) on the card and the CPU through
+    ``phase_encoding_cli_train``: loss and θ within TRAINED_LOGIT_ATOL,
+    Launch A in evaluation; per local step one Launch A for each client
+    under readout shots (the counts carry no gradient, so the state runs
+    without autograd, and the clients train one at a time), none under
+    circuit placement (the channels after every layer keep the per-layer
+    loop). With shots the ansatz leaves of every checkpoint equal their
+    initial values bit for bit. Prints the Kraus branch choices that
+    differ between the card and the CPU (0 expected; a near-tie of Born
+    weights may flip one) and the round time."""
+    from qfedx_tpu_torch.run.checkpoint import Checkpointer
+
+    cfg, model = _noise_model_of(argv)
+    circuit = cfg.model.noise_placement == "circuit"
+    clients = cfg.data.num_clients
+    per_step = {"fwd": 0 if circuit else clients, "fwd_bnd": 0, "adj": 0}
+    record: dict = {}
+    run = phase_encoding_cli_train(root, argv, name, tag, "angle",
+                                   per_step=per_step, record=record)
+    card = [t.cpu() for t in record["card"]]
+    cpu = record["cpu"]
+    if len(card) != len(cpu) or any(a.shape != b.shape
+                                    for a, b in zip(card, cpu)):
+        raise AssertionError(f"{tag}: the card made {len(card)} branch "
+                             f"calls, the CPU {len(cpu)}")
+    choices = sum(int(a.numel()) for a in card)
+    differ = sum(int((a != b).sum()) for a, b in zip(card, cpu))
+    if circuit and choices == 0:
+        raise AssertionError(f"{tag}: no Kraus branch was drawn")
+    init = model.init(cfg.seed)
+    ckpt = Checkpointer(run["run"] / "checkpoints")
+    moved = []
+    for r in range(1, cfg.num_rounds + 1):
+        theta = ckpt.restore(r, init)
+        moved += [f"round {r} {k}" for k in ("rx", "rz")
+                  if not torch.equal(theta["ansatz"][k], init["ansatz"][k])]
+        if torch.equal(theta["readout"]["scale"], init["readout"]["scale"]):
+            raise AssertionError(f"{tag}: the readout did not learn")
+    # The pipelined rows' time_s are drain-to-drain increments and
+    # resolve no rate; the whole card run bounds a round from above.
+    round_s = run["wall"] / cfg.num_rounds
+    print(f"[{tag}] Kraus branch choices card vs cpu: {differ} of {choices} "
+          "differ (0 expected; a near-tie of Born weights may flip one); "
+          f"ansatz leaves moved: {moved or 'none'} (shots: the counts carry "
+          f"no gradient); round time {round_s:.4f} s, "
+          f"{clients / round_s:.4f} client-rounds/s (the whole card run over "
+          f"its {cfg.num_rounds} rounds, host clock, data, evaluation and "
+          "checkpoints included; rows' drain-to-drain time_s "
+          f"{[row['time_s'] for row in run['rows']]}); whole run card "
+          f"{run['wall']:.2f} s, cpu {run['cpu_wall']:.2f} s")
+    if moved:
+        raise AssertionError(f"{tag}: shots moved the ansatz: {moved}")
+    step_ms = noisy_step_ms(argv)
+    print(f"[{tag}] a local step's forward (apply_train, B = 32, the "
+          f"card): {step_ms:.4f} ms (host clock around synchronize, 10 "
+          "calls)")
+    run.update(branch_choices=choices, branch_differ=differ, round_s=round_s,
+               rate=clients / round_s, step_ms=step_ms)
+    return run
+
+
+def phase_noise_serve(root, run_dir, argv, tag: str) -> dict:
+    """``serve --run-dir`` of a noisy run (in-process) on the card: 64
+    requests and one malformed line, the logits against the CPU port's
+    run restored through ``serve.engine_from_run_dir`` (the evaluator's
+    noise: no shots, composed strengths under circuit placement) within
+    LOGIT_ATOL, and exactly one Launch A per served batch and per warmed
+    bucket."""
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run import cli
+    from qfedx_tpu_torch.serve import engine_from_run_dir
+
+    cfg, _ = _noise_model_of(argv)
+    n = cfg.model.n_qubits
+    x = np.random.default_rng(19).uniform(0, 1, (N_SERVE_REQUESTS, n))
+    x = x.astype(np.float32)
+    lines = [json.dumps({"id": f"q{i}", "features": v.tolist()})
+             for i, v in enumerate(x)]
+    lines.insert(10, "{malformed")
+    (root / "noise-requests.jsonl").write_text("\n".join(lines) + "\n")
+    out = root / "noise-responses.jsonl"
+    scan_body.reset_counts()
+    summary = cli.main(["serve", "--run-dir", str(run_dir), "--input",
+                        str(root / "noise-requests.jsonl"), "--output",
+                        str(out)])
+    launches = dict(scan_body.launch_counts)
+    resp = [json.loads(line) for line in out.read_text().splitlines()]
+    bad = [r for r in resp if "error" in r]
+    if len(bad) != 1 or bad[0]["code"] != 400 or bad[0]["id"] != 10:
+        raise AssertionError(f"{tag}: error responses {bad}")
+    got = np.array([r["logits"] for r in resp if "logits" in r])
+    engine, _ = engine_from_run_dir(run_dir, device="cpu")
+    with torch.no_grad():
+        want = engine.model.apply(engine.params, x).numpy()
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{tag}: served logits of shape {got.shape}")
+    err = float(np.abs(got - want).max())
+    eval_noise = cfg.model
+    print(f"[{tag}] {summary['served']} served, batches "
+          f"{summary['batches']}, latency p50={summary['p50_ms']} ms p95="
+          f"{summary['p95_ms']} ms (host clock); logits max|card-cpu|="
+          f"{err:.3e} (atol {LOGIT_ATOL:g}); launches {launches} (one A per "
+          f"batch and per warmed bucket {BUCKETS}); noise "
+          f"p={eval_noise.depolarizing_p} gamma={eval_noise.amp_damping_gamma}"
+          f" flip={eval_noise.readout_flip} placement "
+          f"{eval_noise.noise_placement}")
+    _require(err, LOGIT_ATOL, f"{tag} served logits vs cpu")
+    want_l = {"fwd": summary["batches"] + len(BUCKETS), "fwd_bnd": 0,
+              "adj": 0}
+    if launches != want_l:
+        raise AssertionError(f"{tag}: serving launched {launches}, "
+                             f"expected {want_l}")
+    return {"launches": launches, "logit_err": err,
+            "p50": summary["p50_ms"], "p95": summary["p95_ms"]}
+
+
+def branch_moments(kraus, amps) -> tuple:
+    """Per qubit of a product state, the mean and variance of ⟨Z⟩ after
+    one sampled branch of ``kraus`` ((k, 2, 2) complex numpy) on its
+    single-qubit amplitudes ``amps`` ((n, 2) complex): branch i with
+    probability p_i = ‖K_i a‖² leaves ⟨Z⟩ = z_i. The other qubits'
+    branches leave a product state's marginal alone, so these are exact,
+    rare branches included."""
+    out = np.einsum("kij,nj->nki", kraus, amps)
+    p = np.sum(np.abs(out) ** 2, axis=-1)
+    z = (np.abs(out[..., 0]) ** 2 - np.abs(out[..., 1]) ** 2) / np.maximum(
+        p, 1e-300)
+    mean = np.sum(p * z, axis=-1)
+    return mean, np.sum(p * z * z, axis=-1) - mean ** 2
+
+
+def phase_noise_trajectory(device) -> dict:
+    """``[noise-trajectory]``: 4096 trajectories at n = 12 on the card,
+    one of depolarizing (p = 0.3) and one of damping (γ = 0.3) on every
+    qubit of an angle-encoded product state: ``trajectory_average``'s
+    ⟨Z_q⟩ within TRAJECTORY_SIGMAS standard errors (plus
+    TRAJECTORY_ROUND) of ``NoiseModel.apply_to_z``'s analytic value,
+    exact for a product state, σ the branch distribution's own standard
+    deviation over √T (``branch_moments``, whose mean must equal the
+    analytic map); and the first TRAJECTORY_TWINS trajectories rerun on
+    the CPU on the same Gumbel draws (their ⟨Z⟩ within LOGIT_ATOL, branch
+    choices counted)."""
+    from qfedx_tpu_torch.circuits.encoders import angle_amplitudes, angle_encode
+    from qfedx_tpu_torch.noise import NoiseModel, trajectory
+    from qfedx_tpu_torch.ops.cpx import to_complex
+    from qfedx_tpu_torch.ops.statevector import expect_z_all
+
+    n, t = 12, TRAJECTORIES
+    gen = torch.Generator().manual_seed(930)
+    feats = torch.rand((1, n), generator=gen)
+    amps = to_complex(angle_amplitudes(feats[0] * math.pi, "ry"))
+    out = {}
+    for name, nm in (("depolarizing", NoiseModel(depolarizing_p=0.3)),
+                     ("damping", NoiseModel(amp_damping_gamma=0.3))):
+        u = torch.clamp(torch.rand((t, n, 4), generator=gen),
+                        min=torch.finfo(torch.float32).tiny)
+        g = -torch.log(-torch.log(u))
+
+        def observable(draws, dev):
+            kraus = nm.kraus_channels(dev)[0]
+            state = angle_encode(feats.to(dev).expand(draws.shape[0], n))
+            state = trajectory.apply_channel_all(state, kraus, draws, n)
+            return expect_z_all(state, n)
+
+        with trajectory.record_branches() as card_log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean = trajectory.trajectory_average(
+                lambda d: observable(d, device), t)(g.to(device))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        mean = mean.cpu().double()
+        z0 = expect_z_all(angle_encode(feats), n)[0]
+        want = nm.apply_to_z(z0).double()
+        b_mean, b_var = branch_moments(to_complex(nm.kraus_channels(
+            "cpu")[0]), amps)
+        _require(float((torch.as_tensor(b_mean) - want).abs().max()), 1e-6,
+                 f"noise-trajectory {name}: branch moments vs apply_to_z")
+        sigma = torch.as_tensor(np.sqrt(np.maximum(b_var, 0.0) / t))
+        excess = torch.clamp((mean - want).abs() - TRAJECTORY_ROUND, min=0)
+        worst = float((excess / torch.clamp(sigma, min=1e-12)).max())
+        with trajectory.record_branches() as cpu_log:
+            z_cpu = observable(g[:TRAJECTORY_TWINS], "cpu")
+        with torch.no_grad():
+            z_twin = observable(g[:TRAJECTORY_TWINS].to(device), device)
+        twin_err = float((z_twin.cpu() - z_cpu).abs().max())
+        differ = sum(int((a[:TRAJECTORY_TWINS].cpu() != b).sum())
+                     for a, b in zip(card_log, cpu_log))
+        print(f"[noise-trajectory] {name} at n={n}, {t} trajectories on the "
+              f"card: max (|mean - analytic| - {TRAJECTORY_ROUND:g}) / sigma "
+              f"over the {n} qubits {worst:.3f} (limit "
+              f"{TRAJECTORY_SIGMAS:g}; sigma from the branch distribution, "
+              f"{float(sigma.min()):.3e} to {float(sigma.max()):.3e}); max "
+              f"|mean - analytic| {float((mean - want).abs().max()):.3e}; "
+              f"{ms:.3f} ms for the {n} channel applications and the mean "
+              f"(host clock around synchronize); CPU twin of "
+              f"{TRAJECTORY_TWINS} trajectories: <Z> max|card-cpu| "
+              f"{twin_err:.3e} (atol {LOGIT_ATOL:g}), {differ} of "
+              f"{TRAJECTORY_TWINS * n} branch choices differ")
+        if worst > TRAJECTORY_SIGMAS:
+            raise AssertionError(f"noise-trajectory {name}: the trajectory "
+                                 f"mean is {worst:.2f} sigma from the "
+                                 "analytic map")
+        _require(twin_err, LOGIT_ATOL, f"noise-trajectory {name} cpu twin")
+        out[name] = {"sigmas": worst, "ms": ms, "twin_err": twin_err,
+                     "differ": differ}
+    return out
+
+
+# The port's launches per noise mode at n = 12, L = 3 (evaluation, one
+# local step), as tests/test_torch_noise.py::test_route_probe holds them
+# against the reference's on the CPU.
+NOISE_PROBE = {
+    "readout": ({"fwd": 1, "fwd_bnd": 0, "adj": 0},
+                {"fwd": 0, "fwd_bnd": 1, "adj": 1}),
+    "shots": ({"fwd": 1, "fwd_bnd": 0, "adj": 0},
+              {"fwd": 1, "fwd_bnd": 0, "adj": 0}),
+    "circuit": ({"fwd": 1, "fwd_bnd": 0, "adj": 0}, NO_LAUNCH),
+    "circuit-spsa": ({"fwd": 1, "fwd_bnd": 0, "adj": 0}, NO_LAUNCH),
+}
+
+
+def phase_noise_probe(device) -> dict:
+    """``[noise-probe]``: per noise mode at n = 12, L = 3, B = 32 on the
+    card, the launches of one evaluation forward and of one local step
+    through ``fed/client`` (readout noise without shots folded over two
+    clients; shots, circuit placement and SPSA under it one client),
+    each required to equal NOISE_PROBE."""
+    from qfedx_tpu_torch.fed import client
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.fed.round import RoundDraws
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.noise import NoiseModel
+    from qfedx_tpu_torch.ops import scan_body
+
+    n, layers, b = 12, 3, 32
+    gen = torch.Generator().manual_seed(950)
+    x = torch.rand((b, n), generator=gen).to(device)
+    y = torch.randint(0, 2, (b,), generator=gen).to(device)
+    m = torch.ones(b, device=device)
+    perms = torch.arange(b)[None]
+    out = {}
+    for mode, (want_eval, want_step) in NOISE_PROBE.items():
+        nm = NoiseModel(0.02, 0.01, 0.02, 0.02,
+                        shots=1024 if mode == "shots" else None,
+                        circuit_level=mode.startswith("circuit"))
+        model = make_vqc_classifier(n, layers, 2, device=device,
+                                    noise_model=nm)
+        params = model.init(3)
+        cfg = FedConfig(local_epochs=1, batch_size=b, learning_rate=0.05,
+                        optimizer="spsa" if mode == "circuit-spsa"
+                        else "adam")
+        draws = RoundDraws(3, 0)
+        scan_body.reset_counts()
+        with torch.no_grad():
+            model.apply(params, x)
+        got_eval = dict(scan_body.launch_counts)
+        scan_body.reset_counts()
+        if mode == "readout":
+            client.make_local_update_clients(model, cfg)(
+                params, x[None].expand(2, b, n), y[None].expand(2, b),
+                m[None].expand(2, b), perms=perms[None].expand(2, 1, b))
+        else:
+            step = (None if mode != "circuit-spsa" else trees_first(
+                draws.tree("spsa_delta", params, 1, 1)))
+            tdraws = {k: v[0] for k, v in draws.train_draws(
+                model.train_draws, 1, 1, b, device).items()}
+            client.make_local_update(model, cfg)(
+                params, x, y, m, perms, step_draws=step,
+                train_draws=tdraws)
+        got_step = dict(scan_body.launch_counts)
+        print(f"[noise-probe] {mode}: evaluation {got_eval} (expected "
+              f"{want_eval}), one local step {got_step} (expected "
+              f"{want_step})")
+        if (got_eval, got_step) != (want_eval, want_step):
+            raise AssertionError(f"noise-probe {mode}: launched "
+                                 f"{got_eval}, {got_step}")
+        out[mode] = {"eval": got_eval, "step": got_step}
+    return out
+
+
+def trees_first(tree):
+    """Every leaf's first entry (one client of a (C, …) stream)."""
+    from qfedx_tpu_torch.utils import trees
+
+    return trees.tree_map(lambda v: v[0], tree)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -3646,12 +4007,23 @@ def main() -> int:
         config3 = phase_config3(root)
         config5 = phase_config5(root)
         mps_run = phase_mps(root, device)
+        noise_readout = phase_noise_cli(root, NOISE_ARGV, "noise-readout",
+                                        "noise-readout")
+        noise_readout_served = phase_noise_serve(
+            root, noise_readout["run"], NOISE_ARGV, "noise-readout-serve")
+        noise_circuit = phase_noise_cli(root, NOISE_CIRCUIT_ARGV,
+                                        "noise-circuit", "noise-circuit")
+        noise_circuit_served = phase_noise_serve(
+            root, noise_circuit["run"], NOISE_CIRCUIT_ARGV,
+            "noise-circuit-serve")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     dense_route = phase_dense_route(device)
     remat = phase_remat(device)
     dense_times = phase_dense_times(device)
     robust = phase_robust(device)
+    noise_traj = phase_noise_trajectory(device)
+    noise_probe = phase_noise_probe(device)
     source = "qfedx_tpu_torch/ops/csrc/scan_body.cu"
     kernel = "qfedx_tpu/ops/pallas_body.py:401"
     by_path = {
@@ -3679,6 +4051,12 @@ def main() -> int:
         "config3 serve": config3["serve_launches"],
         "config5 (qkernel, n=20)": config5["launches"],
         "mps (n=24)": mps_run["launches"],
+        "noise-readout (n=12, shots)": noise_readout["launches"],
+        "noise-readout-serve": noise_readout_served["launches"],
+        "noise-circuit (n=12, shots)": noise_circuit["launches"],
+        "noise-circuit-serve": noise_circuit_served["launches"],
+        **{f"noise-probe {k} ({w})": v[w] for k, v in noise_probe.items()
+           for w in ("eval", "step")},
     }
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -3833,6 +4211,18 @@ def main() -> int:
           f"{mps_run['theta_err']:.3e}, {mps_run['rate']:.4f} "
           f"client-rounds/s, {mps_run['svd_calls']} SVD calls per forward "
           f"at {mps_run['svd_ms']:.5f} ms")
+    print(f"[summary] noise: readout placement theta max|card-cpu| "
+          f"{noise_readout['theta_err']:.3e}, launches "
+          f"{noise_readout['launches']}, {noise_readout['rate']:.4f} "
+          f"client-rounds/s, served logits "
+          f"{noise_readout_served['logit_err']:.3e}; circuit placement theta "
+          f"{noise_circuit['theta_err']:.3e}, launches "
+          f"{noise_circuit['launches']}, {noise_circuit['branch_differ']} of "
+          f"{noise_circuit['branch_choices']} branch choices differ card vs "
+          f"cpu, {noise_circuit['rate']:.4f} client-rounds/s, served logits "
+          f"{noise_circuit_served['logit_err']:.3e}; trajectories "
+          + ", ".join(f"{k}: {v['sigmas']:.3f} sigma, {v['ms']:.3f} ms"
+                      for k, v in noise_traj.items()))
     print(card_line())
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -122,8 +122,15 @@ def _layers(layer_fn, state, n_qubits: int, params: dict, remat: bool):
 
 
 def ansatz_layer(state, n_qubits: int, rx_angles, rz_angles):
-    """One layer on a dense state, gate by gate (the slab widths run
-    as the batched slab: ``hardware_efficient``)."""
+    """One layer on a dense state: gate by gate below the slab widths; at
+    them the state runs as its batched slab through ``ansatz_layer_b``
+    (the fusion pass where it is on), as the reference's layer takes its
+    fusion pass there."""
+    if n_qubits >= sv._SLAB_MIN:
+        lead = tuple(state.shape[: state.ndim - n_qubits])
+        out = ansatz_layer_b(sv.to_slab(state, n_qubits), n_qubits,
+                             rx_angles, rz_angles)
+        return sv.from_slab(out, lead, n_qubits)
     for q in range(n_qubits):
         gate = gates.rot_zx_batched(rx_angles[..., q], rz_angles[..., q])
         state = sv.apply_gate(state, gate, q, n_qubits)

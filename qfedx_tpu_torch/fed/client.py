@@ -40,12 +40,16 @@ from the caller: a ``torch.Generator`` draws each client's per-epoch
 permutation, or an explicit (C, E, S) ``perms`` tensor gives them (the
 parity tests inject the permutations the reference drew).
 
-A model with ``apply_train`` (the TinyCNN's dropout) trains through it on
-every route of the one-client update, with the step's keep mask from
-``keep`` (one (B, …) mask per local step; SPSA's θ ± cΔ share it, as the
-reference's two evaluations share their key, and per-example DP hands
-example i its row). Such models never fold (``fed/round.
-fold_clients_enabled``).
+A model with ``apply_train`` (the TinyCNN's dropout, the VQC's finite
+shots and Kraus trajectories) trains through it on every route of the
+one-client update, with the step's draws from ``train_draws`` (a dict of
+the model's ``StepDraw`` streams, each (E·S/B, B, …): one (B, …) draw
+per local step; SPSA's θ ± cΔ share it, as the reference's two
+evaluations share their key, and per-example DP hands example i its
+row, as the reference hands it its own key). Such models never fold
+(``fed/round.fold_clients_enabled``). A parameter the loss does not
+reach (the ansatz under finite shots, whose counts carry no gradient in
+either package) gets a zero gradient.
 """
 
 from __future__ import annotations
@@ -142,12 +146,19 @@ def draw_perms(generator: torch.Generator, clients: int, epochs: int,
     ])
 
 
-def _forward(model: Model, params, xb, kb):
-    """``model.apply_train`` with the step's keep mask ``kb`` where the
-    model has one, else ``model.apply``."""
+def _forward(model: Model, params, xb, db):
+    """``model.apply_train`` with the step's draws ``db`` where the model
+    has one, else ``model.apply``."""
     if model.apply_train is None:
         return model.apply(params, xb)
-    return model.apply_train(params, xb, kb)
+    return model.apply_train(params, xb, db)
+
+
+def _grads(loss: torch.Tensor, leaves: list) -> list:
+    """∂loss/∂leaves; a leaf the loss does not reach gets zeros."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
 
 
 def _unflatten(leaves_like, flat) -> dict:
@@ -177,12 +188,12 @@ def make_spsa_grad(loss_fn: Callable, c: float, folded: bool = False
                    ) -> Callable:
     """SPSA: ĝ = [L(θ+cΔ) − L(θ−cΔ)] / (2c) · Δ with a Rademacher Δ
     (Δ⁻¹ = Δ). ``spsa_grad(params, global_params, xb, yb, mb, delta)``
-    returns ((L₊+L₋)/2, ĝ); ``loss_fn`` is the route's loss and ``kb``
-    the step's keep mask, shared by both evaluations. Folded (per-client
+    returns ((L₊+L₋)/2, ĝ); ``loss_fn`` is the route's loss and ``db``
+    the step's ``apply_train`` draws, shared by both evaluations. Folded (per-client
     (C, …) leaves), θ ± cΔ run as the 2C client groups of one forward;
     forward only either way."""
 
-    def spsa_grad(params, global_params, xb, yb, mb, delta, kb=None):
+    def spsa_grad(params, global_params, xb, yb, mb, delta, db=None):
         plus = trees.tree_map(lambda p, d: p + c * d, params, delta)
         minus = trees.tree_map(lambda p, d: p - c * d, params, delta)
         with torch.no_grad():
@@ -193,8 +204,8 @@ def make_spsa_grad(loss_fn: Callable, c: float, folded: bool = False
                                  *(torch.cat([a, a]) for a in (xb, yb, mb))
                                  ).chunk(2)
             else:
-                # A keep mask only reaches a loss that takes one.
-                batch = (xb, yb, mb) if kb is None else (xb, yb, mb, kb)
+                # Draws only reach a loss that takes them.
+                batch = (xb, yb, mb) if db is None else (xb, yb, mb, db)
                 lp = loss_fn(plus, global_params, *batch)
                 lm = loss_fn(minus, global_params, *batch)
         return (lp + lm) / 2.0, lead_scale(delta, (lp - lm) / (2.0 * c))
@@ -246,7 +257,7 @@ def _make_dp_example_grad(model: Model, cfg: FedConfig, folded: bool
         grads = [g.reshape((c, b) + tuple(g.shape[1:])) for g in grads]
         return ce.detach().reshape(c, b), _unflatten(cparams, grads)
 
-    def client_grads(params, xb, yb, kb):
+    def client_grads(params, xb, yb, db):
         # One client alone: one forward and backward per example.
         losses, per_ex = [], []
         for i in range(xb.shape[0]):
@@ -254,19 +265,19 @@ def _make_dp_example_grad(model: Model, cfg: FedConfig, folded: bool
                 lambda p: p.detach().requires_grad_(True), params)
             with torch.enable_grad():
                 logits = _forward(model, leaves, xb[i:i + 1],
-                                  None if kb is None else kb[i:i + 1])
+                                  None if db is None
+                                  else {k: v[i:i + 1] for k, v in db.items()})
                 ce = _cross_entropy(logits, yb[i:i + 1])[0]
-                per_ex.append(torch.autograd.grad(
-                    ce, trees.tree_leaves(leaves)))
+                per_ex.append(_grads(ce, trees.tree_leaves(leaves)))
             losses.append(ce.detach())
         grads = [torch.stack(g) for g in zip(*per_ex)]
         return torch.stack(losses), _unflatten(params, grads)
 
-    def grad_fn(params, global_params, xb, yb, mb, noise, kb=None):
+    def grad_fn(params, global_params, xb, yb, mb, noise, db=None):
         if folded:
             losses, ex_grads = folded_grads(params, xb, yb)
         else:
-            losses, ex_grads = client_grads(params, xb, yb, kb)
+            losses, ex_grads = client_grads(params, xb, yb, db)
         with torch.no_grad():
             g = _dp_noised_mean(ex_grads, mb, noise, dp, lot)
             if cfg.algorithm == "fedprox":
@@ -284,12 +295,12 @@ def _autograd_grad(loss_fn: Callable) -> Callable:
     """``jax.value_and_grad`` of ``loss_fn``; a per-client loss (C,) is
     summed, so each client's gradient lands in its own slice."""
 
-    def grad_fn(params, global_params, xb, yb, mb, _draw=None, kb=None):
+    def grad_fn(params, global_params, xb, yb, mb, _draw=None, db=None):
         leaves = trees.tree_map(lambda p: p.detach().requires_grad_(True),
                                 params)
         with torch.enable_grad():
-            loss = loss_fn(leaves, global_params, xb, yb, mb, kb)
-            grads = torch.autograd.grad(loss.sum(), trees.tree_leaves(leaves))
+            loss = loss_fn(leaves, global_params, xb, yb, mb, db)
+            grads = _grads(loss.sum(), trees.tree_leaves(leaves))
         return loss.detach(), _unflatten(leaves, grads)
 
     return grad_fn
@@ -309,14 +320,14 @@ def _grad_route(model: Model, cfg: FedConfig, loss_fn: Callable,
 def _local_steps(tx: Optimizer, grad_fn: Callable, params, global_params,
                  batches, draw_at: Callable, n_batches: int):
     """Run the local steps ``batches`` yields in order (E epochs of
-    ``n_batches``; each step's batch, mask and keep mask or None);
+    ``n_batches``; each step's batch, mask and draws or None);
     returns the final parameters and the mean over epochs of each
     epoch's mean step loss."""
     opt_state = tx.init(params)
     losses = []
-    for t, (xb, yb, mb, kb) in enumerate(batches):
+    for t, (xb, yb, mb, db) in enumerate(batches):
         loss, grads = grad_fn(params, global_params, xb, yb, mb, draw_at(t),
-                              kb)
+                              db)
         with torch.no_grad():
             updates, opt_state = tx.update(grads, opt_state)
             params = trees.tree_add(
@@ -340,18 +351,18 @@ def _check_steps(cfg: FedConfig, s: int, needs_draws: bool, step_draws):
 
 def make_local_update(model: Model, cfg: FedConfig) -> Callable:
     """Build ``local_update(global_params, x, y, mask, perms,
-    step_draws=None, keep=None)`` for ONE client: x [S, ...], y [S], mask
-    [S], perms (E, S) → (delta, n_samples, mean_loss). ``step_draws``: a
-    tree of (E·S/B, …) leaves, the random tree of each local step (SPSA's
-    Δ, per-example DP's noise). ``keep``: (E·S/B, B, *keep_mask.shape)
-    bools, each step's keep mask, required by a model with
-    ``apply_train``. Runs ``model.apply`` (or ``apply_train``), so it
+    step_draws=None, train_draws=None)`` for ONE client: x [S, ...], y
+    [S], mask [S], perms (E, S) → (delta, n_samples, mean_loss).
+    ``step_draws``: a tree of (E·S/B, …) leaves, the random tree of each
+    local step (SPSA's Δ, per-example DP's noise). ``train_draws``: a dict
+    of the model's ``train_draws`` streams, each (E·S/B, B, *shape), each
+    step's draws, required by a model with ``apply_train``. Runs ``model.apply`` (or ``apply_train``), so it
     serves models without ``apply_clients``, models with
     ``apply_train`` and ``QFEDX_FOLD_CLIENTS=0``."""
     tx = make_optimizer(cfg)
 
-    def loss_fn(params, global_params, xb, yb, mb, kb=None):
-        ce = _cross_entropy(_forward(model, params, xb, kb), yb)
+    def loss_fn(params, global_params, xb, yb, mb, db=None):
+        ce = _cross_entropy(_forward(model, params, xb, db), yb)
         loss = torch.sum(ce * mb) / torch.clamp(torch.sum(mb), min=1.0)
         if cfg.algorithm == "fedprox":
             loss = loss + 0.5 * cfg.prox_mu * trees.global_norm_sq(
@@ -361,12 +372,13 @@ def make_local_update(model: Model, cfg: FedConfig) -> Callable:
     grad_fn, needs_draws = _grad_route(model, cfg, loss_fn, folded=False)
 
     def local_update(global_params, x, y, mask, perms, step_draws=None,
-                     keep=None):
+                     train_draws=None):
         s = x.shape[0]
         _check_steps(cfg, s, needs_draws, step_draws)
-        if model.apply_train is not None and keep is None:
+        if model.apply_train is not None and train_draws is None:
             raise ValueError(f"model {model.name} trains through "
-                             "apply_train: pass keep, one mask per step")
+                             "apply_train: pass train_draws, one draw per "
+                             "step")
         n_batches = s // cfg.batch_size
         perms = torch.as_tensor(perms, dtype=torch.int64, device=x.device)
 
@@ -377,8 +389,10 @@ def make_local_update(model: Model, cfg: FedConfig) -> Callable:
                                               + tuple(a.shape[1:]))
                               for a in (x, y, mask))
                 for b in range(n_batches):
-                    kb = None if keep is None else keep[e * n_batches + b]
-                    yield xs[b], ys[b], ms[b], kb
+                    t = e * n_batches + b
+                    db = (None if train_draws is None
+                          else {k: v[t] for k, v in train_draws.items()})
+                    yield xs[b], ys[b], ms[b], db
 
         def draw_at(t):
             if step_draws is None:
@@ -409,7 +423,7 @@ def make_local_update_clients(model: Model, cfg: FedConfig) -> Callable:
         )
     tx = make_optimizer(cfg)
 
-    def loss_fn(cparams, global_params, xb, yb, mb, _kb=None):
+    def loss_fn(cparams, global_params, xb, yb, mb, _db=None):
         logits = forward(model, cparams, xb)  # (C, Bb, K)
         ce = _cross_entropy(logits, yb)
         loss_c = torch.sum(ce * mb, dim=1) / torch.clamp(

@@ -4,8 +4,9 @@ Counterpart of ``qfedx_tpu/fed/round.py``'s ``make_fed_round`` with one
 client block and no mesh. The cohort's C clients train FOLDED into one
 engine batch (``fed/client.make_local_update_clients``; with
 ``QFEDX_FOLD_CLIENTS=0``, a model without ``apply_clients`` (the MPS
-classifier) or one with ``apply_train`` (the TinyCNN's dropout), one
-client at a time, ``make_local_update``). Then each client's update is
+classifier) or one with ``apply_train`` (the TinyCNN's dropout, the
+noisy VQC's shots and trajectories), one client at a time,
+``make_local_update``). Then each client's update is
 post-processed in the reference's order:
 
 1. a ``byzantine`` attack: the delta times its multiplier, then
@@ -28,10 +29,11 @@ times their count, so ``_finalize_partial`` applies θ_new = θ + Σ wΔ /
 Σ w either way (with the ``min_participation`` identity).
 
 The random draws beyond the shuffles and masks (participation below
-fraction 1, DP noise, SPSA's Δ, the byzantine noise, the dropout keep
-masks) come from ``RoundDraws``. A robust rule with secure aggregation
-raises ValueError, as in the reference. More than one device (the mesh,
-waves and partial rounds) is not ported yet.
+fraction 1, DP noise, SPSA's Δ, the byzantine noise, and the draws of
+``apply_train``: the dropout keep masks, the shot uniforms and the Kraus
+branch draws) come from ``RoundDraws``. A robust rule with secure
+aggregation raises ValueError, as in the reference. More than one device
+(the mesh, waves and partial rounds) is not ported yet.
 """
 
 from __future__ import annotations
@@ -70,9 +72,15 @@ PARTICIPATION_SEED_SALT = 0x5A3D
 BYZ_SEED_SALT = 0xBAD
 SPSA_SEED_SALT = 0x59A
 EXAMPLE_SEED_SALT = 0xDE5
-# The reference has no dropout salt (its keys come from the client's
-# train key, split per epoch and per step); this one is the port's own.
+# The reference has no salts for the draws of ``apply_train`` (its keys
+# come from the client's train key, split per epoch, step and sample);
+# these are the port's own.
 DROPOUT_SEED_SALT = 0xD20
+SHOT_SEED_SALT = 0x5407
+BRANCH_SEED_SALT = 0xB4A
+_TRAIN_DRAW_SALTS = {"dropout_keep": DROPOUT_SEED_SALT,
+                     "shot_uniform": SHOT_SEED_SALT,
+                     "branch_gumbel": BRANCH_SEED_SALT}
 
 
 class RoundDraws:
@@ -92,13 +100,16 @@ class RoundDraws:
       (C, E·S/B, *leaf);
     - ``spsa_delta``: SPSA's Rademacher Δ per local step, leaves
       (C, E·S/B, *leaf);
-    - ``dropout_keep``: the keep masks of a model with ``apply_train``,
-      (C, E·S/B, B, *keep_mask.shape) bools, each True with probability
-      ``keep_mask.prob`` (salt ``DROPOUT_SEED_SALT``).
+    - the ``train_draws`` of a model with ``apply_train`` (its
+      ``models.api.StepDraw`` specs), each (C, E·S/B, B, *spec.shape):
+      ``dropout_keep`` (the TinyCNN's keep masks, bools),
+      ``shot_uniform`` (the VQC's finite-shot uniforms, f64) and
+      ``branch_gumbel`` (the VQC's Kraus branch draws, f32), each stream
+      with its own salt.
     """
 
     STREAMS = ("participation", "dp_noise", "byzantine_noise",
-               "example_noise", "spsa_delta", "dropout_keep")
+               "example_noise", "spsa_delta", *_TRAIN_DRAW_SALTS)
 
     def __init__(self, seed: int, round_idx: int, given: dict | None = None):
         unknown = set(given or {}) - set(self.STREAMS)
@@ -120,18 +131,40 @@ class RoundDraws:
             num_clients, fraction,
             self._generator(PARTICIPATION_SEED_SALT)).numpy()
 
-    def keep_masks(self, spec, clients: int, steps: int, batch: int,
-                   device) -> torch.Tensor:
-        """``dropout_keep`` for ``spec`` (a ``models.api.KeepMask``) on
-        ``device``: client c's (steps, batch, *spec.shape) uniforms from
-        its own generator, kept below ``spec.prob``."""
-        if "dropout_keep" in self.given:
-            return torch.as_tensor(np.asarray(self.given["dropout_keep"],
-                                              bool), device=device)
-        shape = (steps, batch) + tuple(spec.shape)
-        return torch.stack([
-            torch.rand(shape, generator=self._generator(DROPOUT_SEED_SALT, c))
-            < spec.prob for c in range(clients)]).to(device)
+    def train_draws(self, specs, clients: int, steps: int, batch: int,
+                    device) -> dict:
+        """The streams of ``specs`` (``models.api.StepDraw``) on
+        ``device``: client c's (steps, batch, *spec.shape) draws from its
+        own generator — "keep" uniforms below ``spec.prob``, "uniform"
+        f64 uniforms, "gumbel" −log(−log u) of f32 uniforms floored at
+        the smallest normal."""
+        out = {}
+        for spec in specs:
+            if spec.stream in self.given:
+                dtype = {"keep": bool, "uniform": np.float64}.get(
+                    spec.kind, np.float32)
+                out[spec.stream] = torch.as_tensor(
+                    np.asarray(self.given[spec.stream], dtype),
+                    device=device)
+                continue
+            shape = (steps, batch) + tuple(spec.shape)
+            per_client = []
+            for c in range(clients):
+                gen = self._generator(_TRAIN_DRAW_SALTS[spec.stream], c)
+                if spec.kind == "keep":
+                    draw = torch.rand(shape, generator=gen) < spec.prob
+                elif spec.kind == "uniform":
+                    draw = torch.rand(shape, generator=gen,
+                                      dtype=torch.float64)
+                elif spec.kind == "gumbel":
+                    u = torch.clamp(torch.rand(shape, generator=gen),
+                                    min=torch.finfo(torch.float32).tiny)
+                    draw = -torch.log(-torch.log(u))
+                else:
+                    raise ValueError(f"unknown draw kind {spec.kind!r}")
+                per_client.append(draw)
+            out[spec.stream] = torch.stack(per_client).to(device)
+        return out
 
     def tree(self, name: str, like, clients: int, steps: int | None = None):
         """Stream ``name`` as a tree shaped like ``like`` with (C[, steps])
@@ -195,9 +228,10 @@ def guards_enabled() -> bool:
 def fold_clients_enabled(model: Model, cfg: FedConfig) -> bool:
     """Fold the client axis into the engine batch? Eligible when the
     model has ``apply_clients`` and no stochastic ``apply_train``, so the
-    TinyCNN (dropout) and the MPS classifier (no ``apply_clients``)
-    train one client at a time, as in the reference, and the VQC and
-    the kernel head fold; SPSA and per-example DP fold too (their random
+    TinyCNN (dropout), the VQC under shots or circuit-level noise and the
+    MPS classifier (no ``apply_clients``) train one client at a time, as
+    in the reference, and the VQC otherwise and the kernel head fold;
+    SPSA and per-example DP fold too (their random
     trees come from outside, unlike the reference's, which keeps them on
     its vmap path).
     ``QFEDX_FOLD_CLIENTS`` pins the choice for eligible models."""
@@ -286,10 +320,10 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
     folded = fold_clients_enabled(model, cfg)
     local_update = (make_local_update_clients if folded
                     else make_local_update)(model, cfg)
-    keep_spec = model.keep_mask
+    train_specs = model.train_draws
 
     def train_clients(params, cx, cy, cmask, generator, perms, step_draws,
-                      keep):
+                      tdraws):
         if folded:
             return local_update(params, cx, cy, cmask, generator=generator,
                                 perms=perms, step_draws=step_draws)
@@ -299,7 +333,8 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
             params, cx[c], cy[c], cmask[c], perms[c],
             None if step_draws is None
             else trees.tree_map(lambda d: d[c], step_draws),
-            None if keep is None else keep[c])
+            None if tdraws is None
+            else {k: v[c] for k, v in tdraws.items()})
             for c in range(num_clients)]
         deltas = trees.tree_map(lambda *d: torch.stack(d),
                                 *(o[0] for o in outs))
@@ -328,13 +363,14 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
                     f"shape {tuple(byzantine.shape)}"
                 )
         needs_draws = (cfg.client_fraction < 1.0 or dp is not None
-                       or step_stream is not None or keep_spec is not None
+                       or step_stream is not None or bool(train_specs)
                        or (byzantine is not None
                            and bool((byzantine[:, 1] > 0).any())))
         if needs_draws and draws is None:
             raise ValueError("this round needs its RoundDraws (sampling "
-                             "below 1, DP, SPSA, a byzantine sigma or "
-                             "dropout)")
+                             "below 1, DP, SPSA, a byzantine sigma, or "
+                             "apply_train's dropout, shots or "
+                             "trajectories)")
         device = trees.tree_leaves(params)[0].device
         # Participation is decided on the host (a CPU draw), so the
         # secure-agg pair graph needs no device read.
@@ -346,14 +382,14 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
         part = torch.as_tensor(part_h, device=device)
         eff = torch.as_tensor(eff_h, device=device)
         steps = cfg.local_epochs * (cx.shape[1] // cfg.batch_size)
-        step_draws = keep = None
+        step_draws = tdraws = None
         if step_stream is not None:
             step_draws = draws.tree(step_stream, params, num_clients, steps)
-        if keep_spec is not None:
-            keep = draws.keep_masks(keep_spec, num_clients, steps,
-                                    cfg.batch_size, device)
+        if train_specs:
+            tdraws = draws.train_draws(train_specs, num_clients, steps,
+                                       cfg.batch_size, device)
         deltas, ns, losses = train_clients(params, cx, cy, cmask, generator,
-                                           perms, step_draws, keep)
+                                           perms, step_draws, tdraws)
         with torch.no_grad():
             if byzantine is not None:
                 # The adversary tampers after local training and before

@@ -1,8 +1,8 @@
 """models of the PyTorch/CUDA port (counterpart of ``qfedx_tpu/models``)."""
 
 from qfedx_tpu_torch.models.api import (  # noqa: F401
-    KeepMask,
     Model,
+    StepDraw,
     params_from_jax,
 )
 from qfedx_tpu_torch.models.cnn import make_tiny_cnn  # noqa: F401

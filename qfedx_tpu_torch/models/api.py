@@ -18,13 +18,22 @@ from qfedx_tpu_torch.utils import pins, trees
 Params = Any
 
 
-class KeepMask(NamedTuple):
-    """The keep mask ``apply_train`` takes each local step: every sample's
-    mask has ``shape`` and each entry is kept with probability ``prob``
-    (the TinyCNN's dropout: (64,), 0.5)."""
+class StepDraw(NamedTuple):
+    """One stream of draws ``apply_train`` takes at every local step, for
+    each sample of the step's batch a draw of ``shape``. ``stream`` names
+    it in ``fed/round.RoundDraws``; ``kind`` says what it holds:
 
-    prob: float
+    - "keep": bools, each True with probability ``prob`` (the TinyCNN's
+      dropout keep mask, ``dropout_keep``, (64,), 0.5);
+    - "uniform": U[0, 1) in f64 (the VQC's finite-shot uniforms,
+      ``shot_uniform``, (k,));
+    - "gumbel": standard Gumbel in f32 (the VQC's Kraus branch draws,
+      ``branch_gumbel``, (L, channels, n, 4))."""
+
+    stream: str
+    kind: str
     shape: tuple[int, ...]
+    prob: float = 1.0
 
 
 def _identity(delta: Params) -> Params:
@@ -38,11 +47,12 @@ class Model:
     - ``wrap_delta(delta) -> delta`` — post-process a parameter update
       before aggregation (VQC angle deltas wrap to [−π, π)).
     - ``apply_train`` — optional stochastic training forward
-      ``(params, x, keep) -> logits`` with ``keep`` a (B, *shape) bool
-      mask drawn as ``keep_mask`` says; None uses ``apply``. The
-      reference passes a PRNG key instead; the port's masks come from
-      ``fed/round.RoundDraws`` (or the parity tests), so the card and
-      the CPU draw the same.
+      ``(params, x, draws) -> logits`` with ``draws`` a dict from each
+      stream of ``train_draws`` to its (B, *shape) draw; None uses
+      ``apply``. The reference passes a PRNG key instead; the port's
+      draws come from ``fed/round.RoundDraws`` (or the parity tests), so
+      the card and the CPU draw the same.
+    - ``train_draws`` — the ``StepDraw`` streams ``apply_train`` takes.
     - ``apply_clients`` — optional client-folded forward
       ``(cparams, x) -> logits``: every params leaf carries a leading
       client axis C and x is [C, B, ...] → [C, B, K]. The federated round
@@ -56,7 +66,7 @@ class Model:
     wrap_delta: Callable[[Params], Params] = field(default=_identity)
     name: str = "model"
     apply_train: Callable[..., Any] | None = None
-    keep_mask: KeepMask | None = None
+    train_draws: tuple[StepDraw, ...] = ()
     apply_clients: Callable[[Params, Any], Any] | None = None
     engine: Callable[[], str] | None = None
 

@@ -20,8 +20,9 @@ TF32 off in the forward and the backward), whatever the process's
 ``torch.backends.cudnn.allow_tf32`` says; the dense layers follow the
 process's matmul settings, as every matmul of the port does.
 
-Dropout runs only in ``apply_train(params, x, keep)``: ``keep`` is the
-step's (B, 64) bool mask (``KeepMask(0.5, (64,))``, drawn by
+Dropout runs only in ``apply_train(params, x, draws)``: ``draws
+["dropout_keep"]`` is the step's (B, 64) bool mask (the ``StepDraw``
+``dropout_keep``, kept with probability 0.5, drawn by
 ``fed/round.RoundDraws``), survivors scaled by 1/0.5. ``apply`` is
 deterministic (the reference's ``train=False``).
 """
@@ -36,8 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from qfedx_tpu_torch.models.api import (  # noqa: F401 — re-exported
-    KeepMask,
     Model,
+    StepDraw,
     params_from_jax,
 )
 from qfedx_tpu_torch.utils import pins
@@ -159,14 +160,16 @@ def make_tiny_cnn(num_classes: int = 3, height: int = 28, width: int = 28,
     def apply(params: dict, x) -> torch.Tensor:
         return module(params, _features(params, x))
 
-    def apply_train(params: dict, x, keep) -> torch.Tensor:
+    def apply_train(params: dict, x, draws: dict) -> torch.Tensor:
         x = _features(params, x)
-        return module(params, x, torch.as_tensor(keep, device=x.device))
+        return module(params, x, torch.as_tensor(draws["dropout_keep"],
+                                                 device=x.device))
 
     return Model(
         init=init,
         apply=apply,
         apply_train=apply_train,
-        keep_mask=KeepMask(1.0 - module.dropout_rate, (module.hidden,)),
+        train_draws=(StepDraw("dropout_keep", "keep", (module.hidden,),
+                              1.0 - module.dropout_rate),),
         name=f"tinycnn{num_classes}c",
     )

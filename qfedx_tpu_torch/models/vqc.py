@@ -27,7 +27,29 @@ reference's routing:
 
 The reupload circuit scans its L − 1 [bank + layer] blocks (layer 0
 encodes |0…0⟩ alone), so its scan route engages one layer shallower
-(``_scan_on``). Not ported yet: noise (so ``apply_train`` is None).
+(``_scan_on``).
+
+**Noise** (``noise_model``, a ``noise.NoiseModel``), on the reference's
+routes: any noise turns the batched engine off, so ``engine()`` is
+"vmap" (the dense engine; at the slab widths its slab, and the scan-body
+kernel where the scan takes the program).
+
+- ``apply``/``apply_clients`` read the logits through ``eval_noise``:
+  the model without shots (``exact_shots``), on the L-layer composed
+  strengths under circuit placement.
+- ``apply_train(params, x, draws)`` exists with finite shots or with
+  circuit-level channels. Readout placement: the noiseless state, the
+  analytic maps, then counts from ``draws["shot_uniform"]`` (one U[0, 1)
+  per (sample, class)). The counts carry no gradient, as in the
+  reference, so the state runs without autograd (Launch A on the card)
+  and only the readout learns. Circuit placement: the trajectory
+  forward (``noisy_forward_state``) — per layer the ansatz layer, then
+  every Kraus channel on every qubit with its branch from
+  ``draws["branch_gumbel"]`` ((B, L, channels, n, 4) Gumbel draws; a
+  channel of k branches reads the first k): the channels are barriers
+  to the scan and to fusion across layers, so no kernel runs; then
+  confusion and shots only.
+- Circuit placement with the reupload encoding raises ValueError.
 
 ``params_from_jax`` (``models/api.py``) carries the reference's
 parameter pytree across (``enc_w``/``enc_b`` too), shared (L, n) or
@@ -37,10 +59,13 @@ client-stacked (C, L, n) alike.
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from qfedx_tpu_torch.circuits.ansatz import (
+    ansatz_layer,
     data_reuploading,
     data_reuploading_b,
     hardware_efficient,
@@ -56,8 +81,10 @@ from qfedx_tpu_torch.circuits.encoders import (
 from qfedx_tpu_torch.circuits.readout import init_readout_params, z_logits
 from qfedx_tpu_torch.models.api import (  # noqa: F401 — re-exported
     Model,
+    StepDraw,
     params_from_jax,
 )
+from qfedx_tpu_torch.noise.trajectory import MAX_BRANCHES, apply_channel_all
 from qfedx_tpu_torch.ops import fuse
 from qfedx_tpu_torch.ops.cpx import state_dtype
 from qfedx_tpu_torch.ops.batched import (
@@ -101,11 +128,13 @@ def make_vqc_classifier(
     init_scale: float = 0.1,
     remat: bool = False,
     device=None,
+    noise_model=None,
 ) -> Model:
     """Build the VQC classifier Model. Input features: (B, n_qubits) in
     [0,1] for the angle and reupload encodings, (B, 2^n_qubits) for
     amplitude. ``remat`` checkpoints each ansatz layer (the dense route).
-    ``device=None`` means the card and raises without one."""
+    ``noise_model``: an optional ``noise.NoiseModel`` between circuit and
+    readout. ``device=None`` means the card and raises without one."""
     if num_classes > n_qubits:
         raise ValueError(f"need n_qubits ≥ num_classes ({num_classes})")
     if encoding not in ("angle", "amplitude", "reupload"):
@@ -121,6 +150,21 @@ def make_vqc_classifier(
             stacklevel=2,
         )
     dev = pins.resolve_device(device)
+    channels = ([] if noise_model is None
+                else noise_model.kraus_channels(dev))
+    circuit_noise = (noise_model is not None and noise_model.circuit_level
+                     and len(channels) > 0)
+    if circuit_noise and encoding == "reupload":
+        raise ValueError("circuit-level noise supports angle/amplitude "
+                         "encodings")
+    # The deterministic forward's noise: no shots (apply carries no
+    # draws), and under circuit placement the L-layer composed strengths,
+    # so evaluation tracks the channel the model trained under.
+    eval_noise = None
+    if noise_model is not None:
+        eval_noise = noise_model.exact_shots()
+        if circuit_noise:
+            eval_noise = eval_noise.composed(n_layers)
 
     def init(seed) -> dict:
         """Parameters on the model's device; ``seed`` as in
@@ -136,7 +180,7 @@ def make_vqc_classifier(
         """The engine ``apply`` runs now (pins are read at every call):
         "batched" or "vmap"; ``apply_clients`` runs "folded" in place of
         "batched"."""
-        if remat or not batched_enabled(n_qubits):
+        if noise_model is not None or remat or not batched_enabled(n_qubits):
             return "vmap"
         return "batched"
 
@@ -164,16 +208,23 @@ def make_vqc_classifier(
         return torch.as_tensor(x, dtype=torch.float32,
                                device=params["ansatz"]["rx"].device)
 
+    def _encode(x):
+        return (angle_encode(x, basis) if encoding == "angle"
+                else amplitude_encode(x))
+
+    def _state_dense(params, x):
+        a = params["ansatz"]
+        if encoding == "reupload":
+            return data_reuploading(x, a, remat=remat)
+        return hardware_efficient(_encode(x), n_qubits, a, remat=remat)
+
     def _apply_dense(params, x):
         """(*lead, feat) features with (*g, …) parameters, g a prefix of
         lead → (*lead, k) logits through the dense engine."""
-        a = params["ansatz"]
-        if encoding == "reupload":
-            state = data_reuploading(x, a, remat=remat)
-        else:
-            enc = (angle_encode(x, basis) if encoding == "angle"
-                   else amplitude_encode(x))
-            state = hardware_efficient(enc, n_qubits, a, remat=remat)
+        state = _state_dense(params, x)
+        if eval_noise is not None:
+            return eval_noise.noisy_logits(state, params["readout"],
+                                           n=n_qubits)
         return z_logits(state, params["readout"], n_qubits)
 
     def apply(params: dict, x) -> torch.Tensor:
@@ -203,11 +254,64 @@ def make_vqc_classifier(
             + cparams["readout"]["bias"][:, None, :]
         )
 
+    def noisy_forward_state(params, x, gumbel):
+        """The trajectory forward on (B, feat) features: per layer the
+        ansatz layer (checkpointed under ``remat``), then every channel
+        on every qubit, branches from ``gumbel`` (B, L, channels, n, 4)."""
+        state = _encode(x)
+        a = params["ansatz"]
+        for layer in range(a["rx"].shape[-2]):
+            rx, rz = a["rx"][..., layer, :], a["rz"][..., layer, :]
+            if remat:
+                state = checkpoint(ansatz_layer, state, n_qubits, rx, rz,
+                                   use_reentrant=False)
+            else:
+                state = ansatz_layer(state, n_qubits, rx, rz)
+            for ci, kraus in enumerate(channels):
+                state = apply_channel_all(state, kraus,
+                                          gumbel[:, layer, ci], n_qubits)
+        return state
+
+    apply_train = None
+    train_draws = ()
+    if circuit_noise or (noise_model is not None
+                         and noise_model.shots is not None):
+        # Under circuit placement the channels already acted on the
+        # state: readout applies confusion and shots only.
+        readout_noise = (replace(noise_model, depolarizing_p=0.0,
+                                 amp_damping_gamma=0.0)
+                         if circuit_noise else noise_model)
+        shots = noise_model.shots is not None
+        train_draws = ((StepDraw("shot_uniform", "uniform",
+                                 (num_classes,)),) if shots else ())
+        if circuit_noise:
+            train_draws += (StepDraw(
+                "branch_gumbel", "gumbel",
+                (n_layers, len(channels), n_qubits, MAX_BRANCHES)),)
+
+        def apply_train(params: dict, x, draws: dict) -> torch.Tensor:
+            x = _features(params, x)
+            # Shot counts carry no gradient, so with shots no parameter
+            # but the readout's reaches the loss: the state runs without
+            # autograd.
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and not shots):
+                if circuit_noise:
+                    state = noisy_forward_state(
+                        params, x, torch.as_tensor(draws["branch_gumbel"],
+                                                   device=x.device))
+                else:
+                    state = _state_dense(params, x)
+            return readout_noise.noisy_logits(
+                state, params["readout"], draws.get("shot_uniform"),
+                n=n_qubits)
+
     return Model(
         init=init,
         apply=apply,
         wrap_delta=wrap_delta,
-        apply_train=None,
+        apply_train=apply_train,
+        train_draws=train_draws,
         apply_clients=apply_clients,
         name=f"vqc{n_qubits}q{n_layers}l-{encoding}",
         engine=engine,

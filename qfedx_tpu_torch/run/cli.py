@@ -16,10 +16,12 @@ fedprox`` with ``--prox-mu``, ``--secure-agg[-mode|-neighbors]``,
 ``--dp-clip/--dp-sigma/--dp-mode client|example`` (the summary's
 ``final_epsilon``), ``--aggregator``, ``--clip-bound``,
 ``--trim-fraction``, ``--client-fraction`` and ``--optimizer spsa`` —
+and the VQC's noise flags (``--depolarizing``, ``--damping``,
+``--readout-flip``, ``--shots``, ``--noise-placement readout|circuit``)
 run. Not ported yet, each raising NotImplementedError: ``--plots``,
 ``--profile``, ``--trace`` and ``--tuned`` (ROADMAP Queue 1 item 14);
-the staleness settings (item 9); sharding and noise on the VQC
-(``run/config.build_model``, items 12 and 10); and the ``tune``,
+the staleness settings (item 9); sharding (``run/config.build_model``,
+item 12); and the ``tune``,
 ``inspect``, ``demo``, ``sweep`` and ``bench`` subcommands (item 14) and
 ``lint`` (item 15).
 """
@@ -297,7 +299,7 @@ def config_from_args(a: argparse.Namespace) -> ExperimentConfig:
 
 def _refuse_unported_train_flags(a: argparse.Namespace) -> None:
     """Flags whose paths the port does not have yet raise; they never
-    silently run something else. (Sharding and noise raise in
+    silently run something else. (Sharding raises in
     ``run/config.build_model``.)"""
     for flag, on, item in (
         ("--plots", a.plots, 14), ("--profile", a.profile, 14),

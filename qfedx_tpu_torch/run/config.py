@@ -10,11 +10,11 @@ card unless a caller passes another).
 
 ``build_model`` builds every model family: the VQC at every width and
 encoding (the dense engine below n = 10, the batched one above;
-``remat`` passes through), the TinyCNN at the dataset's image shape,
-the MPS classifier and the quantum-kernel head, with the reference's
-ValueErrors (mps with a non-angle encoding, noise or ``sv_size > 1``;
-qkernel with noise). The sv-sharded engine (ROADMAP Queue 1 item 12)
-and noise on the VQC (item 10) raise NotImplementedError.
+``remat`` passes through) with its ``NoiseModel`` when any noise flag is
+on, the TinyCNN at the dataset's image shape, the MPS classifier and the
+quantum-kernel head, with the reference's ValueErrors (mps with a
+non-angle encoding, noise or ``sv_size > 1``; qkernel with noise). The
+sv-sharded engine (ROADMAP Queue 1 item 12) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -224,9 +224,17 @@ def build_model(cfg: ExperimentConfig, num_classes: int, device=None):
             "sv_size > 1 (the sharded statevector) is not ported yet "
             "(ROADMAP Queue 1 item 12)"
         )
+    noise_model = None
     if noisy:
-        raise NotImplementedError(
-            "noise is not ported yet (ROADMAP Queue 1 item 10)"
+        from qfedx_tpu_torch.noise.channels import NoiseModel
+
+        noise_model = NoiseModel(
+            depolarizing_p=m.depolarizing_p,
+            amp_damping_gamma=m.amp_damping_gamma,
+            readout_e01=m.readout_flip,
+            readout_e10=m.readout_flip,
+            shots=m.shots,
+            circuit_level=(m.noise_placement == "circuit"),
         )
     from qfedx_tpu_torch.models.vqc import make_vqc_classifier
 
@@ -238,6 +246,7 @@ def build_model(cfg: ExperimentConfig, num_classes: int, device=None):
         init_scale=m.init_scale,
         remat=m.remat,
         device=device,
+        noise_model=noise_model,
     )
 
 

@@ -5,12 +5,14 @@ the arrays the reference's round program draws from its round key and
 inject them into the port: the shuffles (``perms``) and the streams of
 ``qfedx_tpu_torch.fed.round.RoundDraws`` (participation, client-mode DP
 noise, the byzantine noise, per-example DP noise and SPSA's Rademacher
-Δ per local step). Each function follows the derivation in
+Δ per local step, and the noisy VQC's Kraus branch draws and shot
+uniforms). Each function follows the derivation in
 ``qfedx_tpu/fed/{round,client,sampling,privacy}.py`` and
 ``qfedx_tpu/utils/trees.tree_random_normal``.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -106,3 +108,66 @@ def round_streams(round_key, params, cfg, clients, samples):
         out[kind] = step_stream(round_key, params, clients, cfg.local_epochs,
                                 samples, cfg.batch_size, kind)
     return out
+
+
+# --- the noisy VQC's draws (``shot_uniform``, ``branch_gumbel``) -------------
+
+
+def sample_keys(bk, batch, route="plain"):
+    """The per-sample keys the reference's ``apply_train`` uses at the
+    step key ``bk``: ``split(key, B)`` of the key the route hands it —
+    ``bk`` itself, SPSA's shared forward key (``fold_in(bk, 0x59A)``'s
+    second split), or under per-example DP example i's own key (the i-th
+    split of ``fold_in(bk, 0xDE5)``'s second split, then ``split(·, 1)``
+    inside the one-sample ``apply_train``)."""
+    if route == "plain":
+        return list(jax.random.split(bk, batch))
+    if route == "spsa":
+        k_fwd = jax.random.split(jax.random.fold_in(bk, 0x59A))[1]
+        return list(jax.random.split(k_fwd, batch))
+    k_fwd = jax.random.split(jax.random.fold_in(bk, 0xDE5))[1]
+    return [jax.random.split(k, 1)[0]
+            for k in jax.random.split(k_fwd, batch)]
+
+
+def _gumbel_block(k_traj, n_layers, branches, n):
+    rows = []
+    for layer in range(n_layers):
+        for ci, k in enumerate(branches):
+            qkeys = jax.random.split(jax.random.fold_in(k_traj,
+                                                        layer * 8 + ci), n)
+            g = jax.vmap(lambda kq, k=k: jax.random.gumbel(
+                kq, (k,), jnp.float32))(qkeys)
+            rows.append(jnp.pad(g, ((0, 0), (0, 4 - k))))
+    return jnp.stack(rows).reshape(n_layers, len(branches), n, 4)
+
+
+_gumbel_blocks = jax.jit(jax.vmap(_gumbel_block, (0, None, None, None)),
+                         static_argnums=(1, 2, 3))
+
+
+def branch_gumbel(keys, n_layers, branches, n):
+    """(B, L, channels, n, 4) f32: the Gumbel draws behind the
+    reference's ``jax.random.categorical`` branch choices for per-sample
+    keys ``keys`` (``split(k)[0]`` is the trajectory key;
+    ``fold_in(·, layer·8 + channel)`` keys a layer's channel,
+    ``split(·, n)`` its qubits); ``branches`` lists each channel's k, and
+    the unused entries of a k < 4 channel are 0."""
+    k_traj = jnp.stack([jax.random.split(k)[0] for k in keys])
+    return np.asarray(_gumbel_blocks(k_traj, n_layers, tuple(branches), n))
+
+
+def binomial_cdf(c, shots, p):
+    """F(c) = P(X ≤ c) for X ~ Binomial(shots, p), in f64 (F(−1) = 0)."""
+    from scipy.stats import binom
+
+    return binom.cdf(np.asarray(c, np.float64), shots,
+                     np.asarray(p, np.float64))
+
+
+def shot_uniforms(counts, p0, shots):
+    """The U[0, 1) that the port's inverse CDF maps to ``counts`` at
+    ``p0``: the middle of [F(c−1), F(c))."""
+    lo = binomial_cdf(np.asarray(counts) - 1, shots, p0)
+    hi = binomial_cdf(counts, shots, p0)
+    return (lo + hi) / 2.0

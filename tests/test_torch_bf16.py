@@ -50,6 +50,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+import threadpoolctl
 import torch
 
 from qfedx_tpu.circuits import ansatz as ransatz
@@ -91,6 +92,22 @@ BF16_GRAD_RTOL = 0.05
 REF_Z_ATOL = 3e-2  # tests/test_bf16.py:117
 REF_GRAD_RTOL = 0.12  # tests/test_bf16.py:134
 TB = 4
+# The reference's launches and their gradient run jitted: its eager
+# interpreted kernel dispatches every op of every grid step on its own.
+_ref_run = jax.jit(rpb._run, static_argnums=(0, 3))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors, in torch and in
+    numpy's BLAS (the programs' random unitaries come from its QR): the
+    suite runs several workers on one CPU, where each library's default
+    pool per worker oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)
@@ -263,7 +280,8 @@ def test_executor_parity_bf16(case, n, grouped):
     rng = np.random.default_rng([sorted(EXECUTORS).index(case), n, grouped])
     rstate, ostate = _state(n, seed=int(rng.integers(1 << 30)))
     rc, oc = _pair(*build(rng, n, (TB,) if grouped else ()))
-    _close_c(call(rbt, rstate, n, rc), call(bt, ostate, n, oc))
+    ref = jax.jit(lambda st, c: call(rbt, st, n, c))(rstate, rc)
+    _close_c(ref, call(bt, ostate, n, oc))
 
 
 @pytest.mark.parametrize("n", [10, 12])
@@ -397,7 +415,7 @@ def test_plain_sweep_matches_reference_kernel_bf16(n, groups):
     (rspec, rpacked, rxs), (ospec, opacked, oxs) = _kernel_inputs(
         n, rprog, oprog, seed=n)
     assert ospec.dtype == "bfloat16" and opacked.dtype == torch.bfloat16
-    rfinal, rbnd = rpb._run(rspec, rpacked, rxs, with_boundaries=True)
+    rfinal, rbnd = _ref_run(rspec, rpacked, rxs, True)
     final, bnd = scan_body.scan_body(opacked, ospec, oxs,
                                      with_boundaries=True)
     assert final.dtype == bnd.dtype == torch.bfloat16
@@ -408,7 +426,7 @@ def test_plain_sweep_matches_reference_kernel_bf16(n, groups):
     rcot, ocot = _state(n, seed=n + 100)
     rcot = jnp.stack([rcot.re, rcot.im]).reshape(rpacked.shape)
     ocot = torch.stack([ocot.re, ocot.im]).reshape(opacked.shape)
-    rstate_cot, rcbnd = rpb._run(rpb._adjoint_spec(rspec), rcot,
+    rstate_cot, rcbnd = _ref_run(rpb._adjoint_spec(rspec), rcot,
                                  rpb._adjoint_xs(rspec, rxs), True)
     state_cot, cbnd = scan_body.scan_body(
         ocot, scan_body._adjoint_spec(ospec),
@@ -426,7 +444,7 @@ def test_plain_sweep_matches_reference_kernel_bf16_hea():
     rprog, oprog = _hea_programs(12, 3, 2, seed=12)
     (rspec, rpacked, rxs), (ospec, opacked, oxs) = _kernel_inputs(
         12, rprog, oprog, seed=3)
-    want = rpb._pallas_scan(rspec, rpacked, rxs)
+    want = jax.jit(rpb._pallas_scan, static_argnums=0)(rspec, rpacked, rxs)
     same = tuple(TC(*(None if p is None else torch.tensor(np.asarray(p))
                       for p in (c.re, c.im))) for c in rxs)
     np.testing.assert_array_equal(
@@ -453,7 +471,8 @@ def test_function_grads_match_reference_bf16(groups):
         out = rpb._pallas_scan(rspec, packed, xs).astype(jnp.float32)
         return jnp.sum(jnp.asarray(w) * out ** 2)
 
-    rg_state, rg_xs = jax.grad(loss, argnums=(0, 1))(rpacked, rxs)
+    rg_state, rg_xs = jax.jit(jax.grad(loss, argnums=(0, 1)))(rpacked,
+                                                               rxs)
     rflat = [p for c in rg_xs for p in (c.re, c.im) if p is not None]
     packed = opacked.clone().requires_grad_(True)
     flat = [p.clone().requires_grad_(True) for p in scan_body._flatten(oxs)]

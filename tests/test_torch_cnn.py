@@ -48,7 +48,7 @@ from qfedx_tpu.run import checkpoint as rckpt
 from qfedx_tpu_torch.fed.client import make_local_update
 from qfedx_tpu_torch.fed.config import DPConfig, FedConfig
 from qfedx_tpu_torch.fed.round import RoundDraws, make_fed_round
-from qfedx_tpu_torch.models.api import KeepMask, Model
+from qfedx_tpu_torch.models.api import Model, StepDraw
 from qfedx_tpu_torch.models.cnn import make_tiny_cnn, params_from_jax
 from qfedx_tpu_torch.run import checkpoint as pckpt
 from qfedx_tpu_torch.run import cli as pcli
@@ -148,7 +148,8 @@ def test_apply_train_matches_reference_mask():
     bk = jax.random.PRNGKey(17)
     keep = ref_keep(bk, 6, shape)
     assert 0 < keep.mean() < 1
-    got = model.apply_train(params, x, torch.as_tensor(keep)).numpy()
+    got = model.apply_train(
+        params, x, {"dropout_keep": torch.as_tensor(keep)}).numpy()
     want = np.asarray(rmodel.apply_train(rparams, jnp.asarray(x), bk))
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
     # Dropout is on: the training forward is not the evaluation one.
@@ -205,14 +206,14 @@ def test_round_needs_its_draws_for_dropout():
 
 
 def test_dropout_keep_stream_is_seeded_per_client():
-    spec = KeepMask(0.5, (64,))
-    a = RoundDraws(7, 3).keep_masks(spec, 3, 5, 8, "cpu")
-    b = RoundDraws(7, 3).keep_masks(spec, 3, 5, 8, "cpu")
+    spec = (StepDraw("dropout_keep", "keep", (64,), 0.5),)
+    a = RoundDraws(7, 3).train_draws(spec, 3, 5, 8, "cpu")["dropout_keep"]
+    b = RoundDraws(7, 3).train_draws(spec, 3, 5, 8, "cpu")["dropout_keep"]
     assert a.shape == (3, 5, 8, 64) and a.dtype == torch.bool
     assert torch.equal(a, b)
     assert not torch.equal(a[0], a[1])
-    assert not torch.equal(a, RoundDraws(7, 4).keep_masks(spec, 3, 5, 8,
-                                                          "cpu"))
+    assert not torch.equal(a, RoundDraws(7, 4).train_draws(
+        spec, 3, 5, 8, "cpu")["dropout_keep"])
     assert abs(float(a.float().mean()) - 0.5) < 0.05
 
 
@@ -234,12 +235,14 @@ def _toy_pair(n_features=3, classes=2):
     def apply(p, x):
         return x @ p["w"] + p["b"]
 
-    def apply_train(p, x, keep):
-        return torch.where(keep, 2.0 * apply(p, x), torch.zeros(()))
+    def apply_train(p, x, draws):
+        return torch.where(draws["dropout_keep"], 2.0 * apply(p, x),
+                           torch.zeros(()))
 
     rmodel = RModel(init=None, apply=r_apply, apply_train=r_apply_train)
     model = Model(init=None, apply=apply, apply_train=apply_train,
-                  keep_mask=KeepMask(0.5, (classes,)))
+                  train_draws=(StepDraw("dropout_keep", "keep", (classes,),
+                                        0.5),))
     rng = np.random.default_rng(9)
     params = {"b": np.zeros(classes, np.float32),
               "w": rng.normal(size=(n_features, classes)).astype(np.float32)}
@@ -264,7 +267,8 @@ def test_one_client_update_honours_apply_train():
     update = make_local_update(model, FedConfig(**kw))
     tp = {k: torch.as_tensor(v) for k, v in params.items()}
     data = [torch.as_tensor(a) for a in (x, y, m)]
-    gd, gn, gl = update(tp, *data, perms, keep=torch.as_tensor(keep))
+    gd, gn, gl = update(tp, *data, perms,
+                        train_draws={"dropout_keep": torch.as_tensor(keep)})
     _close(gd, jax.tree.map(np.asarray, wd), ATOL)
     assert abs(float(gl) - float(wl)) <= ATOL and float(gn) == float(wn)
     # The old route (``model.apply`` only) gives another loss.
@@ -272,7 +276,7 @@ def test_one_client_update_honours_apply_train():
                               FedConfig(**kw))
     _, _, pl = plain(tp, *data, perms)
     assert abs(float(pl) - float(wl)) > 1e-3
-    with pytest.raises(ValueError, match="keep"):
+    with pytest.raises(ValueError, match="train_draws"):
         update(tp, *data, perms)
 
 
@@ -318,7 +322,8 @@ def test_apply_train_on_spsa_and_per_example_dp(route):
     gd, _, gl = make_local_update(model, FedConfig(**pkw))(
         {k: torch.as_tensor(v) for k, v in params.items()},
         *(torch.as_tensor(a) for a in (x, y, m)), perms,
-        step_draws=step_draws, keep=torch.as_tensor(keep))
+        step_draws=step_draws,
+        train_draws={"dropout_keep": torch.as_tensor(keep)})
     _close(gd, jax.tree.map(np.asarray, wd), ATOL)
     assert abs(float(gl) - float(wl)) <= ATOL
 

@@ -36,6 +36,18 @@ from qfedx_tpu_torch.ops import gates
 from qfedx_tpu_torch.ops import statevector as sv
 from qfedx_tpu_torch.ops.cpx import CArray
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs
+    several workers on one CPU, where torch's default pool per worker
+    oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ATOL = 1e-6
 BF16_RTOL = 1e-3
 BF16_DOT_RTOL = 1.5e-2

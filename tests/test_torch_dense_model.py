@@ -56,6 +56,18 @@ from qfedx_tpu_torch.run.trainer import train_federated
 from qfedx_tpu_torch.serve.engine import ServeEngine
 from qfedx_tpu_torch.utils import trees
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs
+    several workers on one CPU, where torch's default pool per worker
+    oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 FUSE_ATOL = 2e-6
 ATOL = 2e-5
 SGD_ATOL = 1e-5

@@ -54,6 +54,18 @@ from qfedx_tpu_torch.models.vqc import make_vqc_classifier, params_from_jax
 from qfedx_tpu_torch.ops import scan_body
 from qfedx_tpu_torch.utils import trees
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs
+    several workers on one CPU, where torch's default pool per worker
+    oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 N, L, C, S, BATCH, E = 10, 2, 2, 8, 4, 1
 SGD_ATOL = 1e-5
 ADAM_ATOL = 1e-4

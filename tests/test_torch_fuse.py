@@ -24,6 +24,18 @@ from qfedx_tpu_torch.circuits import ansatz
 from qfedx_tpu_torch.ops import fuse, scan_body
 from qfedx_tpu_torch.ops.cpx import CArray as TC
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs
+    several workers on one CPU, where torch's default pool per worker
+    oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 VALUE_ATOL = 1e-6
 
 

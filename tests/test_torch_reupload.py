@@ -394,7 +394,8 @@ def test_plain_sweep_matches_interpreted_kernel(n, tb, clients, monkeypatch):
     Pallas kernel in interpret mode."""
     (rstate, rprog), (ostate, oprog) = _kernel_inputs(n, tb, clients,
                                                       monkeypatch)
-    want = rpb.apply_scan_pallas(rstate, n, rprog, batched=True)
+    want = jax.jit(lambda st: rpb.apply_scan_pallas(
+        st, n, rprog, batched=True))(rstate)
     got = scan_body.apply_scan_pallas(ostate, n, oprog, batched=True)
     _close_state(got, want, KERNEL_ATOL, "Launch A")
     spec = scan_body._build_spec(ostate, n, oprog, True)
@@ -432,7 +433,8 @@ def test_function_grads_match_reference(n, tb, clients, monkeypatch):
         return jnp.sum(jnp.asarray(w) * rpb._pallas_scan(rspec, packed,
                                                          xs) ** 2)
 
-    rg_state, rg_xs = jax.grad(loss, argnums=(0, 1))(rpacked, rxs)
+    rg_state, rg_xs = jax.jit(jax.grad(loss, argnums=(0, 1)))(rpacked,
+                                                               rxs)
     rflat = [q for c in rg_xs for q in (c.re, c.im) if q is not None]
     packed = opacked.clone().requires_grad_(True)
     flat = [q.clone().requires_grad_(True) for q in scan_body._flatten(oxs)]

@@ -26,10 +26,13 @@ that require grad go through ``ScanBodyFn``, and the packed
 descriptor/coefficient layout the kernel reads is consistent.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from qfedx_tpu.circuits import ansatz as ransatz
@@ -42,6 +45,22 @@ from qfedx_tpu_torch.ops.cpx import CArray as TC
 
 ATOL = 1e-5
 TB = 4
+# The reference's launches and their gradient run jitted: its eager
+# interpreted kernel dispatches every op of every grid step on its own.
+_ref_run = jax.jit(rpb._run, static_argnums=(0, 3))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors, in torch and in
+    numpy's BLAS (the programs' random unitaries come from its QR): the
+    suite runs several workers on one CPU, where each library's default
+    pool per worker oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(1):
+        yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)
@@ -421,9 +440,11 @@ KINDS_CASES = [(None, False), (2, False), (None, True), (2, True)]
 KINDS_IDS = ["G1", "G2", "G1-real", "G2-real"]
 
 
+@functools.lru_cache(maxsize=None)
 def _kinds_inputs(groups, real, seed=21):
     """The all-kinds program at n=10, L=2 on both sides: (reference spec,
-    packed, xs), (port spec, packed, xs)."""
+    packed, xs), (port spec, packed, xs). Built once per case for the
+    tests that share it, none of which writes to it."""
     n = 10
     rprog, oprog = _kinds_programs(n, 2, groups, seed=seed, real=real)
     rstate, ostate = _state(n, seed=seed + 1)
@@ -449,7 +470,7 @@ def _close(got, want, atol, what=""):
 def test_boundaries_match_reference_launch_b(groups, real):
     (rspec, rpacked, rxs), (ospec, opacked, oxs) = _kinds_inputs(groups,
                                                                   real)
-    rfinal, rbnd = rpb._run(rspec, rpacked, rxs, with_boundaries=True)
+    rfinal, rbnd = _ref_run(rspec, rpacked, rxs, True)
     final, bnd = scan_body.scan_body(opacked, ospec, oxs,
                                      with_boundaries=True)
     assert tuple(bnd.shape) == tuple(rbnd.shape) == (2, 2, TB, 8, 128)
@@ -512,7 +533,8 @@ def test_function_grads_match_reference(groups, real):
         return jnp.sum(jnp.asarray(w) * rpb._pallas_scan(rspec, packed,
                                                          xs) ** 2)
 
-    rg_state, rg_xs = jax.grad(loss, argnums=(0, 1))(rpacked, rxs)
+    rg_state, rg_xs = jax.jit(jax.grad(loss, argnums=(0, 1)))(rpacked,
+                                                               rxs)
     rflat = [p for c in rg_xs for p in (c.re, c.im) if p is not None]
     (g_state, *g_flat), _ = _port_grads(ospec, opacked, oxs, w, "function")
     assert len(g_flat) == len(rflat)

@@ -33,6 +33,18 @@ from qfedx_tpu_torch.serve import (
     persistent_forward,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs
+    several workers on one CPU, where torch's default pool per worker
+    oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ATOL = 2e-5
 N = 10  # batcher tests: the narrowest slab width keeps them quick
 

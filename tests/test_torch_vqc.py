@@ -27,6 +27,18 @@ from qfedx_tpu.ops import fuse as rfuse
 from qfedx_tpu_torch.fed.client import _cross_entropy
 from qfedx_tpu_torch.models.vqc import make_vqc_classifier, params_from_jax
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs
+    several workers on one CPU, where torch's default pool per worker
+    oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ATOL = 2e-5
 
 
