@@ -56,10 +56,10 @@ Phases (any failure raises and exits non-zero):
    ``ScanBodyFn``'s cotangents against their plain versions, each line
    naming K, CTAs and waves, and time them;
 8. ``[cli-train]``: run ``python -m qfedx_tpu_torch train`` (CLI_ARGV, in
-   this process, so that the counters can be read) on the card and the
-   same argv on the CPU: a complete run directory (config.json, schema-1
-   metrics.jsonl rows, summary.json, checkpoints whose sha256 verify),
-   per-round loss and the final θ card vs CPU within
+   this process, so that the counters can be read) on the card and its
+   first CPU_TWIN_ROUNDS round(s) on the CPU: a complete run directory
+   (config.json, schema-1 metrics.jsonl rows, summary.json, checkpoints
+   whose sha256 verify), those rounds' loss and θ card vs CPU within
    TRAINED_LOGIT_ATOL, accuracy within one evaluation sample, exactly
    E·S_pad/B Launch-B and as many Launch-C launches per round, Launch A
    only from evaluation, and no build after round 1; print each round's
@@ -123,7 +123,9 @@ Phases (any failure raises and exits non-zero):
    forward at the buckets (host clock, with ``torch.profiler``'s device
    kernels per forward and their device time) and one local step at the
    CLI's shape;
-14. the reupload and amplitude encodings and secure aggregation:
+14. the reupload and amplitude encodings and secure aggregation (the
+   CLI runs of phases 14, 15 and 17 run their first CPU_TWIN_ROUNDS
+   round(s) on the CPU, held against the same rounds on the card):
    ``[reupload-parity]`` (and its bf16 twin) holds Launches A, B and C
    against their plain versions on the port's own reupload programs —
    served (per-sample stacks, G = tb) at n = 10, 12, 15 for tb = 1, 8,
@@ -199,13 +201,36 @@ Phases (any failure raises and exits non-zero):
    their first TRAJECTORY_TWINS against the CPU; ``[noise-probe]`` counts
    the launches of one evaluation and one local step under each noise
    mode (NOISE_PROBE, the port's column of the CPU test's probe);
-18. print one JSON line describing each launch of the kernel, f32 and
+18. streamed waves and staleness (``run/trainer.
+   train_federated_streamed``): ``[streamed]`` trains bench.py's streamed
+   row at full size (a 2^20-client ``SyntheticRegistry``, cohort 4096 in
+   16 waves of 256, the n = 8, L = 3 VQC, Adam, client fraction 0.5,
+   ring masks; depth 1) for 3 rounds — no kernel launch, every update
+   finite — printing each round's wall, client-rounds/s over the rounds
+   after the first, comm_mb_per_round, the peak device memory and the
+   sync/overlap ratio against 2 rounds at QFEDX_STREAM=0; one round of
+   a cohort of 512 (2 waves) on the card and the CPU agrees on the
+   logits and the loss within TRAINED_LOGIT_ATOL;
+   ``[streamed-kernel]`` trains the n = 12, L = 3 VQC (cohort 256 of a
+   2^16-client registry in waves of 32, batch 8, 3 rounds): exactly one
+   Launch B and one C per wave per local step, A only in evaluation, no
+   build after round 1, the logits and loss of one round of a cohort of
+   64 card vs CPU within TRAINED_LOGIT_ATOL (θ printed:
+   one Adam step is a sign step on the zero-gradient angles), and A, B
+   and C held and B and C timed on a wave's own program; ``[streamed-stale]`` runs QFEDX_STALE=1 at n = 12
+   (cohort 64 in waves of 16) with one wave of round 1 held past the
+   0.5 s wave deadline by a gated registry and released when round 1
+   ends (late in round 1, folded in at age 1 in round 2; SGD, θ card vs
+   CPU within TRAINED_LOGIT_ATOL), then a registry that fails one wave
+   under ring masks (the wave dropped; θ within MASK_ATOL of the round
+   with its clients as non-survivors and no masks);
+19. print one JSON line describing each launch of the kernel, f32 and
    bf16 instances (launches on the CLI run, and per path, the dense,
-   reupload, amplitude, config-4, federation-option, model-family and
-   noise paths included;
+   reupload, amplitude, config-4, federation-option, model-family,
+   noise and streamed paths included;
    max error; kernel-alone, plain and bound at the CLI run's shape, and
    at the earlier slices', the reupload, SPSA and per-example shapes);
-19. print the final ``{"ok": true, "device": {...}}`` line.
+20. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -1519,9 +1544,10 @@ def _batches(n: int) -> int:
 
 def phase_cli_train(root, shapes: dict) -> dict:
     """``python -m qfedx_tpu_torch train`` (in-process) on the card, then
-    the same argv on the CPU: a complete run directory, every row on the
-    schema, the card's rounds against the CPU's, the launches each round
-    makes, and no build after the first round."""
+    its first CPU_TWIN_ROUNDS rounds on the CPU: a complete run
+    directory, every row on the schema, those rounds and their θ against
+    the CPU's, the launches each round makes, and no build after the
+    first round."""
     from qfedx_tpu_torch.models.vqc import make_vqc_classifier
     from qfedx_tpu_torch.ops import scan_body
     from qfedx_tpu_torch.run.checkpoint import Checkpointer
@@ -1532,13 +1558,15 @@ def phase_cli_train(root, shapes: dict) -> dict:
     wall = time.perf_counter() - t0
     run = root / "smoke"
     t0 = time.perf_counter()
+    cpu_argv, cpu_rounds = twin_argv(CLI_ARGV)
     cpu_summary, _, _, _ = cli_train(
-        CLI_ARGV + ["--run-root", str(root / "cpu"), "--name", "smoke"],
+        cpu_argv + ["--run-root", str(root / "cpu"), "--name", "smoke"],
         "cpu")
     cpu_wall = time.perf_counter() - t0
     cpu_run = root / "cpu" / "smoke"
     print(f"[cli-train] {' '.join(argv)}: card {wall:.2f} s, cpu "
-          f"{cpu_wall:.2f} s (host clock, in-process); {shapes['clients']} "
+          f"{cpu_wall:.2f} s for {cpu_rounds} round(s) (host clock, "
+          f"in-process); {shapes['clients']} "
           f"clients x S_pad={shapes['s_pad']}, {shapes['steps']} local steps "
           f"per round at tb={shapes['clients'] * TRAIN_BATCH}; eval sets "
           f"{shapes['n_val']} (val) / {shapes['n_test']} (test)")
@@ -1565,16 +1593,18 @@ def phase_cli_train(root, shapes: dict) -> dict:
                  f"round {row['round']} accuracy, card vs cpu")
     template = make_vqc_classifier(N_QUBITS, N_LAYERS, 2,
                                    device="cpu").init(0)
-    theta = ckpt.restore(CLI_ROUNDS, template)
-    cpu_theta = Checkpointer(cpu_run / "checkpoints").restore(CLI_ROUNDS,
+    theta = ckpt.restore(cpu_rounds, template)
+    cpu_theta = Checkpointer(cpu_run / "checkpoints").restore(cpu_rounds,
                                                               template)
     theta_err = _max_err(
         [v for d in theta.values() for v in d.values()],
         [v for d in cpu_theta.values() for v in d.values()])
-    print(f"[cli-train] final theta max|card-cpu|={theta_err:.3e} (atol "
+    print(f"[cli-train] theta after round {cpu_rounds} max|card-cpu|="
+          f"{theta_err:.3e} (atol "
           f"{TRAINED_LOGIT_ATOL:g}); summary card {json.dumps(summary)}; "
-          f"cpu final_accuracy {cpu_summary['final_accuracy']!r}")
-    _require(theta_err, TRAINED_LOGIT_ATOL, "final theta, card vs cpu")
+          f"cpu final_accuracy after {cpu_rounds} round(s) "
+          f"{cpu_summary['final_accuracy']!r}")
+    _require(theta_err, TRAINED_LOGIT_ATOL, "theta, card vs cpu")
     steps = shapes["steps"]
     want_round = {"fwd": 0, "fwd_bnd": steps, "adj": steps}
     evals = _batches(shapes["n_val"]) * (1 + CLI_ROUNDS) + _batches(
@@ -1974,8 +2004,8 @@ def phase_bf16_cli_train(root, shapes: dict, f32_run: dict) -> dict:
         wall = time.perf_counter() - t0
         t0 = time.perf_counter()
         cpu_summary, _, _, _ = cli_train(
-            CLI_ARGV + ["--run-root", str(root / "cpu"), "--name",
-                        "smoke-bf16"], "cpu")
+            twin_argv(CLI_ARGV)[0] + ["--run-root", str(root / "cpu"),
+                                     "--name", "smoke-bf16"], "cpu")
         cpu_wall = time.perf_counter() - t0
     run = root / "smoke-bf16"
     rows, cpu_rows = _rows(run), _rows(root / "cpu" / "smoke-bf16")
@@ -2013,7 +2043,8 @@ def phase_bf16_cli_train(root, shapes: dict, f32_run: dict) -> dict:
         raise AssertionError("the kernel library was built after round 1")
     acc, acc_f32 = summary["final_accuracy"], f32_run["summary"][
         "final_accuracy"]
-    print(f"[bf16-cli-train] final accuracy bf16 {acc!r} (cpu bf16 "
+    print(f"[bf16-cli-train] final accuracy bf16 {acc!r} (cpu bf16 after "
+          f"its {cpu_summary['rounds']} round(s) "
           f"{cpu_summary['final_accuracy']!r}), f32 {acc_f32!r}: band "
           "bf16 >= f32 - 0.12")
     if not acc >= acc_f32 - 0.12:
@@ -2049,12 +2080,13 @@ def _run_shape(argv) -> tuple:
 def phase_dense_cli_train(root, argv, name: str, tag: str,
                           dtype=torch.float32, f32_run=None) -> dict:
     """``python -m qfedx_tpu_torch train`` (in-process) below the slab
-    widths on the card, then the same argv on the CPU: a complete run
-    directory, the model on the "vmap" engine, no scan-body launch and no
-    kernel build; per-round loss card vs CPU within TRAINED_LOGIT_ATOL
-    (bf16: BF16_LOSS_ATOL), in f32 the final θ within TRAINED_LOGIT_ATOL
-    and accuracy within one evaluation sample; in bf16 the final accuracy
-    within 0.12 of the f32 run's (``f32_run``)."""
+    widths on the card, then its first CPU_TWIN_ROUNDS round(s) on the
+    CPU: a complete run directory, the model on the "vmap" engine, no
+    scan-body launch and no kernel build; those rounds' loss card vs CPU
+    within TRAINED_LOGIT_ATOL (bf16: BF16_LOSS_ATOL), in f32 their θ
+    within TRAINED_LOGIT_ATOL and accuracy within one evaluation sample;
+    in bf16 the final accuracy within 0.12 of the f32 run's
+    (``f32_run``)."""
     from qfedx_tpu_torch.models.vqc import make_vqc_classifier
     from qfedx_tpu_torch.ops import scan_body
     from qfedx_tpu_torch.run.checkpoint import Checkpointer
@@ -2067,8 +2099,9 @@ def phase_dense_cli_train(root, argv, name: str, tag: str,
         argv + ["--run-root", str(root), "--name", name], None)
     wall = time.perf_counter() - t0
     t0 = time.perf_counter()
+    cpu_argv, cpu_rounds = twin_argv(argv)
     cpu_summary, _, _, _ = cli_train(
-        argv + ["--run-root", str(root / "cpu"), "--name", name], "cpu")
+        cpu_argv + ["--run-root", str(root / "cpu"), "--name", name], "cpu")
     cpu_wall = time.perf_counter() - t0
     run, cpu_run = root / name, root / "cpu" / name
     template = make_vqc_classifier(n, layers, classes, device="cpu")
@@ -2100,19 +2133,20 @@ def phase_dense_cli_train(root, argv, name: str, tag: str,
         if not bf:
             _require(acc_err, 1.0 / row["n"] + 1e-12,
                      f"{tag} round {row['round']} accuracy, card vs cpu")
-    theta = ckpt.restore(CLI_ROUNDS, template.init(0))
+    theta = ckpt.restore(cpu_rounds, template.init(0))
     cpu_theta = Checkpointer(cpu_run / "checkpoints").restore(
-        CLI_ROUNDS, template.init(0))
+        cpu_rounds, template.init(0))
     theta_err = _max_err(
         [v for d in theta.values() for v in d.values()],
         [v for d in cpu_theta.values() for v in d.values()])
-    print(f"{_tag(tag, dtype)} final theta max|card-cpu|={theta_err:.3e}; "
+    print(f"{_tag(tag, dtype)} theta after round {cpu_rounds} "
+          f"max|card-cpu|={theta_err:.3e}; "
           f"launches {launches} per round {[c for c, _ in rounds]}, kernel "
           f"builds {scan_body.build_count - builds}; summary card "
-          f"{json.dumps(summary)}; cpu final_accuracy "
-          f"{cpu_summary['final_accuracy']!r}")
+          f"{json.dumps(summary)}; cpu final_accuracy after {cpu_rounds} "
+          f"round(s) {cpu_summary['final_accuracy']!r}")
     if not bf:
-        _require(theta_err, TRAINED_LOGIT_ATOL, f"{tag} final theta")
+        _require(theta_err, TRAINED_LOGIT_ATOL, f"{tag} theta")
     if launches != NO_LAUNCH or any(c != NO_LAUNCH for c, _ in rounds):
         raise AssertionError(f"the dense run launched {launches}")
     if scan_body.build_count != builds:
@@ -2364,6 +2398,10 @@ CONFIG4_ARGV = ["train", "--model", "vqc", "--qubits", "12", "--layers", "3",
                 "--clients", "64", "--secure-agg", "--rounds", "2",
                 "--checkpoint-every", "1", "--pipeline-depth", "0"]
 MASK_ATOL = 1e-5  # a masked run vs the same run without masks
+# Rounds of the CPU twin of each run of phase_encoding_cli_train (the
+# encodings, the federation options, noise): its first rounds, held
+# against the card run's rows and checkpoints of the same rounds.
+CPU_TWIN_ROUNDS = 1
 
 
 class _Captured(Exception):
@@ -2622,19 +2660,29 @@ def phase_reupload_serve(device) -> dict:
             "p95": float(np.percentile(lat_ms, 95))}
 
 
+def twin_argv(argv) -> tuple[list, int]:
+    """The CPU twin's argv (the run's first CPU_TWIN_ROUNDS rounds: the
+    CPU takes tens of seconds a round at n = 12) and its round count."""
+    at = argv.index("--rounds") + 1
+    rounds = min(int(argv[at]), CPU_TWIN_ROUNDS)
+    return argv[:at] + [str(rounds)] + argv[at + 1:], rounds
+
+
 def phase_encoding_cli_train(root, argv, name: str, tag: str,
                              encoding: str, per_step=None,
                              record=None) -> dict:
-    """``train`` of a run at n >= 10 (in-process) on the card, then on
-    the CPU: a complete run directory, per-round loss and final θ card vs
-    CPU within TRAINED_LOGIT_ATOL, accuracy within one evaluation sample,
-    the row fields of EXACT_ROW_KEYS (ε, the defenses' ledgers) and
-    ``final_epsilon`` equal, ``per_step`` launches per local step (default
-    one Launch B and one C), and Launch A in evaluation only where the
-    evaluator's tb = 256 reaches the kernel (the HEA body of the angle and
-    amplitude encodings; reupload's per-sample banks at 256 groups do not,
-    as in the reference), no build after round 1. ``record`` (a dict)
-    receives each run's Kraus branch choices under "card" and "cpu"."""
+    """``train`` of a run at n >= 10 (in-process) on the card, then its
+    first CPU_TWIN_ROUNDS rounds on the CPU: a complete run directory,
+    those rounds' loss and θ card vs CPU within TRAINED_LOGIT_ATOL,
+    accuracy within one evaluation sample, the row fields of
+    EXACT_ROW_KEYS (ε, the defenses' ledgers) equal, the CPU's
+    ``final_epsilon`` equal to the card row's ε, ``per_step`` launches per
+    local step on the card (default one Launch B and one C), and Launch A
+    in evaluation only where the evaluator's tb = 256 reaches the kernel
+    (the HEA body of the angle and amplitude encodings; reupload's
+    per-sample banks at 256 groups do not, as in the reference), no build
+    after round 1. ``record`` (a dict) receives each run's Kraus branch
+    choices under "card" and "cpu"."""
     from qfedx_tpu_torch.models.vqc import make_vqc_classifier
     from qfedx_tpu_torch.noise.trajectory import record_branches
     from qfedx_tpu_torch.run.checkpoint import Checkpointer
@@ -2649,9 +2697,11 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
             argv + ["--run-root", str(root), "--name", name], None)
     wall = time.perf_counter() - t0
     t0 = time.perf_counter()
+    cpu_argv, cpu_rounds = twin_argv(argv)
     with record_branches() as record["cpu"]:
         cpu_summary, _, _, _ = cli_train(
-            argv + ["--run-root", str(root / "cpu"), "--name", name], "cpu")
+            cpu_argv + ["--run-root", str(root / "cpu"), "--name", name],
+            "cpu")
     cpu_wall = time.perf_counter() - t0
     run, cpu_run = root / name, root / "cpu" / name
     batch = int(argv[argv.index("--batch-size") + 1]) if (
@@ -2659,8 +2709,9 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
     print(f"[{tag}] {' '.join(argv)}: n={n} L={layers} classes={classes} "
           f"{clients} clients x S_pad={shapes['s_pad']}, {shapes['steps']} "
           f"local steps per round at tb={clients * batch}; eval sets "
-          f"{shapes['n_val']} / {shapes['n_test']}; card {wall:.2f} s, cpu "
-          f"{cpu_wall:.2f} s (host clock, in-process)")
+          f"{shapes['n_val']} / {shapes['n_test']}; card {wall:.2f} s "
+          f"({rounds_n} rounds), cpu {cpu_wall:.2f} s ({cpu_rounds}) (host "
+          "clock, in-process)")
     ckpt = Checkpointer(run / "checkpoints", every=1)
     for r in range(1, rounds_n + 1):
         ckpt.verify(r)
@@ -2683,13 +2734,13 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
         if exact != {k: cpu[k] for k in EXACT_ROW_KEYS if k in cpu}:
             raise AssertionError(f"{tag} round {row['round']}: {exact} vs "
                                  f"the cpu row {cpu}")
-    if summary["final_epsilon"] != cpu_summary["final_epsilon"]:
-        raise AssertionError(f"{tag} final_epsilon {summary} vs "
-                             f"{cpu_summary}")
+    if rows[cpu_rounds - 1].get("epsilon") != cpu_summary["final_epsilon"]:
+        raise AssertionError(f"{tag} round {cpu_rounds} epsilon "
+                             f"{rows[cpu_rounds - 1]} vs {cpu_summary}")
     template = make_vqc_classifier(n, layers, classes, encoding=encoding,
                                    device="cpu").init(0)
-    theta = ckpt.restore(rounds_n, template)
-    cpu_theta = Checkpointer(cpu_run / "checkpoints").restore(rounds_n,
+    theta = ckpt.restore(cpu_rounds, template)
+    cpu_theta = Checkpointer(cpu_run / "checkpoints").restore(cpu_rounds,
                                                               template)
     theta_err = _max_err(
         [v for d in theta.values() for v in d.values()],
@@ -2702,11 +2753,12 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
             shapes["n_test"])
     want = {k: rounds_n * v for k, v in want_round.items()}
     want["fwd"] += evals
-    print(f"[{tag}] final theta max|card-cpu|={theta_err:.3e} (atol "
-          f"{TRAINED_LOGIT_ATOL:g}); launches {launches} (expected {want}); "
+    print(f"[{tag}] theta after round {cpu_rounds} max|card-cpu|="
+          f"{theta_err:.3e} (atol {TRAINED_LOGIT_ATOL:g}); launches "
+          f"{launches} (expected {want}); "
           f"per round {[c for c, _ in rounds]}; builds after each round "
           f"{[b for _, b in rounds]}; summary {json.dumps(summary)}")
-    _require(theta_err, TRAINED_LOGIT_ATOL, f"{tag} final theta")
+    _require(theta_err, TRAINED_LOGIT_ATOL, f"{tag} theta")
     if [c for c, _ in rounds] != [want_round] * rounds_n or launches != want:
         raise AssertionError(f"{tag} launched {launches}, rounds {rounds}")
     if len({b for _, b in rounds}) != 1:
@@ -2714,7 +2766,8 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
                              "round 1")
     return {"run": run, "rows": rows, "launches": launches,
             "theta_err": theta_err, "shape": (n, layers, classes),
-            "summary": summary, "wall": wall, "cpu_wall": cpu_wall}
+            "summary": summary, "wall": wall, "cpu_wall": cpu_wall,
+            "cpu_rounds": cpu_rounds}
 
 
 def _round_rows(root, argv, name, device) -> tuple:
@@ -3169,12 +3222,14 @@ CONFIG3_ARGV = ["train", "--model", "cnn", "--dataset", "cifar10",
 # BASELINE.md config 5: the 20-qubit quantum-kernel head, 256 clients.
 CONFIG5_ARGV = ["train", "--model", "qkernel", "--qubits", "20",
                 "--landmarks", "16", "--clients", "256", "--rounds", "2",
-                "--local-epochs", "1", "--pipeline-depth", "0"]
+                "--local-epochs", "1", "--pipeline-depth", "0",
+                "--checkpoint-every", "1"]
 # The MPS classifier at a width the dense engine cannot hold (2^24
 # amplitudes a sample).
 MPS_ARGV = ["train", "--model", "mps", "--qubits", "24", "--layers", "2",
             "--bond-dim", "16", "--classes", "0,1", "--clients", "4",
-            "--rounds", "2", "--local-epochs", "1", "--pipeline-depth", "0"]
+            "--rounds", "2", "--local-epochs", "1", "--pipeline-depth", "0",
+            "--checkpoint-every", "1"]
 # TinyCNN card vs CPU: logits, and one step's gradients by relative norm.
 # f32 convolutions either side (TF32 off inside the module); cuDNN's
 # backward may sum in another order from run to run (~1e-7 relative).
@@ -3345,9 +3400,10 @@ def _run_theta(run_dir, rnd: int) -> list:
 
 def family_cli_train(root, argv, name: str, tag: str, atol: float,
                      expect_folded: bool) -> dict:
-    """A CLI run of a non-VQC family on the card, then on the CPU: no
-    scan-body launch and no build, loss per round and the final θ card
-    vs CPU within ``atol``, no quarantined update, every θ finite; the
+    """A CLI run of a non-VQC family on the card, then its first
+    CPU_TWIN_ROUNDS round(s) on the CPU (the run saves every round): no
+    scan-body launch and no build, those rounds' loss and θ card vs CPU
+    within ``atol``, no quarantined update, every θ finite; the
     local-update route (folded or one client at a time) as
     ``expect_folded`` says; the synchronous round walls and
     client-rounds/s (host clock)."""
@@ -3374,8 +3430,10 @@ def family_cli_train(root, argv, name: str, tag: str, atol: float,
             argv + ["--run-root", str(root), "--name", name], None)
         wall = time.perf_counter() - t0
         t0 = time.perf_counter()
+        cpu_argv, cpu_rounds = twin_argv(argv)
         cpu_summary, _, _, _ = cli_train(
-            argv + ["--run-root", str(root / "cpu"), "--name", name], "cpu")
+            cpu_argv + ["--run-root", str(root / "cpu"), "--name", name],
+            "cpu")
         cpu_wall = time.perf_counter() - t0
     finally:
         fround.make_local_update_clients = folded_fn
@@ -3386,7 +3444,8 @@ def family_cli_train(root, argv, name: str, tag: str, atol: float,
     print(f"[{tag}] {' '.join(argv)}: {clients} clients x S_pad="
           f"{shapes['s_pad']}, {shapes['steps']} local steps per round, "
           f"route {sorted(set(routes))}; card {wall:.2f} s, cpu "
-          f"{cpu_wall:.2f} s (host clock, in-process, data build included)")
+          f"{cpu_wall:.2f} s for {cpu_rounds} round(s) (host clock, "
+          "in-process, data build included)")
     want_route = "folded" if expect_folded else "one client at a time"
     if set(routes) != {want_route}:
         raise AssertionError(f"{tag} trained {routes}, not {want_route}")
@@ -3403,18 +3462,20 @@ def family_cli_train(root, argv, name: str, tag: str, atol: float,
             raise AssertionError(f"{tag}: a non-finite update was "
                                  "quarantined")
     theta = _run_theta(run, len(rows))
-    theta_err = _max_err(theta, _run_theta(cpu_run, len(rows)))
+    theta_err = _max_err(_run_theta(run, cpu_rounds),
+                         _run_theta(cpu_run, cpu_rounds))
     if not all(bool(torch.isfinite(t).all()) for t in theta):
         raise AssertionError(f"{tag}: non-finite θ")
     times = [r["time_s"] for r in rows]
     rate = clients * len(times) / sum(times)
-    print(f"[{tag}] final theta max|card-cpu| {theta_err:.3e} (atol "
+    print(f"[{tag}] theta after round {cpu_rounds} max|card-cpu| "
+          f"{theta_err:.3e} (atol "
           f"{atol:g}); launches {launches}, kernel builds "
           f"{scan_body.build_count - builds}; round walls (synchronous, host "
           f"clock) {times} s, {rate:.4f} client-rounds/s; final accuracy "
-          f"card {summary['final_accuracy']!r} cpu "
-          f"{cpu_summary['final_accuracy']!r}")
-    _require(theta_err, atol, f"{tag} final theta")
+          f"card {summary['final_accuracy']!r}, cpu after {cpu_rounds} "
+          f"round(s) {cpu_summary['final_accuracy']!r}")
+    _require(theta_err, atol, f"{tag} theta")
     if launches != NO_LAUNCH or any(c != NO_LAUNCH for c, _ in rounds) or \
             scan_body.build_count != builds:
         raise AssertionError(f"{tag} launched {launches} or built")
@@ -3659,8 +3720,9 @@ def phase_noise_cli(root, argv, name: str, tag: str) -> dict:
     record: dict = {}
     run = phase_encoding_cli_train(root, argv, name, tag, "angle",
                                    per_step=per_step, record=record)
-    card = [t.cpu() for t in record["card"]]
     cpu = record["cpu"]
+    # The branch choices of the rounds the CPU twin ran come first.
+    card = [t.cpu() for t in record["card"][:len(cpu)]]
     if len(card) != len(cpu) or any(a.shape != b.shape
                                     for a, b in zip(card, cpu)):
         raise AssertionError(f"{tag}: the card made {len(card)} branch "
@@ -3681,7 +3743,8 @@ def phase_noise_cli(root, argv, name: str, tag: str) -> dict:
     # The pipelined rows' time_s are drain-to-drain increments and
     # resolve no rate; the whole card run bounds a round from above.
     round_s = run["wall"] / cfg.num_rounds
-    print(f"[{tag}] Kraus branch choices card vs cpu: {differ} of {choices} "
+    print(f"[{tag}] Kraus branch choices card vs cpu over the first "
+          f"{run['cpu_rounds']} round(s): {differ} of {choices} "
           "differ (0 expected; a near-tie of Born weights may flip one); "
           f"ansatz leaves moved: {moved or 'none'} (shots: the counts carry "
           f"no gradient); round time {round_s:.4f} s, "
@@ -3921,6 +3984,363 @@ def phase_noise_probe(device) -> dict:
     return out
 
 
+STREAM_DEADLINE_S = 0.5  # [streamed-stale]'s wave deadline
+# The one-round card/CPU twins of [streamed] (2 waves of 256) and
+# [streamed-kernel] (2 waves of 32): a smaller cohort in the same waves.
+STREAM_TWIN_COHORT = {"streamed": 512, "streamed-kernel": 64}
+
+
+def _streamed(model, cfg, registry, test, device, rounds, launch_log=None,
+              **kw):
+    """``train_federated_streamed`` on ``device`` with the launch counts
+    reset just before; returns (result, rows, launches). ``launch_log``
+    collects each round's launches (taken in ``on_round_end``)."""
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run.trainer import train_federated_streamed
+
+    rows = []
+
+    def hook(r, m):
+        rows.append(m)
+        if launch_log is not None:
+            launch_log.append((dict(scan_body.launch_counts),
+                               scan_body.build_count))
+        if "hook" in kw:
+            kw["hook"](r, m)
+
+    hookless = {k: v for k, v in kw.items() if k != "hook"}
+    scan_body.reset_counts()
+    res = train_federated_streamed(model, cfg, registry, *test,
+                                   num_rounds=rounds, device=device,
+                                   on_round_end=hook, **hookless)
+    if str(device) != "cpu":
+        torch.cuda.synchronize()
+    return res, rows, dict(scan_body.launch_counts)
+
+
+def _theta(params) -> list:
+    return [t.detach().float().cpu() for t in trees_leaves(params)]
+
+
+def _adam_card_vs_cpu(make, card, cpu, test) -> tuple[float, float]:
+    """Card vs CPU after Adam rounds of one local step: the logits on the
+    evaluation samples (gated) and θ (printed). Adam's first step is
+    lr·g/(|g| + ε), so an angle whose gradient is zero analytically (the
+    last layer's RZ, which commutes with the Z readout, and the angles
+    outside the readout qubits' light cone) steps ±lr on each device's
+    own rounding noise; those angles cannot move the logits."""
+    x = torch.as_tensor(test[0][:256], dtype=torch.float32)
+    dev = trees_leaves(card)[0].device
+    with torch.no_grad():
+        got = make(dev).apply(card, x.to(dev))
+        want = make("cpu").apply(cpu, x)
+    return _max_err(got.cpu(), want), _max_err(_theta(card), _theta(cpu))
+
+
+def trees_leaves(params) -> list:
+    from qfedx_tpu_torch.utils import trees
+
+    return trees.tree_leaves(params)
+
+
+def _finite(what: str, params, rows) -> None:
+    bad = [r["round"] for r in rows if not math.isfinite(r["loss"])
+           or r.get("rejected_updates", 0)]
+    if bad or not all(bool(torch.isfinite(t).all()) for t in
+                      trees_leaves(params)):
+        raise AssertionError(f"{what}: a non-finite update (rounds {bad})")
+
+
+def _registry_test_set(registry, n: int, clients: int = 8):
+    """Evaluation samples of the registry's own distribution: the top
+    ``clients`` ids (bench.py's choice)."""
+    top = registry.num_clients
+    ex, ey, _ = registry.batch(np.arange(top - clients, top))
+    return ex.reshape(-1, n), ey.reshape(-1)
+
+
+def phase_streamed(device) -> dict:
+    """``[streamed]``: bench.py's streamed row (``_bench_fed_streamed``)
+    at full size on the card, depth 1, 3 rounds, then 2 rounds at
+    QFEDX_STREAM=0, then one round on the card and the CPU."""
+    from qfedx_tpu_torch.data.stream import SyntheticRegistry
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+
+    n, layers, cohort, wave = 8, 3, 4096, 256
+    registry = SyntheticRegistry(1 << 20, samples=8, n_features=n, seed=1)
+    test = _registry_test_set(registry, n, 32)
+    cfg = FedConfig(local_epochs=1, batch_size=8, learning_rate=0.1,
+                    optimizer="adam", client_fraction=0.5, secure_agg=True,
+                    secure_agg_mode="ring")
+    kw = dict(cohort_size=cohort, wave_size=wave, seed=0)
+
+    def model(dev):
+        return make_vqc_classifier(n, layers, 2, device=dev)
+
+    torch.cuda.reset_peak_memory_stats()
+    res, rows, launches = _streamed(model(device), cfg, registry, test,
+                                    device, 3, stream_depth=1,
+                                    eval_every=4, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    _finite("streamed", res.params, rows)
+    walls = [r["time_s"] for r in rows]
+    steady = float(np.median(walls[1:]))
+    with env_pins(QFEDX_STREAM="0"):
+        sync, sync_rows, sync_launches = _streamed(
+            model(device), cfg, registry, test, device, 2, eval_every=3,
+            **kw)
+    sync_s = sync_rows[-1]["time_s"]
+    print(f"[streamed] registry 2^20, cohort {cohort} in {cohort // wave} "
+          f"waves of {wave}, n={n} L={layers}, Adam, fraction 0.5, ring "
+          f"masks, depth 1: round walls {walls} s (time_s: host clock, "
+          f"ending at the stats read that synchronises), "
+          f"{cohort / steady:.4f} client-rounds/s (cohort / median round "
+          f"after the first), participants {[r['participants'] for r in rows]}"
+          f", comm_mb_per_round {res.comm_mb_per_round!r}, peak device "
+          f"memory {peak} B; QFEDX_STREAM=0: round walls "
+          f"{[r['time_s'] for r in sync_rows]} s, sync/overlap "
+          f"{sync_s / steady:.4f}; launches {launches} and {sync_launches}")
+    if launches != NO_LAUNCH or sync_launches != NO_LAUNCH:
+        raise AssertionError(f"streamed n=8 launched {launches}, "
+                             f"{sync_launches}")
+    _finite("streamed QFEDX_STREAM=0", sync.params, sync_rows)
+    one = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        r1, rows1, _ = _streamed(model(dev), cfg, registry, test, dev, 1,
+                                 eval_every=2, **{
+                                     **kw, "cohort_size":
+                                     STREAM_TWIN_COHORT["streamed"]})
+        one[str(dev)] = (r1.params, rows1[0]["loss"],
+                         time.perf_counter() - t0)
+    (card, card_loss, card_s), (cpu, cpu_loss, cpu_s) = (one[str(device)],
+                                                         one["cpu"])
+    err, theta_err = _adam_card_vs_cpu(model, card, cpu, test)
+    print(f"[streamed] one round of a cohort of "
+          f"{STREAM_TWIN_COHORT['streamed']} card vs cpu ({card_s:.2f} s and "
+          f"{cpu_s:.2f} s): logits max|card-cpu| {err:.3e}, loss "
+          f"{card_loss!r} vs {cpu_loss!r} (atol {TRAINED_LOGIT_ATOL:g}); "
+          f"theta {theta_err:.3e} (Adam's ±lr steps on zero-gradient "
+          "angles, not gated)")
+    _require(max(err, abs(card_loss - cpu_loss)), TRAINED_LOGIT_ATOL,
+             "streamed round, card vs cpu")
+    return {"launches": launches, "rate": cohort / steady,
+            "walls": walls, "sync_ratio": sync_s / steady, "peak": peak,
+            "comm_mb": res.comm_mb_per_round, "logit_err": err,
+            "theta_err": theta_err}
+
+
+def phase_streamed_kernel(device) -> dict:
+    """``[streamed-kernel]``: the n = 12, L = 3 VQC streamed through
+    waves of 32 clients (the most groups a stacked program hands the
+    kernel): one B and one C per wave per local step on the card."""
+    from qfedx_tpu_torch.data.stream import SyntheticRegistry
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+
+    n, layers, cohort, wave, batch, rounds = 12, 3, 256, 32, 8, 3
+    registry = SyntheticRegistry(1 << 16, samples=8, n_features=n, seed=2)
+    test = _registry_test_set(registry, n)
+    cfg = FedConfig(local_epochs=1, batch_size=batch, learning_rate=0.1,
+                    optimizer="adam")
+    kw = dict(cohort_size=cohort, wave_size=wave, seed=0, eval_every=1)
+    waves, steps = cohort // wave, registry.samples // batch
+    log = []
+    res, rows, launches = _streamed(
+        make_vqc_classifier(n, layers, 2, device=device), cfg, registry,
+        test, device, rounds, launch_log=log, **kw)
+    _finite("streamed-kernel", res.params, rows)
+    prev = {"fwd": 0, "fwd_bnd": 0, "adj": 0}
+    for r, (counts, builds) in enumerate(log):
+        per = {k: counts[k] - prev[k] for k in prev}
+        prev = counts
+        evals = 2 if r == 0 else 1  # round 0 also evaluates θ_0
+        want = {"fwd": evals, "fwd_bnd": waves * steps,
+                "adj": waves * steps}
+        print(f"[streamed-kernel] round {r}: wall {rows[r]['time_s']!r} s "
+              f"(host clock), launches {per} (expected {want}), builds "
+              f"{builds}, loss {rows[r]['loss']!r}")
+        if per != want:
+            raise AssertionError(f"streamed-kernel round {r} launched {per}")
+    if log[-1][1] != log[0][1]:
+        raise AssertionError("the kernel library was built after round 1")
+    walls = [r["time_s"] for r in rows]
+    rate = cohort / float(np.median(walls[1:]))
+    # The CPU twin: one round of a smaller cohort in the same waves (the
+    # plain sweep at tb = 256 takes seconds a wave on the host).
+    one = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        r1, rows1, _ = _streamed(make_vqc_classifier(n, layers, 2,
+                                                     device=dev),
+                                 cfg, registry, test, dev, 1,
+                                 **{**kw, "eval_every": 2,
+                                    "cohort_size":
+                                    STREAM_TWIN_COHORT["streamed-kernel"]})
+        one[str(dev)] = (r1.params, rows1[0]["loss"],
+                         time.perf_counter() - t0)
+    (card, card_loss, card_s), (cpu, cpu_loss, cpu_s) = (one[str(device)],
+                                                         one["cpu"])
+    logit_err, theta_err = _adam_card_vs_cpu(
+        lambda dev: make_vqc_classifier(n, layers, 2, device=dev), card,
+        cpu, test)
+    err = max(logit_err, abs(card_loss - cpu_loss))
+    print(f"[streamed-kernel] {rate:.4f} client-rounds/s after round 0; "
+          f"one round of a cohort of {STREAM_TWIN_COHORT['streamed-kernel']} "
+          "card vs cpu "
+          f"({card_s:.2f} s and {cpu_s:.2f} s): logits "
+          f"max|card-cpu| {logit_err:.3e}, loss "
+          f"{abs(card_loss - cpu_loss):.3e} (atol {TRAINED_LOGIT_ATOL:g}); "
+          f"theta {theta_err:.3e} (Adam's ±lr steps on zero-gradient "
+          "angles, not gated)")
+    _require(err, TRAINED_LOGIT_ATOL, "streamed-kernel round, card vs cpu")
+    _, leaves, xb, _ = _client_batch(n, layers, 2, wave, batch, device,
+                                     seed=940)
+    model = make_vqc_classifier(n, layers, 2, device=device)
+    packed, spec, xs = captured_program(
+        lambda: model.apply_clients(leaves, xb), n)
+    if spec.tb != wave * batch or sorted({op.groups for op in spec.ops
+                                          if op.stacked}) != [wave]:
+        raise AssertionError(f"a wave's program: tb={spec.tb}, groups "
+                             f"{[op.groups for op in spec.ops]}")
+    errs, trows = hold_program("streamed-kernel", f"a wave of {wave} "
+                               f"clients x {batch}", packed, spec, xs,
+                               seed=941, timed=("B", "C"))
+    return {"launches": launches, "rate": rate, "walls": walls,
+            "logit_err": err, "theta_err": theta_err, "errs": errs,
+            "rows": trows}
+
+
+class _GatedRegistry:
+    """A ``SyntheticRegistry`` whose fetch of the wave starting at client
+    id ``first`` blocks while ``armed`` is set, until ``release`` is, or
+    (``fail``) always raises."""
+
+    def __init__(self, base, first: int, fail: bool = False):
+        import threading
+
+        self.base, self.first, self.fail = base, int(first), fail
+        self.num_clients = base.num_clients
+        self.armed, self.release = threading.Event(), threading.Event()
+
+    def batch(self, ids):
+        if int(ids[0]) == self.first:
+            if self.fail:
+                raise RuntimeError("registry shard down")
+            if self.armed.is_set() and not self.release.wait(120):
+                raise RuntimeError("the gate was never released")
+        return self.base.batch(ids)
+
+
+def phase_streamed_stale(device) -> dict:
+    """``[streamed-stale]``: QFEDX_STALE=1 at n = 12 with a straggler
+    wave that a gated registry holds past the deadline in round 1, on the
+    card and the CPU; then a wave that fails for good under ring masks."""
+    from qfedx_tpu_torch.data.stream import SyntheticRegistry
+    from qfedx_tpu_torch.fed.client import draw_perms
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.fed.round import (
+        RoundDraws,
+        make_fed_round,
+        round_generator,
+    )
+    from qfedx_tpu_torch.fed.sampling import CohortSampler
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+
+    n, layers, cohort, wave, batch, seed = 12, 3, 64, 16, 8, 0
+    base = SyntheticRegistry(1 << 16, samples=8, n_features=n, seed=3)
+    test = _registry_test_set(base, n)
+    # SGD: θ itself is comparable card vs CPU (Adam's first step is a
+    # sign, see _adam_card_vs_cpu).
+    cfg = FedConfig(local_epochs=1, batch_size=batch, learning_rate=0.1)
+    kw = dict(cohort_size=cohort, wave_size=wave, seed=seed, eval_every=4)
+    last = CohortSampler(base.num_clients, cohort, seed).round_ids(1)[
+        cohort - wave]
+    out = {"launches": dict(NO_LAUNCH)}
+    runs = {}
+    with env_pins(QFEDX_STALE="1"):
+        for dev in (device, "cpu"):
+            reg = _GatedRegistry(base, last)
+
+            def hook(r, m, reg=reg):
+                if r == 0:
+                    reg.armed.set()  # round 1's last wave misses its deadline
+                elif r == 1:
+                    reg.armed.clear()
+                    reg.release.set()  # ... and arrives once round 1 ends
+
+            res, rows, launches = _streamed(
+                make_vqc_classifier(n, layers, 2, device=dev), cfg, reg,
+                test, dev, 3, hook=hook, wave_deadline_s=STREAM_DEADLINE_S,
+                stale_poll_s=60.0, **kw)
+            _finite(f"streamed-stale on {dev}", res.params, rows)
+            runs[str(dev)] = (res.params, rows, launches)
+    theta, rows, launches = runs[str(device)]
+    late = [r["late_waves"] for r in rows]
+    applied = [r["stale_partials_applied"] for r in rows]
+    err = max(_max_err(_theta(theta), _theta(runs["cpu"][0])), *(
+        abs(a["loss"] - b["loss"]) for a, b in zip(rows, runs["cpu"][1])))
+    print(f"[streamed-stale] n={n}, cohort {cohort} in waves of {wave}, "
+          f"SGD, deadline {STREAM_DEADLINE_S} s: late_waves {late}, "
+          f"stale_partials_applied {applied}, participants "
+          f"{[r['participants'] for r in rows]}, launches {launches}; theta "
+          f"and loss max|card-cpu| {err:.3e} (atol {TRAINED_LOGIT_ATOL:g}); "
+          f"round walls {[r['time_s'] for r in rows]} s")
+    if late != [0, 1, 0] or applied != [0, 0, 1]:
+        raise AssertionError(f"streamed-stale ledger: late {late}, applied "
+                             f"{applied}")
+    if [r[k] for r in runs["cpu"][1] for k in ("late_waves",
+                                               "stale_partials_applied")] != [
+            v for pair in zip(late, applied) for v in pair]:
+        raise AssertionError("streamed-stale: the CPU run's ledger differs")
+    _require(err, TRAINED_LOGIT_ATOL, "streamed-stale, card vs cpu")
+    # 4 waves, 3 fresh, then 4 fresh and the straggler; A in the one
+    # evaluation, after the last round.
+    waves = cohort // wave
+    want = {"fwd": 1, "fwd_bnd": 3 * waves, "adj": 3 * waves}
+    if launches != want:
+        raise AssertionError(f"streamed-stale launched {launches}, expected "
+                             f"{want}")
+    out["launches"] = {k: out["launches"][k] + launches[k] for k in launches}
+
+    # A wave that fails for good under ring masks, stale off: dropped,
+    # its clients' masks added back by the server.
+    masked = FedConfig(local_epochs=1, batch_size=batch, learning_rate=0.1,
+                       secure_agg=True)
+    ids0 = CohortSampler(base.num_clients, cohort, seed).round_ids(0)
+    dead_wave = 1
+    reg = _GatedRegistry(base, ids0[dead_wave * wave], fail=True)
+    model = make_vqc_classifier(n, layers, 2, device=device)
+    res, rows, launches = _streamed(model, masked, reg, test, device, 1,
+                                    **{**kw, "eval_every": 2})
+    survivors = np.ones(cohort, np.float32)
+    survivors[dead_wave * wave:(dead_wave + 1) * wave] = 0.0
+    data = [torch.as_tensor(a, device=device) for a in base.batch(ids0)]
+    plain = FedConfig(local_epochs=1, batch_size=batch, learning_rate=0.1)
+    want_theta, want_stats = make_fed_round(model, plain, num_clients=cohort)(
+        model.init(seed), *data,
+        perms=draw_perms(round_generator(seed, 0), cohort, 1,
+                         base.samples),
+        survivors=survivors, draws=RoundDraws(seed, 0))
+    mask_err = _max_err(_theta(res.params), _theta(want_theta))
+    row = rows[0]
+    print(f"[streamed-stale] a failing wave under ring masks: "
+          f"dropped_waves {row.get('dropped_waves')}, dropped_clients "
+          f"{row['dropped_clients']}, participants {row['participants']} "
+          f"(survivor round {float(want_stats.num_participants)!r}); theta "
+          f"vs the survivor round without masks {mask_err:.3e} (atol "
+          f"{MASK_ATOL:g}); launches {launches}")
+    if row.get("dropped_waves") != 1 or row["dropped_clients"] != wave or (
+            row["participants"] != int(want_stats.num_participants)):
+        raise AssertionError(f"streamed-stale dead wave row {row}")
+    _require(mask_err, MASK_ATOL, "dead wave under masks vs survivor round")
+    out["launches"] = {k: out["launches"][k] + launches[k] for k in launches}
+    out.update(theta_err=err, mask_err=mask_err, walls=[r["time_s"]
+                                                         for r in rows])
+    return out
+
+
 def trees_first(tree):
     """Every leaf's first entry (one client of a (C, …) stream)."""
     from qfedx_tpu_torch.utils import trees
@@ -4024,6 +4444,9 @@ def main() -> int:
     robust = phase_robust(device)
     noise_traj = phase_noise_trajectory(device)
     noise_probe = phase_noise_probe(device)
+    streamed = phase_streamed(device)
+    streamed_kernel = phase_streamed_kernel(device)
+    streamed_stale = phase_streamed_stale(device)
     source = "qfedx_tpu_torch/ops/csrc/scan_body.cu"
     kernel = "qfedx_tpu/ops/pallas_body.py:401"
     by_path = {
@@ -4057,6 +4480,11 @@ def main() -> int:
         "noise-circuit-serve": noise_circuit_served["launches"],
         **{f"noise-probe {k} ({w})": v[w] for k, v in noise_probe.items()
            for w in ("eval", "step")},
+        "streamed (n=8, 3 rounds)": streamed["launches"],
+        "streamed-kernel (n=12, 3 rounds of 8 waves)":
+            streamed_kernel["launches"],
+        "streamed-stale (n=12, 3 rounds, then a dead wave)":
+            streamed_stale["launches"],
     }
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -4072,10 +4500,14 @@ def main() -> int:
               f"spsa forward tb={spsa_tb} (G=8)": spsa["rows"]["A", spsa_tb]},
         "B": {"reupload fold C=2 B=16 (mixed G)":
               reupload["rows"]["B", 32],
-              "dp-example C=2 B=16 (G=tb)": dp_example["rows"]["B", 32]},
+              "dp-example C=2 B=16 (G=tb)": dp_example["rows"]["B", 32],
+              "streamed wave C=32 B=8 (G=32)":
+              streamed_kernel["rows"]["B", 256]},
         "C": {"reupload fold C=2 B=16 (mixed G)":
               reupload["rows"]["C", 32],
-              "dp-example C=2 B=16 (G=tb)": dp_example["rows"]["C", 32]},
+              "dp-example C=2 B=16 (G=tb)": dp_example["rows"]["C", 32],
+              "streamed wave C=32 B=8 (G=32)":
+              streamed_kernel["rows"]["C", 256]},
     }
 
     def entry(name, launch, key, replaces, earlier, earlier_shape, tb):
@@ -4092,7 +4524,8 @@ def main() -> int:
             "max_abs_err": max(shapes["worst"][launch],
                                earlier["max_abs_err"], worst[launch],
                                reupload[launch], spsa["errs"][launch],
-                               dp_example["errs"][launch]),
+                               dp_example["errs"][launch],
+                               streamed_kernel["errs"][launch]),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                    "bound_by")},
             "library_ms": None,
@@ -4223,6 +4656,15 @@ def main() -> int:
           f"{noise_circuit_served['logit_err']:.3e}; trajectories "
           + ", ".join(f"{k}: {v['sigmas']:.3f} sigma, {v['ms']:.3f} ms"
                       for k, v in noise_traj.items()))
+    print(f"[summary] streamed: n=8 cohort 4096 "
+          f"{streamed['rate']:.4f} client-rounds/s, sync/overlap "
+          f"{streamed['sync_ratio']:.4f}, peak {streamed['peak']} B, logits "
+          f"max|card-cpu| {streamed['logit_err']:.3e}; n=12 waves of 32 "
+          f"{streamed_kernel['rate']:.4f} client-rounds/s, launches "
+          f"{streamed_kernel['launches']}, logits "
+          f"{streamed_kernel['logit_err']:.3e}; stale theta "
+          f"{streamed_stale['theta_err']:.3e}, dead wave under masks "
+          f"{streamed_stale['mask_err']:.3e}")
     print(card_line())
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 
 Counterpart of ``qfedx_tpu/fed/config.py`` (a copy: the port imports
 nothing of the JAX package): the same ``DPConfig``/``FedConfig`` fields,
-defaults and validation, as plain frozen dataclasses. The port's
-one-device round (``fed/round.py``) runs every field but the staleness
-settings, which belong to the streamed trainer (ROADMAP Queue 1 item 9)
-and are carried so one config describes a run on either package.
+defaults and validation, as plain frozen dataclasses. The resident
+round (``fed/round.make_fed_round``) runs every field but the staleness
+settings; those shape the streamed trainer's discount of late waves
+(``run/trainer.train_federated_streamed``, ``fed/round.
+make_apply_partials``), as in the reference.
 """
 
 from __future__ import annotations

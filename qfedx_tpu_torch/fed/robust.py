@@ -1,8 +1,8 @@
 """Byzantine-robust aggregation rules.
 
 Counterpart of ``qfedx_tpu/fed/robust.py`` (``AGGREGATORS``,
-``resolve_aggregator``, ``clip_update``, ``trimmed_fraction_stat``,
-``robust_combine``) for the resident one-device round:
+``resolve_aggregator``, ``staleness_discount``, ``clip_update``,
+``trimmed_fraction_stat``, ``robust_combine``):
 
 - **``clip_mean``**: a server-chosen ℓ2 bound on each client's Δθ,
   applied after DP and before weighting and the secure-agg mask, so it
@@ -10,14 +10,16 @@ Counterpart of ``qfedx_tpu/fed/robust.py`` (``AGGREGATORS``,
 - **``trimmed_mean`` / ``median``**: coordinate-wise rules (Yin et al.
   2018) over the round's live contributors, uniformly weighted. They
   need per-client visibility, so they refuse secure aggregation on the
-  flat round (``fed/round.py``).
+  flat round (``fed/round.py``); on the streamed round with masks they
+  combine the waves' means instead (``make_apply_partials``).
 
 ``robust_combine`` takes contributors on a leading axis; absentees
 become NaN before the sort (``torch.sort`` orders NaN last ascending,
 as ``jnp.sort`` does), and the kept range is a function of the live
 count, so sampling, dropouts and quarantines need no other code.
-``staleness_discount`` belongs to the wave and staleness paths (ROADMAP
-Queue 1 item 9) and is not here.
+``staleness_discount`` is s(τ), the weight a straggler wave's partial
+carries when it folds into a later round (``fed/round.
+make_apply_partials``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,23 @@ def resolve_aggregator(cfg) -> str:
     ``cfg.aggregator``; a typo raises."""
     env = pins.choice_pin("QFEDX_AGG", AGGREGATORS, None)
     return cfg.aggregator if env is None else env
+
+
+def staleness_discount(mode: str, alpha: float, ages) -> torch.Tensor:
+    """s(τ) per stacked wave, ``ages`` [W] rounds of lateness (0 =
+    fresh): ``"constant"`` α for τ ≥ 1 (FedAsync), ``"poly"`` (1 + τ)^−α
+    (FedBuff). Both are exactly 1 at τ = 0, in f32 as the reference
+    computes them."""
+    ages = torch.as_tensor(ages, dtype=torch.float32)
+    if mode == "constant":
+        return torch.where(ages > 0, torch.tensor(alpha, dtype=torch.float32,
+                                                  device=ages.device),
+                           torch.ones((), dtype=torch.float32,
+                                      device=ages.device))
+    if mode == "poly":
+        return (1.0 + ages) ** torch.tensor(-alpha, dtype=torch.float32,
+                                            device=ages.device)
+    raise ValueError(f"unknown staleness mode {mode!r}")
 
 
 def clip_update(delta, bound: float, lead: int = 0):

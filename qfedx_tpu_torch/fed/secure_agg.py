@@ -22,10 +22,15 @@ reference's ``fold_in`` of a replicated round key. jax.random cannot be
 reproduced in torch, so the port's masks are other numbers than the
 reference's; the graph and the cancellation are the same.
 
-``cohort_masks`` draws every participant's mask of a round at once (one
-draw per edge, then two ``index_add_``): ``fed/round.py`` adds it to the
-weighted contributions. ``unmatched_mask_sum`` (the streamed trainer's
-dropout correction) is not ported yet (ROADMAP Queue 1 item 9).
+``wave_masks`` draws the masks of the cohort positions ``[base, base +
+W)`` of one wave under the cohort's pair graph: only the edges that
+touch the wave (O(W·k) on the ring), one draw per edge, then two
+``index_add_``. ``fed/round.py`` adds it to the wave's weighted
+contributions, so ring masks whose partners live in other waves cancel
+in the cross-wave sum; ``cohort_masks`` is the one-wave case.
+``unmatched_mask_sum`` is the server's correction for participants that
+never reported (a wave whose fetch died): their masks, regenerated from
+the same seeds, summed.
 """
 
 from __future__ import annotations
@@ -63,34 +68,54 @@ def _participants(participation) -> np.ndarray:
     return np.flatnonzero(np.asarray(participation) > 0)
 
 
-def ring_edges(seed: int, participation, neighbors: int = 1) -> list:
+def _touches(ends: np.ndarray, touching) -> np.ndarray:
+    """0/1 per entry of ``ends``: is the client in ``touching`` (a
+    ``range`` or an array of ids; None means every client)?"""
+    if touching is None:
+        return np.ones(len(ends), bool)
+    if isinstance(touching, range):
+        return (ends >= touching.start) & (ends < touching.stop)
+    return np.isin(ends, np.asarray(touching))
+
+
+def ring_edges(seed: int, participation, neighbors: int = 1,
+               touching=None) -> list:
     """(src, dst, hop, stream seed) of every ring edge: each participant
     and its ``neighbors`` cyclic successors among the participants in id
-    order; self-edges dropped."""
+    order; self-edges dropped. With ``touching`` (a range or ids), only
+    the edges with an end there, in the same order, and only their
+    stream seeds computed."""
     members = _participants(participation)
     m = len(members)
     out = []
     for d in range(1, neighbors + 1):
-        for rank, src in enumerate(members):
-            dst = members[(rank + d) % m]
-            if dst != src:
-                out.append((int(src), int(dst), d,
-                            edge_seed(seed, int(src), int(dst), d)))
+        if m == 0:
+            break
+        dsts = members[(np.arange(m) + d) % m]
+        keep = (dsts != members) & (_touches(members, touching)
+                                    | _touches(dsts, touching))
+        for src, dst in zip(members[keep], dsts[keep]):
+            out.append((int(src), int(dst), d,
+                        edge_seed(seed, int(src), int(dst), d)))
     return out
 
 
-def pair_edges(seed: int, participation) -> list:
-    """(lo, hi, stream seed) of every pair of participants, lo < hi."""
-    members = [int(i) for i in _participants(participation)]
-    return [(i, j, pair_seed(seed, i, j))
-            for a, i in enumerate(members) for j in members[a + 1:]]
+def pair_edges(seed: int, participation, touching=None) -> list:
+    """(lo, hi, stream seed) of every pair of participants, lo < hi
+    (with ``touching``, only the pairs with an end there)."""
+    members = _participants(participation)
+    inside = _touches(members, touching)
+    return [(int(i), int(j), pair_seed(seed, int(i), int(j)))
+            for a, i in enumerate(members) for b, j in
+            enumerate(members[a + 1:], a + 1) if inside[a] or inside[b]]
 
 
-def _edges(seed, participation, mode: str, neighbors: int) -> list:
+def _edges(seed, participation, mode: str, neighbors: int,
+           touching=None) -> list:
     if mode == "ring":
-        return ring_edges(seed, participation, neighbors)
+        return ring_edges(seed, participation, neighbors, touching)
     if mode == "pairwise":
-        return pair_edges(seed, participation)
+        return pair_edges(seed, participation, touching)
     raise ValueError(f"unknown secure_agg_mode {mode!r}")
 
 
@@ -118,26 +143,70 @@ def _unflat(flat: torch.Tensor, template, lead: tuple):
     )
 
 
+def wave_masks(seed: int, template, participation, base: int = 0,
+               scale: float = 1.0, mode: str = "ring",
+               neighbors: int = 1):
+    """The masks of cohort positions ``[base, base + W)``: ``template``
+    has (W, …) leaves (the wave's stacked client updates),
+    ``participation`` [cohort] 0/1 the pair graph's members → a tree of
+    (W, …) masks. Each client's mask is the one it has under the cohort's
+    whole graph, so the masks of all waves sum to zero over the cohort;
+    non-participants get zeros."""
+    leaves = trees.tree_leaves(template)
+    width = leaves[0].shape[0]
+    device = leaves[0].device
+    size = sum(int(np.prod(x.shape[1:])) for x in leaves)
+    edges = _edges(seed, participation, mode, neighbors,
+                   range(base, base + width))
+    flat = torch.zeros((width, size), dtype=torch.float32, device=device)
+    if edges:
+        draws = _draw(edges, size, device) * scale
+        for end, sign in ((0, 1.0), (1, -1.0)):
+            rows = np.asarray([e[end] for e in edges]) - base
+            inside = np.flatnonzero((rows >= 0) & (rows < width))
+            if len(inside) == 0:
+                continue
+            sel = draws if len(inside) == len(edges) else draws[
+                torch.as_tensor(inside, device=device)]
+            flat.index_add_(0, torch.as_tensor(rows[inside], device=device),
+                            sel if sign > 0 else -sel)
+    return _unflat(flat, template, (width,))
+
+
 def cohort_masks(seed: int, template, participation, scale: float = 1.0,
                  mode: str = "ring", neighbors: int = 1):
     """Every client's mask of one round: ``template`` has (C, …) leaves
     (the stacked client updates), ``participation`` [C] 0/1 the pair
     graph's cohort → a tree of (C, …) masks that sums to zero over C.
     Non-participants get zeros."""
+    return wave_masks(seed, template, participation, 0, scale, mode,
+                      neighbors)
+
+
+def unmatched_mask_sum(seed: int, num_clients: int, template,
+                       participation, survivors, scale: float = 1.0,
+                       neighbors: int = 1, mode: str = "ring"):
+    """Σ over participants that did not survive of their masks, shaped
+    like ``template`` (no client axis): the server's regenerated
+    correction for mid-round casualties. The survivors' uploads carry
+    −Σ_dead m_j of unmatched mask (the whole graph cancels), so adding
+    this sum back leaves only float dust; only dead clients' masks are
+    rebuilt, from the same stream seeds."""
+    _check(participation, num_clients)
+    part = np.asarray(participation, np.float32)
+    dead = np.flatnonzero((part > 0) & (np.asarray(survivors) <= 0))
     leaves = trees.tree_leaves(template)
-    num_clients = leaves[0].shape[0]
     device = leaves[0].device
-    size = sum(int(np.prod(x.shape[1:])) for x in leaves)
-    edges = _edges(seed, participation, mode, neighbors)
-    flat = torch.zeros((num_clients, size), dtype=torch.float32,
-                       device=device)
+    size = sum(x.numel() for x in leaves)
+    acc = torch.zeros(size, dtype=torch.float32, device=device)
+    edges = _edges(seed, part, mode, neighbors, dead) if len(dead) else []
     if edges:
-        draws = _draw(edges, size, device) * scale
-        src = torch.as_tensor([e[0] for e in edges], device=device)
-        dst = torch.as_tensor([e[1] for e in edges], device=device)
-        flat.index_add_(0, src, draws)
-        flat.index_add_(0, dst, -draws)
-    return _unflat(flat, template, (num_clients,))
+        src_dead = np.isin([e[0] for e in edges], dead)
+        dst_dead = np.isin([e[1] for e in edges], dead)
+        coeff = torch.as_tensor(src_dead.astype(np.float32)
+                                - dst_dead.astype(np.float32), device=device)
+        acc = (coeff[:, None] * _draw(edges, size, device)).sum(0) * scale
+    return _unflat(acc, template, ())
 
 
 def _one_mask(seed, client_id: int, template, participation, scale, mode,
@@ -145,8 +214,8 @@ def _one_mask(seed, client_id: int, template, participation, scale, mode,
     leaves = trees.tree_leaves(template)
     device = leaves[0].device
     size = sum(x.numel() for x in leaves)
-    mine = [e for e in _edges(seed, participation, mode, neighbors)
-            if client_id in (e[0], e[1])]
+    mine = _edges(seed, participation, mode, neighbors,
+                  range(client_id, client_id + 1))
     acc = torch.zeros(size, dtype=torch.float32, device=device)
     if mine:
         signs = torch.as_tensor(

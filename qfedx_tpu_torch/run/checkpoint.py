@@ -22,7 +22,7 @@ drains it and re-raises the first writer error.
 
 The port runs in one process, so no decision is broadcast. The fault
 harness's ``checkpoint.write`` site (QFEDX_FAULTS) is not ported yet
-(ROADMAP Queue 1 item 9).
+(ROADMAP Queue 1 item 9, 9b): the pin raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -91,7 +91,7 @@ class Checkpointer:
 
     def __init__(self, directory: str | os.PathLike, every: int = 5,
                  keep: int = 3):
-        pins.refuse_unported("Queue 1 item 9", "QFEDX_FAULTS")
+        pins.refuse_unported("Queue 1 item 9 (9b)", "QFEDX_FAULTS")
         if every < 1:
             raise ValueError("every must be ≥ 1")
         self.dir = Path(directory)
@@ -180,6 +180,13 @@ class Checkpointer:
             )
             self._thread.start()
         self._queue.put((round_idx, params))
+
+    def busy(self) -> bool:
+        """True while the background writer still has work in flight: a
+        synchronous save after a timed-out ``wait`` must not race it over
+        the same files."""
+        q = self._queue
+        return q is not None and q.unfinished_tasks > 0
 
     def maybe_save_async(self, round_idx: int, params: Any) -> bool:
         """``save_async`` on the every-K cadence; True if a save was queued."""

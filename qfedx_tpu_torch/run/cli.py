@@ -18,10 +18,14 @@ fedprox`` with ``--prox-mu``, ``--secure-agg[-mode|-neighbors]``,
 ``--trim-fraction``, ``--client-fraction`` and ``--optimizer spsa`` —
 and the VQC's noise flags (``--depolarizing``, ``--damping``,
 ``--readout-flip``, ``--shots``, ``--noise-placement readout|circuit``)
-run. Not ported yet, each raising NotImplementedError: ``--plots``,
-``--profile``, ``--trace`` and ``--tuned`` (ROADMAP Queue 1 item 14);
-the staleness settings (item 9); sharding (``run/config.build_model``,
-item 12); and the ``tune``,
+run. The staleness settings (``--staleness-mode``, ``--staleness-alpha``,
+``--staleness-max-age``) go into ``FedConfig`` as in the reference; the
+resident trainer ignores them, as the reference's does (the streamed
+trainer, ``run/trainer.train_federated_streamed``, is a library entry
+in both packages). Not ported yet, each raising NotImplementedError:
+``--plots``, ``--profile``, ``--trace`` and ``--tuned`` (ROADMAP Queue 1
+item 14); sharding (``run/config.build_model``, item 12); and the
+``tune``,
 ``inspect``, ``demo``, ``sweep`` and ``bench`` subcommands (item 14) and
 ``lint`` (item 15).
 """
@@ -304,9 +308,6 @@ def _refuse_unported_train_flags(a: argparse.Namespace) -> None:
     for flag, on, item in (
         ("--plots", a.plots, 14), ("--profile", a.profile, 14),
         ("--trace", a.trace, 14), ("--tuned", a.tuned is not None, 14),
-        ("--staleness-mode", a.staleness_mode != "constant", 9),
-        ("--staleness-alpha", a.staleness_alpha != 0.5, 9),
-        ("--staleness-max-age", a.staleness_max_age != 2, 9),
     ):
         if on:
             raise NotImplementedError(

@@ -45,8 +45,11 @@ parity tests only: initial parameters in place of ``model.init(seed)``,
 a callable from the round index to the (C, E, S) shuffles the reference
 drew, and one from the round index to the streams of ``RoundDraws``
 the reference drew (a dict by stream name). Sv-sharded models (ROADMAP
-Queue 1 item 12) and ``train_federated_streamed`` (item 9) raise
-NotImplementedError.
+Queue 1 item 12) raise NotImplementedError.
+
+``train_federated_streamed`` trains over a client registry in streamed
+waves: the cohort sampler, the wave uploader, the hierarchical partial
+rounds and the staleness buffer (its docstring).
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ from qfedx_tpu_torch.fed.round import (
     RoundDraws,
     guards_enabled,
     make_fed_round,
+    round_generator,
 )
 from qfedx_tpu_torch.fed.secure_agg import round_seed
 from qfedx_tpu_torch.models.api import Model
@@ -105,13 +109,6 @@ def resolve_pipeline_depth(pipeline_depth: int | None = None) -> int:
             raise ValueError(f"pipeline_depth must be >= 0, got {depth}")
         return depth
     return pins.depth_pin("QFEDX_PIPELINE", 1)
-
-
-def _round_generator(seed: int, round_idx: int) -> torch.Generator:
-    """The shuffles' generator of round ``round_idx``: a function of
-    (seed, round) alone."""
-    state = np.random.SeedSequence([seed, round_idx]).generate_state(1)[0]
-    return torch.Generator().manual_seed(int(state))
 
 
 def train_federated(
@@ -236,7 +233,7 @@ def train_federated(
         if perms_for_round is not None:
             return round_fn(p, dcx, dcy, dcm, perms=perms_for_round(r), **kw)
         return round_fn(p, dcx, dcy, dcm,
-                        generator=_round_generator(seed, r), **kw)
+                        generator=round_generator(seed, r), **kw)
 
     def chunk_accuracy(p) -> torch.Tensor:
         with torch.inference_mode():
@@ -378,9 +375,449 @@ def train_federated(
     return result
 
 
-def train_federated_streamed(*args, **kwargs) -> TrainResult:
-    """Training over a client registry in streamed waves: not ported
-    yet (ROADMAP Queue 1 item 9)."""
-    raise NotImplementedError(
-        "train_federated_streamed is not ported yet (ROADMAP Queue 1 item 9)"
+def _host_stats(stats) -> dict:
+    """A round's ``RoundStats`` as host floats, in one device read."""
+    fields = stats._fields
+    vals = torch.stack([torch.as_tensor(getattr(stats, f),
+                                        dtype=torch.float32).reshape(())
+                        .to(stats.mean_loss.device) for f in fields])
+    return dict(zip(fields, vals.cpu().tolist()))
+
+
+def train_federated_streamed(
+    model: Model,
+    cfg: FedConfig,
+    registry,
+    test_x: np.ndarray,
+    test_y: np.ndarray,
+    *,
+    cohort_size: int,
+    wave_size: int | None = None,
+    num_rounds: int = 30,
+    seed: int = 42,
+    device=None,
+    eval_every: int = 1,
+    eval_batches: int | None = None,
+    on_round_end: Callable[[int, dict], None] | None = None,
+    checkpointer=None,
+    stream_depth: int | None = None,
+    fault_plan=None,
+    wave_deadline_s: float | None = None,
+    stale_poll_s: float = 30.0,
+    params=None,
+    perms_for_round: Callable[[int], Any] | None = None,
+    draws_for_round: Callable[[int], dict] | None = None,
+) -> TrainResult:
+    """Federated training over a client REGISTRY in streamed waves.
+
+    Counterpart of the reference's ``train_federated_streamed``. Each
+    round samples ``cohort_size`` clients from ``registry`` (anything
+    with ``num_clients`` and ``batch(ids)``: ``data.stream.
+    SyntheticRegistry``, ``ArrayRegistry``) with ``fed.sampling.
+    CohortSampler``, streams them to ``device`` in waves of
+    ``wave_size`` (``data.stream.WaveStream``, ``stream_depth`` /
+    ``QFEDX_STREAM``), computes each wave's partial
+    (``fed.round.make_fed_round_partial``) and applies their sum once
+    (``make_accumulate_partial``, ``make_apply_partial``; under the
+    robust rules or ``QFEDX_STALE`` the stacked ``make_apply_partials``).
+    ``QFEDX_HIER=off`` runs the flat round and needs one wave.
+
+    The round's shuffles are drawn once over the cohort from the
+    resident trainer's generator of (seed, round) and sliced per wave,
+    and client c's other draws are its cohort position's, so one wave
+    over an ``ArrayRegistry`` equals ``train_federated`` on the same
+    arrays. Participation and the secure-agg pair graph span the cohort,
+    so ring masks cancel across waves.
+
+    A wave whose fetch exhausts its retries, or (with
+    ``wave_deadline_s``) hangs past the deadline, is dropped: its sampled
+    clients become casualties and, under cohort-graph masks, the server
+    adds their regenerated masks back (``secure_agg.
+    unmatched_mask_sum``). With ``QFEDX_STALE`` a deadline-missed wave
+    is a straggler instead: its upload finishes in the background, its
+    partial is computed against its origin round's θ, draws, shuffles
+    and mask seed, and it folds into a later round's apply at the
+    staleness discount of its age, or is discarded past
+    ``cfg.staleness_max_age``; ``stale_poll_s`` bounds each round's wait
+    for it. Needs QFEDX_HIER and QFEDX_GUARDS.
+
+    The DP accountant charges each round at the origin's q =
+    client_fraction · cohort / registry size (example mode: E·S/B steps
+    at q = B/S). ``comm_mb_per_round`` is (W + 1)·|θ|. A
+    ``KeyboardInterrupt`` (from ``on_round_end`` or Ctrl-C) closes the
+    streams, drains the checkpoint writer and saves the last completed
+    round synchronously before it propagates. ``fault_plan`` and
+    ``QFEDX_FAULTS`` are not ported yet (ROADMAP Queue 1 item 9, 9b),
+    nor are the obs spans, the /metrics endpoint and the SIGTERM
+    translation (item 14). ``params=``, ``perms_for_round=`` (the round's
+    (cohort, E, S) shuffles) and ``draws_for_round=`` (its ``RoundDraws``
+    streams over the cohort) exist for the parity tests."""
+    from qfedx_tpu_torch.data.stream import DroppedWave, LateWave, WaveStream
+    from qfedx_tpu_torch.fed.client import draw_perms
+    from qfedx_tpu_torch.fed.round import (
+        RoundStats,
+        hier_enabled,
+        make_accumulate_partial,
+        make_apply_partial,
+        make_apply_partials,
+        make_fed_round_partial,
+        stack_partials,
+        stale_enabled,
     )
+    from qfedx_tpu_torch.fed.robust import ROBUST_AGGREGATORS
+    from qfedx_tpu_torch.fed.sampling import CohortSampler
+    from qfedx_tpu_torch.fed.secure_agg import unmatched_mask_sum
+
+    pins.refuse_unported("Queue 1 item 9 (9b)", "QFEDX_FAULTS")
+    if fault_plan is not None:
+        raise NotImplementedError(
+            "train_federated_streamed's fault_plan is not ported yet "
+            "(ROADMAP Queue 1 item 9, 9b)"
+        )
+    wave_size = cohort_size if wave_size is None else int(wave_size)
+    if cohort_size % wave_size != 0:
+        raise ValueError(
+            f"cohort_size={cohort_size} not divisible by wave_size={wave_size}"
+        )
+    num_waves = cohort_size // wave_size
+    hier = hier_enabled()
+    if not hier and num_waves > 1:
+        raise ValueError(
+            "QFEDX_HIER=off forces the flat one-program round, which "
+            f"needs the whole cohort in one wave (waves={num_waves})"
+        )
+    guards = guards_enabled()
+    agg = resolve_aggregator(cfg)
+    robust = agg in ROBUST_AGGREGATORS
+    if robust and cfg.secure_agg and num_waves < 2:
+        raise ValueError(
+            f"aggregator={agg!r} under secure_agg defends at the WAVE "
+            f"level (per-wave pair graphs) and needs >= 2 waves; with "
+            f"waves={num_waves} it would silently degenerate to plain "
+            "masked mean — split the cohort or use clip_mean"
+        )
+    stale = stale_enabled()
+    if stale and not hier:
+        raise ValueError(
+            "QFEDX_STALE needs the hierarchical round (QFEDX_HIER=on): "
+            "staleness buffering parks per-wave RoundPartials, which "
+            "the flat one-program round does not produce"
+        )
+    if stale and not guards:
+        raise ValueError(
+            "QFEDX_STALE needs QFEDX_GUARDS=on: a straggler wave that "
+            "dies for good degrades to survivor-mask dropouts, which "
+            "the unguarded round program cannot express"
+        )
+    if stale and wave_deadline_s is None:
+        warnings.warn(
+            "QFEDX_STALE is on but wave_deadline_s is None: no wave "
+            "can be classified late, so staleness buffering is inert "
+            "— pass wave_deadline_s to salvage stragglers",
+            UserWarning,
+            stacklevel=2,
+        )
+
+    sampler = CohortSampler(registry_size=registry.num_clients,
+                            cohort_size=cohort_size, seed=seed)
+    partial_fn = accum_fn = apply_fn = apply_stacked_fn = round_fn = None
+    if hier:
+        partial_fn = make_fed_round_partial(model, cfg, wave_size,
+                                            cohort_clients=cohort_size)
+        if robust or stale:
+            apply_stacked_fn = make_apply_partials(cfg, cohort_size)
+        if not robust:
+            # Under QFEDX_STALE a straggler-free round takes this exact
+            # sequential accumulate + apply, so the pin changes nothing
+            # until a wave is late.
+            accum_fn = make_accumulate_partial()
+            apply_fn = make_apply_partial(cfg, cohort_size)
+    else:
+        round_fn = make_fed_round(model, cfg, num_clients=cohort_size)
+
+    evaluate = make_evaluator(model, max_batches=eval_batches)
+    evaluate_full = make_evaluator(model)
+    if params is None:
+        params = model.init(seed)
+    if device is not None:
+        params = trees.tree_map(lambda t: t.to(pins.resolve_device(device)),
+                                params)
+    start_round = 0
+    if checkpointer is not None:
+        restored = checkpointer.restore_latest(params)
+        if restored is not None:
+            params, start_round = restored
+    device = trees.tree_leaves(params)[0].device
+    s_pad = registry.batch(np.arange(1))[0].shape[1]
+
+    accountant = RDPAccountant() if cfg.dp is not None else None
+    if accountant is not None and cfg.dp.mode == "example":
+        acct_q = min(1.0, cfg.batch_size / s_pad)
+        acct_steps = cfg.local_epochs * (s_pad // cfg.batch_size)
+    else:
+        # Client mode: the registry → cohort draw and the participation
+        # draw both select a client, so q is over the registry.
+        acct_q = cfg.client_fraction * (cohort_size / registry.num_clients)
+        acct_steps = 1
+    if accountant is not None and start_round > 0:
+        accountant.step(q=acct_q, sigma=cfg.dp.noise_multiplier,
+                        num_steps=start_round * acct_steps)
+    # Each wave uplinks one partial of |θ|, and θ goes down once.
+    comm_mb = (num_waves + 1) * trees.tree_bytes(params) / 1e6
+    result = TrainResult(
+        params=params, accuracies=[], losses=[], comm_mb_per_round=comm_mb,
+        evaluate=evaluate_full,
+    )
+    if eval_every <= num_rounds:
+        result.accuracies.append(evaluate(params, test_x, test_y)["accuracy"])
+
+    def origin(rnd: int) -> dict:
+        """Everything a wave of round ``rnd`` is computed against besides
+        θ: the draws, the cohort's shuffles and the mask seed."""
+        given = None if draws_for_round is None else draws_for_round(rnd)
+        perms = (perms_for_round(rnd) if perms_for_round is not None
+                 else draw_perms(round_generator(seed, rnd), cohort_size,
+                                 cfg.local_epochs, s_pad))
+        return dict(draws=RoundDraws(seed, rnd, given),
+                    perms=torch.as_tensor(perms, dtype=torch.int64),
+                    sa_seed=(round_seed(seed, rnd, SA_SEED_SALT)
+                             if cfg.secure_agg else None))
+
+    def participation(o: dict) -> np.ndarray:
+        if cfg.client_fraction >= 1.0:
+            return np.ones(cohort_size, np.float32)
+        return o["draws"].participation(cohort_size, cfg.client_fraction)
+
+    def wave_partial(p, o: dict, lo: int, wx, wy, wm):
+        return partial_fn(p, wx, wy, wm, lo,
+                          perms=o["perms"][lo:lo + wave_size],
+                          sa_seed=o["sa_seed"], draws=o["draws"])
+
+    def zero() -> torch.Tensor:
+        return torch.zeros((), dtype=torch.float32, device=device)
+
+    # Streams of earlier rounds whose late waves are still uploading,
+    # each with its origin round's θ and derivation.
+    pending_late: list = []
+    last_done, last_params = start_round, params
+    try:
+        for rnd in range(start_round, num_rounds):
+            t0 = time.perf_counter()
+            cohort_ids = sampler.round_ids(rnd)
+            o = origin(rnd)
+            # θ this round's waves train against, and the origin θ of its
+            # stragglers; rounds make new tensors, so it stays intact.
+            params_in = params
+            stream = WaveStream(
+                registry, device, cohort_ids, wave_size, depth=stream_depth,
+                round_idx=rnd,
+                on_wave_error=("buffer" if stale else
+                               "drop" if guards else "raise"),
+                wave_deadline_s=wave_deadline_s,
+            )
+            lost: list = []
+            late: list = []
+            stale_parts: list = []  # (origin round, partial) folding in now
+            host_extra_dropped = 0.0  # casualties no partial carries
+            stale_discarded = 0
+            try:
+                acc = None
+                parts: list = []
+                stats = None
+                for item in stream:
+                    if isinstance(item, DroppedWave):
+                        lost.append(item)
+                        continue
+                    if isinstance(item, LateWave):
+                        late.append(item)
+                        continue
+                    lo, (wx, wy, wm) = item
+                    if hier:
+                        part = wave_partial(params, o, lo, wx, wy, wm)
+                        if robust or stale:
+                            parts.append(part)
+                        else:
+                            acc = part if acc is None else accum_fn(acc, part)
+                    else:
+                        params, stats = round_fn(
+                            params, wx, wy, wm, perms=o["perms"],
+                            sa_seed=o["sa_seed"], draws=o["draws"])
+                if stale and pending_late:
+                    # Stragglers of earlier rounds, each computed against
+                    # its origin round; one salvage deadline for all.
+                    still_pending = []
+                    poll_deadline = time.monotonic() + stale_poll_s
+                    for pl in pending_late:
+                        age = rnd - pl["round"]
+                        items, failed = pl["stream"].poll_late(
+                            timeout_s=max(0.0,
+                                          poll_deadline - time.monotonic()))
+                        for lo, (lwx, lwy, lwm) in items:
+                            stale_parts.append((pl["round"], wave_partial(
+                                pl["params"], pl["origin"], lo, lwx, lwy,
+                                lwm)))
+                        dead_waves = list(failed)
+                        keep = pl["stream"].late_pending()
+                        if keep and age >= cfg.staleness_max_age:
+                            dead_waves += pl["stream"].abandon_late()
+                            keep = False
+                        if dead_waves:
+                            # A dead straggler's sampled clients: no
+                            # partial ever counted them.
+                            p_np = participation(pl["origin"])
+                            for w in dead_waves:
+                                host_extra_dropped += float(p_np[
+                                    w * wave_size:(w + 1) * wave_size].sum())
+                            stale_discarded += len(dead_waves)
+                        if keep:
+                            still_pending.append(pl)
+                        else:
+                            pl["stream"].close()
+                    pending_late[:] = still_pending
+                if lost:
+                    # Fetch-dead waves: their sampled clients are
+                    # casualties; under cohort-graph masks the server adds
+                    # their regenerated masks back.
+                    dead = np.zeros(cohort_size, dtype=np.float32)
+                    for dw in lost:
+                        dead[dw.wave_base:dw.wave_base + wave_size] = 1.0
+                    eff_pre = participation(o)
+                    n_lost = float((eff_pre * dead).sum())
+                    if stale:
+                        # Per-wave graphs: nothing to correct.
+                        host_extra_dropped += n_lost
+                    else:
+                        if acc is not None and cfg.secure_agg:
+                            corr = unmatched_mask_sum(
+                                o["sa_seed"], cohort_size,
+                                trees.tree_map(torch.zeros_like, params),
+                                eff_pre, eff_pre * (1.0 - dead),
+                                cfg.secure_agg_scale,
+                                cfg.secure_agg_neighbors,
+                                cfg.secure_agg_mode,
+                            )
+                            acc = acc._replace(update_sum=trees.tree_add(
+                                acc.update_sum, corr))
+                        if acc is not None:
+                            acc = acc._replace(
+                                dropped_clients=acc.dropped_clients + n_lost)
+                        elif parts:
+                            parts[-1] = parts[-1]._replace(
+                                dropped_clients=parts[-1].dropped_clients
+                                + n_lost)
+                if hier and stale:
+                    if stale_parts:
+                        ages = np.asarray(
+                            [0.0] * len(parts)
+                            + [float(rnd - og) for og, _ in stale_parts],
+                            np.float32)
+                        params, stats = apply_stacked_fn(
+                            params, stack_partials(
+                                parts + [sp for _, sp in stale_parts]),
+                            ages=ages)
+                    elif robust and parts:
+                        params, stats = apply_stacked_fn(
+                            params, stack_partials(parts))
+                    elif parts:
+                        acc = parts[0]
+                        for extra in parts[1:]:
+                            acc = accum_fn(acc, extra)
+                        params, stats = apply_fn(params, acc)
+                elif hier and robust and parts:
+                    params, stats = apply_stacked_fn(params,
+                                                     stack_partials(parts))
+                elif hier and acc is not None:
+                    params, stats = apply_fn(params, acc)
+                if stats is None:
+                    # Every wave died (or went late): θ passes through,
+                    # the skipped-round shape.
+                    n_lost = 0.0 if (stale or not lost) else n_lost
+                    stats = RoundStats(
+                        mean_loss=zero(), total_weight=zero(),
+                        num_participants=zero(), rejected_updates=zero(),
+                        dropped_clients=zero() + n_lost, applied=zero(),
+                        clipped_clients=zero(), trimmed_fraction=zero())
+            finally:
+                if stale and stream.late_pending():
+                    # Straggler salvage in flight: later rounds collect or
+                    # abandon it; the outer finally closes it on a crash.
+                    pending_late.append(dict(round=rnd, stream=stream,
+                                             params=params_in, origin=o))
+                else:
+                    stream.close()
+            st = _host_stats(stats)
+            dt = time.perf_counter() - t0
+
+            loss = st["mean_loss"]
+            result.round_times_s.append(dt)
+            result.losses.append(loss)
+            metrics = {
+                "round": rnd + 1,
+                "loss": loss,
+                "time_s": dt,
+                "cohort": cohort_size,
+                "waves": num_waves,
+                "participants": int(st["num_participants"]),
+            }
+            if guards:
+                metrics["dropped_clients"] = int(round(
+                    st["dropped_clients"] + host_extra_dropped))
+                metrics["rejected_updates"] = int(round(
+                    st["rejected_updates"]))
+                if lost:
+                    metrics["dropped_waves"] = len(lost)
+                if st["applied"] < 0.5:
+                    metrics["skipped"] = True
+            if stale:
+                metrics["late_waves"] = len(late)
+                metrics["stale_partials_applied"] = len(stale_parts)
+                if stale_discarded:
+                    metrics["stale_discarded_waves"] = stale_discarded
+            if agg != "mean":
+                metrics["aggregator"] = agg
+                if agg == "clip_mean":
+                    metrics["clipped_clients"] = int(round(
+                        st["clipped_clients"]))
+                else:
+                    metrics["trimmed_fraction"] = round(
+                        st["trimmed_fraction"], 4)
+            if accountant is not None:
+                accountant.step(q=acct_q, sigma=cfg.dp.noise_multiplier,
+                                num_steps=acct_steps)
+                eps = accountant.epsilon(cfg.dp.delta)
+                result.epsilons.append(eps)
+                metrics["epsilon"] = eps
+            if (rnd + 1) % eval_every == 0 or rnd == num_rounds - 1:
+                eval_metrics = evaluate(params, test_x, test_y)
+                result.accuracies.append(eval_metrics["accuracy"])
+                metrics.update(eval_metrics)
+            if checkpointer is not None:
+                if rnd == num_rounds - 1:
+                    checkpointer.wait()
+                    checkpointer.save(rnd + 1, params)
+                else:
+                    checkpointer.maybe_save_async(rnd + 1, params)
+            if on_round_end is not None:
+                on_round_end(rnd, metrics)
+            last_done, last_params = rnd + 1, params
+    except (KeyboardInterrupt, SystemExit):
+        # Drain, persist, re-raise: the last completed round is saved
+        # synchronously unless a timed-out writer is still busy (two
+        # writers on one file set could validate a torn checkpoint).
+        if checkpointer is not None:
+            try:
+                checkpointer.wait(raise_errors=False, timeout=30.0)
+                if last_done > start_round and not checkpointer.busy():
+                    checkpointer.save(last_done, last_params)
+            except Exception:  # noqa: BLE001 — the unwind path stays silent
+                pass
+        raise
+    finally:
+        for pl in pending_late:
+            try:
+                pl["stream"].close()
+            except Exception:  # noqa: BLE001 — best-effort unwind
+                pass
+        pending_late.clear()
+    result.params = params
+    return result

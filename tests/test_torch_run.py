@@ -457,7 +457,7 @@ def test_cli_train_then_serve(monkeypatch, tmp_path, small_data, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--plots"], ["--profile"], ["--trace"], ["--tuned", "x.json"],
-    ["--staleness-mode", "poly"],
+    ["--sv-size", "4"],
     ["--sv-size", "2"],
 ])
 def test_cli_unported_paths_raise(tmp_path, small_data, extra):
