@@ -224,13 +224,41 @@ Phases (any failure raises and exits non-zero):
    CPU within TRAINED_LOGIT_ATOL), then a registry that fails one wave
    under ring masks (the wave dropped; θ within MASK_ATOL of the round
    with its clients as non-survivors and no masks);
-19. print one JSON line describing each launch of the kernel, f32 and
+19. fault plans (``utils/faults.FaultPlan`` at the port's seams):
+   ``[chaos]`` trains bench.py's fault_tolerance row at its 20% point
+   (a 2^18-client registry, cohort 128 in waves of 64, n = 8, L = 3,
+   Adam, ring masks, 10% drops and 10% NaN clients) for 3 rounds — no
+   launch, θ finite, each row's dropped/rejected/participants equal to
+   the plan's draws, its round 0 card vs CPU within TRAINED_LOGIT_ATOL;
+   ``[chaos-kernel]`` trains the n = 12 VQC in 8 waves of 32 under
+   clip_mean with one drop, one NaN, one Inf, one scale:100 and one
+   label_flip client a round and a transient registry.fetch and
+   ingest.h2d fault: one B and one C per wave per step, the ledger
+   (clipped_clients included) equal to the plan's, and one round of a
+   32-client cohort (one wave) card vs CPU: under SGD with the whole
+   plan θ within TRAINED_LOGIT_ATOL, under Adam without the attacker the
+   logits (with it printed only);
+   ``[chaos-isolation]`` and ``[bf16-chaos-isolation]`` hold a wave's
+   partial with a NaN client against the same wave with that client
+   dropped (Δ sums within ISOLATION_ATOL, counts apart only in rejected
+   vs dropped) and the kernel's A, B and C on the poisoned wave's
+   program (the NaN rows stay NaN, the others agree with plain);
+   ``[chaos-straggler]`` declares round 0's second wave late (delay
+   0.5 s, deadline 0.05 s) under QFEDX_STALE and folds it in round 1,
+   card vs CPU; ``[chaos-serve]`` serves [serve]'s 256 requests with 10%
+   corrupted (each rejected alone, as planned) and one failed compute
+   (retried), the rest equal to the clean engine's logits, no build after
+   warmup, p50/p95 printed; ``[chaos-checkpoint]`` recovers a failed
+   async checkpoint write and ``[sigterm]`` stops a run at a SIGTERM
+   raised when round 1 ends (the last completed round checkpointed, the
+   handler restored) and resumes it to the uninterrupted run's θ;
+20. print one JSON line describing each launch of the kernel, f32 and
    bf16 instances (launches on the CLI run, and per path, the dense,
    reupload, amplitude, config-4, federation-option, model-family,
-   noise and streamed paths included;
+   noise, streamed and fault-plan paths included;
    max error; kernel-alone, plain and bound at the CLI run's shape, and
    at the earlier slices', the reupload, SPSA and per-example shapes);
-20. print the final ``{"ok": true, "device": {...}}`` line.
+21. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -493,7 +521,8 @@ def phase_build() -> float:
     t0 = time.perf_counter()
     scan_body.load_kernel()
     secs = time.perf_counter() - t0
-    print(f"[build] scan_body.cu built and loaded in {secs:.2f} s "
+    print(f"[build] scan_body.cu built (its f32 and its bf16 instances by "
+          f"two concurrent nvcc processes) and loaded in {secs:.2f} s "
           f"(build_count={scan_body.build_count})")
     for line in scan_body.build_log.splitlines():
         if "registers" in line or "spill" in line:
@@ -1508,30 +1537,45 @@ class _RoundCounts:
         self.trainer.make_fed_round = self.orig
 
 
-def cli_train(argv, device) -> tuple[dict, dict, list, dict]:
+def cli_train(argv, device, data=None) -> tuple[dict, dict, list, dict]:
     """``run.cli.main(argv)`` in this process on ``device`` (None = the
     card) with the launch counters set to 0 just before; returns the
     summary, the launches read just after, each round's launches, and the
-    launches by instance dtype."""
+    launches by instance dtype. Given ``data`` (``cli_data(argv)``), the
+    run goes to ``run.cli.run_train`` with it in place of its own build."""
     from qfedx_tpu_torch.ops import scan_body
     from qfedx_tpu_torch.run import cli
 
     with _RoundCounts() as rc:
         scan_body.reset_counts()
-        summary = cli.main(argv, device=device)
+        if data is None:
+            summary = cli.main(argv, device=device)
+        else:
+            cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+            summary = cli.run_train(cfg, device=device, data=data)
         launches = dict(scan_body.launch_counts)
         by_dtype = dict(scan_body.dtype_counts)
     return summary, launches, rc.rounds, by_dtype
 
 
-def expected_shapes(argv) -> dict:
-    """What the CLI's data gives the kernel: local steps per round
-    (E·S_pad/B) and the evaluation sets' sizes."""
+def cli_data(argv) -> dict:
+    """``run.config.build_data`` of ``argv``'s config (host numpy, the
+    same for the card and the CPU), built once for a phase's shape probe
+    and its CPU twin."""
     from qfedx_tpu_torch.run import cli
     from qfedx_tpu_torch.run.config import build_data
 
+    return build_data(cli.config_from_args(cli.build_parser().parse_args(
+        argv)))
+
+
+def expected_shapes(argv, data=None) -> dict:
+    """What the CLI's data (``data``, else built) gives the kernel: local
+    steps per round (E·S_pad/B) and the evaluation sets' sizes."""
+    from qfedx_tpu_torch.run import cli
+
     cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
-    data = build_data(cfg)
+    data = cli_data(argv) if data is None else data
     s_pad = data["cx"].shape[1]
     return {"steps": cfg.fed.local_epochs * s_pad // cfg.fed.batch_size,
             "s_pad": s_pad, "n_val": len(data["val"][1]),
@@ -2688,7 +2732,8 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
     from qfedx_tpu_torch.run.checkpoint import Checkpointer
 
     n, layers, classes, clients = _run_shape(argv)
-    shapes = expected_shapes(argv)
+    data = cli_data(argv)
+    shapes = expected_shapes(argv, data)
     rounds_n = int(argv[argv.index("--rounds") + 1])
     record = {} if record is None else record
     t0 = time.perf_counter()
@@ -2701,7 +2746,7 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
     with record_branches() as record["cpu"]:
         cpu_summary, _, _, _ = cli_train(
             cpu_argv + ["--run-root", str(root / "cpu"), "--name", name],
-            "cpu")
+            "cpu", data)
     cpu_wall = time.perf_counter() - t0
     run, cpu_run = root / name, root / "cpu" / name
     batch = int(argv[argv.index("--batch-size") + 1]) if (
@@ -3155,7 +3200,8 @@ def phase_config2(root) -> dict:
     from qfedx_tpu_torch.run.checkpoint import Checkpointer
 
     n, layers, classes, clients = _run_shape(CONFIG2_ARGV)
-    shapes = expected_shapes(CONFIG2_ARGV)
+    data = cli_data(CONFIG2_ARGV)
+    shapes = expected_shapes(CONFIG2_ARGV, data)
     builds = scan_body.build_count
     t0 = time.perf_counter()
     summary, launches, rounds, _ = cli_train(
@@ -3164,7 +3210,7 @@ def phase_config2(root) -> dict:
     t0 = time.perf_counter()
     cpu_summary, _, _, _ = cli_train(
         CONFIG2_ARGV + ["--run-root", str(root / "cpu"), "--name",
-                        "config2"], "cpu")
+                        "config2"], "cpu", data)
     cpu_wall = time.perf_counter() - t0
     rows, cpu_rows = _rows(root / "config2"), _rows(root / "cpu" / "config2")
     print(f"[config2] {' '.join(CONFIG2_ARGV)}: n={n} L={layers} "
@@ -3420,7 +3466,8 @@ def family_cli_train(root, argv, name: str, tag: str, atol: float,
             return fn(*a, **k)
         return build
 
-    shapes = expected_shapes(argv)
+    data = cli_data(argv)
+    shapes = expected_shapes(argv, data)
     builds = scan_body.build_count
     fround.make_local_update_clients = spy("folded", folded_fn)
     fround.make_local_update = spy("one client at a time", client_fn)
@@ -3433,7 +3480,7 @@ def family_cli_train(root, argv, name: str, tag: str, atol: float,
         cpu_argv, cpu_rounds = twin_argv(argv)
         cpu_summary, _, _, _ = cli_train(
             cpu_argv + ["--run-root", str(root / "cpu"), "--name", name],
-            "cpu")
+            "cpu", data)
         cpu_wall = time.perf_counter() - t0
     finally:
         fround.make_local_update_clients = folded_fn
@@ -4341,11 +4388,621 @@ def phase_streamed_stale(device) -> dict:
     return out
 
 
+CHAOS_RATE = 0.20  # [chaos]: bench.py's fault_tolerance row, highest rate
+# [chaos-kernel]: the cohort positions of the planned drop, NaN, Inf,
+# scale:100 and label_flip clients (NaN and Inf share a wave), in the
+# 256-client run and in its one-wave card/CPU twin.
+CHAOS_POSITIONS = {256: (3, 37, 38, 70, 101), 32: (3, 17, 18, 25, 30)}
+CHAOS_CLIP = 5.0  # clip_mean's bound: above an honest Adam step's norm
+# [chaos-kernel]'s SGD twin: between an honest SGD upload's norm (below
+# 0.1 there) and its scale:100 client's (above 1).
+CHAOS_SGD_CLIP = 0.3
+ISOLATION_ATOL = 1e-6  # a wave's Δ sums, NaN client vs the client dropped
+STRAGGLER_DEADLINE_S = 0.05  # bench.py's _bench_straggler deadline
+
+
+def counting_plan(seed: int, rules: list):
+    """A ``FaultPlan`` whose ``check`` counts, per site in ``.fired``, the
+    ``FaultInjected`` it raises (what the reference's faults.injected.*
+    counters would show)."""
+    from qfedx_tpu_torch.utils.faults import FaultInjected, FaultPlan
+
+    class CountingPlan(FaultPlan):
+        def check(self, site, round_idx, wave=0, attempt=0):
+            try:
+                super().check(site, round_idx, wave, attempt)
+            except FaultInjected:
+                self.fired[site] = self.fired.get(site, 0) + 1
+                raise
+
+    plan = CountingPlan(seed=seed, rules=rules)
+    plan.fired = {}
+    return plan
+
+
+def _chaos_ledger(tag: str, rows, plan, ids_of, cohort: int,
+                  clip: bool = False) -> list:
+    """Each row's casualty ledger against the plan's own draws: dropped
+    = the plan's drops, rejected = its NaN/Inf clients that survive,
+    participants = the rest (and under clip_mean, clipped = the
+    surviving scale attackers). Returns the expected rows."""
+    out = []
+    for r, row in enumerate(rows):
+        ids = ids_of(r)
+        alive = plan.survivors(r, ids) == 1.0
+        bad = ~np.isfinite(plan.poison(r, ids))
+        want = {"dropped_clients": int((~alive).sum()),
+                "rejected_updates": int((alive & bad).sum()),
+                "participants": int((alive & ~bad).sum())}
+        if clip:
+            want["clipped_clients"] = int(
+                (alive & ~bad & (plan.byzantine_multipliers(r, ids) != 1.0)
+                 ).sum())
+        got = {k: row.get(k) for k in want}
+        if got != want or want["dropped_clients"] + want[
+                "rejected_updates"] + want["participants"] != cohort:
+            raise AssertionError(f"{tag} round {r}: ledger {got}, the plan's "
+                                 f"{want}")
+        out.append(want)
+    return out
+
+
+def _theta_finite(what: str, params, rows) -> None:
+    if not all(math.isfinite(r["loss"]) for r in rows) or not all(
+            bool(torch.isfinite(t).all()) for t in trees_leaves(params)):
+        raise AssertionError(f"{what}: θ or a loss went non-finite")
+
+
+def phase_chaos(device) -> dict:
+    """``[chaos]``: bench.py's fault_tolerance row (``_bench_fault_
+    tolerance``) at its 20% point on the card: a 2^18-client registry,
+    cohort 128 in waves of 64, n = 8, L = 3, Adam, ring masks, rate/2
+    drops and rate/2 NaN clients per round, 3 rounds; then its first
+    round on the card and the CPU."""
+    from qfedx_tpu_torch.data.stream import SyntheticRegistry
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.fed.sampling import CohortSampler
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.utils.faults import FaultPlan
+
+    n, layers, cohort, wave, rounds, seed = 8, 3, 128, 64, 3, 6
+    registry = SyntheticRegistry(1 << 18, samples=8, n_features=n, seed=2)
+    test = _registry_test_set(registry, n, 32)
+    cfg = FedConfig(local_epochs=1, batch_size=8, learning_rate=0.1,
+                    optimizer="adam", secure_agg=True, secure_agg_mode="ring")
+    plan = FaultPlan(seed=11, rules=[
+        {"site": "client.compute", "kind": "drop", "rate": CHAOS_RATE / 2},
+        {"site": "client.compute", "kind": "nan", "rate": CHAOS_RATE / 2},
+    ])
+    sampler = CohortSampler(registry.num_clients, cohort, seed)
+    kw = dict(cohort_size=cohort, wave_size=wave, seed=seed, fault_plan=plan)
+
+    def model(dev):
+        return make_vqc_classifier(n, layers, 2, device=dev)
+
+    res, rows, launches = _streamed(model(device), cfg, registry, test,
+                                    device, rounds, eval_every=rounds, **kw)
+    _theta_finite("chaos", res.params, rows)
+    want = _chaos_ledger("chaos", rows, plan, sampler.round_ids, cohort)
+    walls = [r["time_s"] for r in rows]
+    rate = cohort / float(np.median(walls[1:]))
+    print(f"[chaos] registry 2^18, cohort {cohort} in {cohort // wave} waves "
+          f"of {wave}, n={n} L={layers}, Adam, ring masks, plan: "
+          f"{CHAOS_RATE / 2:g} drop + {CHAOS_RATE / 2:g} nan per client: "
+          f"{rounds} rounds, walls {walls} s (host clock), {rate:.4f} "
+          f"client-rounds/s (cohort / median round after the first); "
+          f"ledger {[{k: r[k] for k in w} for r, w in zip(rows, want)]} "
+          f"= the plan's; final accuracy {rows[-1].get('accuracy')!r}; "
+          f"launches {launches}")
+    if launches != NO_LAUNCH:
+        raise AssertionError(f"chaos n=8 launched {launches}")
+    one = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        r1, rows1, _ = _streamed(model(dev), cfg, registry, test, dev, 1,
+                                 eval_every=2, **kw)
+        one[str(dev)] = (r1.params, rows1[0], time.perf_counter() - t0)
+    (card, card_row, card_s), (cpu, cpu_row, cpu_s) = (one[str(device)],
+                                                       one["cpu"])
+    err, theta_err = _adam_card_vs_cpu(model, card, cpu, test)
+    err = max(err, abs(card_row["loss"] - cpu_row["loss"]))
+    same = all(card_row[k] == cpu_row[k] for k in want[0])
+    print(f"[chaos] round 0 card vs cpu ({card_s:.2f} s and {cpu_s:.2f} s): "
+          f"logits and loss max|card-cpu| {err:.3e} (atol "
+          f"{TRAINED_LOGIT_ATOL:g}), theta {theta_err:.3e} (Adam's ±lr steps"
+          f" on zero-gradient angles, not gated); ledgers equal: {same}")
+    _require(err, TRAINED_LOGIT_ATOL, "chaos round, card vs cpu")
+    if not same:
+        raise AssertionError(f"chaos ledger card {card_row} vs cpu {cpu_row}")
+    return {"launches": launches, "rate": rate, "walls": walls,
+            "logit_err": err, "ledger": want}
+
+
+def chaos_kernel_plan(sampler, rounds: int, cohort: int,
+                      attacker: bool = True):
+    """[chaos-kernel]'s plan: at CHAOS_POSITIONS[cohort] of each round's
+    cohort one drop, one NaN, one Inf, one scale:100 (unless not
+    ``attacker``) and one label_flip client; round 0's wave 1 fetch and
+    round 1's wave 0 copy fail once."""
+    ids = [sampler.round_ids(r) for r in range(rounds)]
+    kinds = (("client.compute", "drop"), ("client.compute", "nan"),
+             ("client.compute", "inf"), ("client.byzantine", "scale:100"),
+             ("client.byzantine", "label_flip"))
+    rules = [{"site": site, "kind": kind,
+              "clients": sorted({int(i[p]) for i in ids})}
+             for (site, kind), p in zip(kinds, CHAOS_POSITIONS[cohort])
+             if attacker or kind != "scale:100"]
+    rules += [{"site": "registry.fetch", "rounds": [0], "waves": [1],
+               "times": 1},
+              {"site": "ingest.h2d", "rounds": [1], "waves": [0],
+               "times": 1}]
+    return counting_plan(seed=13, rules=rules)
+
+
+def phase_chaos_kernel(device) -> dict:
+    """``[chaos-kernel]``: the n = 12, L = 3 VQC streamed in waves of 32
+    (cohort 256, batch 8, Adam, clip_mean) under chaos_kernel_plan for 3
+    rounds: one B and one C per wave per local step, the NaN and Inf
+    clients' rows beside 31 healthy ones in their wave; then one round of
+    a 32-client cohort on the card and the CPU: under SGD (clip bound
+    CHAOS_SGD_CLIP) with the whole plan, θ, logits and loss gated; under
+    Adam without the plan's scale:100 client, the logits and loss gated;
+    and under Adam with the whole plan, printed only. Under Adam that
+    client's clip_mean factor is 5 over its upload's norm, and the upload
+    carries ×100 the ±lr steps Adam takes on each device's rounding noise
+    at the zero-gradient angles, so the factor, and through it every leaf
+    of θ, differs card vs CPU (``tests/test_torch_chaos.py`` shows it
+    between the packages)."""
+    from qfedx_tpu_torch.data.stream import SyntheticRegistry
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.fed.sampling import CohortSampler
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+
+    n, layers, cohort, wave, batch, rounds, seed = 12, 3, 256, 32, 8, 3, 0
+    registry = SyntheticRegistry(1 << 16, samples=8, n_features=n, seed=2)
+    test = _registry_test_set(registry, n)
+    cfg = FedConfig(local_epochs=1, batch_size=batch, learning_rate=0.1,
+                    optimizer="adam", aggregator="clip_mean",
+                    clip_bound=CHAOS_CLIP)
+    sampler = CohortSampler(registry.num_clients, cohort, seed)
+    plan = chaos_kernel_plan(sampler, rounds, cohort)
+    waves, steps = cohort // wave, registry.samples // batch
+    log = []
+    res, rows, launches = _streamed(
+        make_vqc_classifier(n, layers, 2, device=device), cfg, registry,
+        test, device, rounds, launch_log=log, cohort_size=cohort,
+        wave_size=wave, seed=seed, eval_every=1, fault_plan=plan)
+    _theta_finite("chaos-kernel", res.params, rows)
+    want = _chaos_ledger("chaos-kernel", rows, plan, sampler.round_ids,
+                         cohort, clip=True)
+    prev = {"fwd": 0, "fwd_bnd": 0, "adj": 0}
+    for r, (counts, _) in enumerate(log):
+        per = {k: counts[k] - prev[k] for k in prev}
+        prev = counts
+        expect = {"fwd": 2 if r == 0 else 1, "fwd_bnd": waves * steps,
+                  "adj": waves * steps}
+        print(f"[chaos-kernel] round {r}: wall {rows[r]['time_s']!r} s (host "
+              f"clock), launches {per} (expected {expect}), ledger "
+              f"{want[r]} = the plan's, loss {rows[r]['loss']!r}")
+        if per != expect:
+            raise AssertionError(f"chaos-kernel round {r} launched {per}")
+    if plan.fired != {"registry.fetch": 1, "ingest.h2d": 1}:
+        raise AssertionError(f"chaos-kernel injected errors {plan.fired}")
+    if log[-1][1] != log[0][1]:
+        raise AssertionError("the kernel library was built after round 1")
+    walls = [r["time_s"] for r in rows]
+    rate = cohort / float(np.median(walls[1:]))
+    twin = CohortSampler(registry.num_clients, wave, seed)
+
+    sgd = FedConfig(local_epochs=1, batch_size=batch, learning_rate=0.1,
+                    aggregator="clip_mean", clip_bound=CHAOS_SGD_CLIP)
+
+    def twin_round(twin_cfg, attacker: bool = True
+                   ) -> tuple[float, float, list]:
+        """One round of the twin cohort on the card and the CPU: the
+        logits/loss error, θ's, and the card and CPU walls."""
+        one = {}
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            twin_plan = chaos_kernel_plan(twin, 1, wave, attacker=attacker)
+            r1, rows1, _ = _streamed(
+                make_vqc_classifier(n, layers, 2, device=dev), twin_cfg,
+                registry, test, dev, 1, cohort_size=wave, wave_size=wave,
+                seed=seed, eval_every=2, fault_plan=twin_plan)
+            _chaos_ledger(f"chaos-kernel twin on {dev}", rows1, twin_plan,
+                          twin.round_ids, wave, clip=True)
+            one[str(dev)] = (r1.params, rows1[0]["loss"],
+                             time.perf_counter() - t0)
+        (card, card_loss, card_s), (cpu, cpu_loss, cpu_s) = (
+            one[str(device)], one["cpu"])
+        logit_err, theta_err = _adam_card_vs_cpu(
+            lambda dev: make_vqc_classifier(n, layers, 2, device=dev), card,
+            cpu, test)
+        return (max(logit_err, abs(card_loss - cpu_loss)), theta_err,
+                [card_s, cpu_s])
+
+    sgd_err, sgd_theta_err, sgd_walls = twin_round(sgd)
+    err, theta_err, walls_s = twin_round(cfg, attacker=False)
+    attacked_err, _, _ = twin_round(cfg)
+    print(f"[chaos-kernel] {rate:.4f} client-rounds/s after round 0; "
+          f"injected errors {plan.fired} (each recovered by the retry); one "
+          f"round of a cohort of {wave} card vs cpu: SGD (clip bound "
+          f"{CHAOS_SGD_CLIP:g}) under the whole plan ({sgd_walls[0]:.2f} s "
+          f"and {sgd_walls[1]:.2f} s) theta max|card-cpu| "
+          f"{sgd_theta_err:.3e}, logits and loss {sgd_err:.3e} (atol "
+          f"{TRAINED_LOGIT_ATOL:g}); Adam under the plan without its "
+          f"scale:100 client ({walls_s[0]:.2f} s and {walls_s[1]:.2f} s) "
+          f"logits and loss {err:.3e} (atol {TRAINED_LOGIT_ATOL:g}), theta "
+          f"{theta_err:.3e} (Adam's ±lr steps on zero-gradient angles, not "
+          f"gated); Adam under the whole plan {attacked_err:.3e} (printed, "
+          "not gated: the attacker's clip factor carries ×100 those steps)")
+    _require(max(sgd_err, sgd_theta_err), TRAINED_LOGIT_ATOL,
+             "chaos-kernel SGD round, card vs cpu")
+    _require(err, TRAINED_LOGIT_ATOL, "chaos-kernel round, card vs cpu")
+    return {"launches": launches, "rate": rate, "walls": walls,
+            "logit_err": err, "sgd_theta_err": sgd_theta_err,
+            "ledger": want}
+
+
+def _rows_of(t: torch.Tensor, tb: int) -> torch.Tensor:
+    """A packed (…, tb, R, 128) tensor as (tb, everything else)."""
+    return t.float().movedim(-3, 0).reshape(tb, -1)
+
+
+def hold_poisoned_rows(tag: str, device, dtype) -> dict:
+    """Launches A, B and C on a wave's own program (32 clients × 8, G =
+    32) whose client 13 has NaN features, against the plain sweep: the
+    poisoned client's rows stay non-finite in both, every other row is
+    finite and agrees (f32 within KERNEL_ATOL; bf16 by relative norm
+    within BF16_RTOL) — no tile or reduction spans two samples."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.ops import scan_body
+
+    n, layers, wave, batch, bad = 12, 3, 32, 8, 13
+    _, leaves, xb, _ = _client_batch(n, layers, 2, wave, batch, device,
+                                     seed=950)
+    xb[bad] = float("nan")
+    model = make_vqc_classifier(n, layers, 2, device=device)
+    packed, spec, xs = captured_program(
+        lambda: model.apply_clients(leaves, xb), n)
+    tb = spec.tb
+    bad_rows = ~torch.isfinite(_rows_of(packed, tb)).all(1)
+    if int(bad_rows.sum()) != batch or not bool(
+            bad_rows[bad * batch:(bad + 1) * batch].all()):
+        raise AssertionError(f"{tag}: poisoned rows {bad_rows.nonzero()}")
+    cot = random_state(n, tb, device, seed=951, dtype=packed.dtype)
+    cot = torch.stack([cot.re, cot.im]).reshape(packed.shape).clone()
+    cot[:, bad * batch:(bad + 1) * batch] = float("nan")
+    aspec = scan_body._adjoint_spec(spec)
+    axs = scan_body._adjoint_xs(spec, xs)
+    with torch.no_grad():
+        outs = {
+            "A": ([scan_body.scan_body(packed, spec, xs)],
+                  [scan_body.scan_body_plain(packed, spec, xs)]),
+            "B": (scan_body.scan_body(packed, spec, xs, with_boundaries=True),
+                  scan_body.scan_body_plain(packed, spec, xs, True)),
+            "C": (scan_body.scan_body(cot, aspec, axs, with_boundaries=True,
+                                      adjoint=True),
+                  scan_body.scan_body_plain(cot, aspec, axs, True)),
+        }
+        torch.cuda.synchronize()
+    errs = {}
+    for launch, (got, want) in outs.items():
+        g = [_rows_of(t, tb) for t in got]
+        w = [_rows_of(t, tb) for t in want]
+        for gi, wi in zip(g, w):
+            healthy_ok = bool(torch.isfinite(gi[~bad_rows]).all()) and bool(
+                torch.isfinite(wi[~bad_rows]).all())
+            poisoned = (not bool(torch.isfinite(gi[bad_rows]).any())
+                        and not bool(torch.isfinite(wi[bad_rows]).any()))
+            if not (healthy_ok and poisoned):
+                raise AssertionError(
+                    f"{tag} Launch {launch}: a healthy row went non-finite "
+                    f"({not healthy_ok}) or a poisoned row finite "
+                    f"({not poisoned})")
+        hg, hw = [t[~bad_rows] for t in g], [t[~bad_rows] for t in w]
+        errs[launch] = (_rel_err(hg, hw) if _is_bf16(dtype)
+                        else _max_err(hg, hw))
+    atol = BF16_RTOL if _is_bf16(dtype) else KERNEL_ATOL
+    what = "relative norm" if _is_bf16(dtype) else "max|kernel-plain|"
+    print(f"[{tag}] a wave's program ({config_text(spec)}) with client "
+          f"{bad}'s {batch} rows NaN: those rows non-finite in kernel and "
+          f"plain, the other {tb - batch} finite; {what} on them: A "
+          f"{errs['A']:.3e}, B {errs['B']:.3e}, C {errs['C']:.3e} (bound "
+          f"{atol:g})")
+    for launch, e in errs.items():
+        _require(e, atol, f"{tag} Launch {launch} on the healthy rows")
+    return errs
+
+
+def phase_chaos_isolation(device, dtype=torch.float32) -> dict:
+    """The isolation check: one wave's partial (n = 12, L = 3, 32 clients
+    × 8 samples, SGD, no masks) with client 13's features NaN, against the
+    same wave with client 13 dropped instead; then the kernel's rows."""
+    from qfedx_tpu_torch.data.stream import SyntheticRegistry
+    from qfedx_tpu_torch.fed.client import draw_perms
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.fed.round import (
+        RoundDraws,
+        make_fed_round_partial,
+        round_generator,
+    )
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.ops import scan_body
+
+    tag = "bf16-chaos-isolation" if _is_bf16(dtype) else "chaos-isolation"
+    n, layers, wave, samples, bad = 12, 3, 32, 8, 13
+    registry = SyntheticRegistry(1 << 16, samples=samples, n_features=n,
+                                 seed=4)
+    cx, cy, cm = registry.batch(np.arange(1000, 1000 + wave))
+    poisoned = cx.copy()
+    poisoned[bad] = np.nan
+    cfg = FedConfig(local_epochs=1, batch_size=samples, learning_rate=0.1)
+    model = make_vqc_classifier(n, layers, 2, device=device)
+    params = model.init(0)
+    pf = make_fed_round_partial(model, cfg, wave, wave)
+    perms = draw_perms(round_generator(0, 0), wave, 1, samples)
+    survivors = np.ones(wave, np.float32)
+    survivors[bad] = 0.0
+
+    def run(x, **kw):
+        scan_body.reset_counts()
+        with (bf16_pin() if _is_bf16(dtype) else contextlib.nullcontext()):
+            part = pf(params, *(torch.as_tensor(a, device=device)
+                                for a in (x, cy, cm)), 0, perms=perms,
+                      draws=RoundDraws(0, 0), **kw)
+        torch.cuda.synchronize()
+        return part, dict(scan_body.launch_counts), dict(
+            scan_body.dtype_counts)
+
+    nan_part, nan_launches, nan_dtypes = run(poisoned)
+    drop_part, drop_launches, _ = run(cx, survivors=survivors)
+    delta = _max_err(trees_leaves(nan_part.update_sum),
+                     trees_leaves(drop_part.update_sum))
+    sums = {f: (float(getattr(nan_part, f)), float(getattr(drop_part, f)))
+            for f in ("weight_sum", "loss_sum", "num_participants",
+                      "rejected_updates", "dropped_clients",
+                      "clipped_clients")}
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in trees_leaves(nan_part.update_sum))
+    print(f"[{tag}] a wave of {wave} clients x {samples} at n={n} L={layers}"
+          f", client {bad} NaN vs the same client dropped: Δ sums "
+          f"max|nan-dropped| {delta:.3e} (atol {ISOLATION_ATOL:g}), finite "
+          f"{finite}; (nan, dropped) {sums}; launches {nan_launches} and "
+          f"{drop_launches} ({nan_dtypes})")
+    if not finite:
+        raise AssertionError(f"{tag}: the NaN client reached the Δ sums")
+    _require(delta, ISOLATION_ATOL, f"{tag} Δ sums")
+    for f, (a, b) in sums.items():
+        expect = {"rejected_updates": (1.0, 0.0),
+                  "dropped_clients": (0.0, 1.0)}.get(f)
+        ok = (a, b) == expect if expect else abs(a - b) <= ISOLATION_ATOL
+        if not ok:
+            raise AssertionError(f"{tag}: {f} (nan, dropped) = {(a, b)}")
+    if nan_launches != STEP_BC or drop_launches != STEP_BC:
+        raise AssertionError(f"{tag} launched {nan_launches}, "
+                             f"{drop_launches}")
+    with (bf16_pin() if _is_bf16(dtype) else contextlib.nullcontext()):
+        rows = hold_poisoned_rows(tag, device, dtype)
+    launches = {k: nan_launches[k] + drop_launches[k] for k in nan_launches}
+    return {"launches": launches, "delta": delta, "rows": rows}
+
+
+def phase_chaos_straggler(device) -> dict:
+    """``[chaos-straggler]``: QFEDX_STALE at n = 12, cohort 64 in waves of
+    32, SGD, a ``wave.delay`` of 0.5 s declared on round 0's wave 1 with
+    the consumer's deadline at 0.05 s: late in round 0, folded in at age
+    1 in round 1, on the card and the CPU."""
+    from qfedx_tpu_torch.data.stream import SyntheticRegistry
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.utils.faults import FaultPlan
+
+    n, layers, cohort, wave, samples, seed = 12, 3, 64, 32, 2, 0
+    registry = SyntheticRegistry(1 << 16, samples=samples, n_features=n,
+                                 seed=5)
+    test = _registry_test_set(registry, n)
+    cfg = FedConfig(local_epochs=1, batch_size=samples, learning_rate=0.1)
+    plan = FaultPlan(seed=23, rules=[
+        {"site": "wave.delay", "kind": "delay:0.5", "rounds": [0],
+         "waves": [1]}])
+    runs = {}
+    with env_pins(QFEDX_STALE="1"):
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            res, rows, launches = _streamed(
+                make_vqc_classifier(n, layers, 2, device=dev), cfg, registry,
+                test, dev, 2, cohort_size=cohort, wave_size=wave, seed=seed,
+                eval_every=3, fault_plan=plan,
+                wave_deadline_s=STRAGGLER_DEADLINE_S, stale_poll_s=60.0)
+            _theta_finite(f"chaos-straggler on {dev}", res.params, rows)
+            runs[str(dev)] = (res.params, rows, launches,
+                              time.perf_counter() - t0)
+    theta, rows, launches, card_s = runs[str(device)]
+    cpu_theta, cpu_rows, _, cpu_s = runs["cpu"]
+    ledger = [(r["late_waves"], r["stale_partials_applied"],
+               r["participants"]) for r in rows]
+    err = max(_max_err(_theta(theta), _theta(cpu_theta)), *(
+        abs(a["loss"] - b["loss"]) for a, b in zip(rows, cpu_rows)))
+    print(f"[chaos-straggler] n={n}, cohort {cohort} in waves of {wave}, "
+          f"SGD, delay:0.5 on round 0 wave 1, deadline "
+          f"{STRAGGLER_DEADLINE_S} s: (late_waves, stale_partials_applied, "
+          f"participants) {ledger}, round walls {[r['time_s'] for r in rows]}"
+          f" s (card run {card_s:.2f} s, cpu {cpu_s:.2f} s); theta and loss "
+          f"max|card-cpu| {err:.3e} (atol {TRAINED_LOGIT_ATOL:g}); launches "
+          f"{launches}")
+    if ledger != [(1, 0, wave), (0, 1, cohort + wave)] or ledger != [
+            (r["late_waves"], r["stale_partials_applied"], r["participants"])
+            for r in cpu_rows]:
+        raise AssertionError(f"chaos-straggler ledger {ledger}")
+    _require(err, TRAINED_LOGIT_ATOL, "chaos-straggler, card vs cpu")
+    want = {"fwd": 1, "fwd_bnd": 4, "adj": 4}  # 1 + 2 fresh + 1 stale
+    if launches != want:
+        raise AssertionError(f"chaos-straggler launched {launches}")
+    return {"launches": launches, "theta_err": err}
+
+
+def phase_chaos_serve(device, served: dict) -> dict:
+    """``[chaos-serve]``: [serve]'s 256 requests on the same weights and
+    buckets through an engine whose plan corrupts requests at rate 0.1
+    (0.05 ``nan`` + 0.05 ``malformed``) and fails batch 2's compute once."""
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.serve import (
+        MicroBatcher,
+        RequestError,
+        ServeConfig,
+        ServeEngine,
+    )
+
+    clean = served["engine"]
+    plan = counting_plan(seed=29, rules=[
+        {"site": "serve.request", "kind": "nan", "rate": 0.05},
+        {"site": "serve.request", "kind": "malformed", "rate": 0.05},
+        {"site": "serve.compute", "rounds": [2], "times": 1}])
+    engine = ServeEngine(
+        clean.model, clean.params, (N_QUBITS,),
+        config=ServeConfig(buckets=BUCKETS, deadline_ms=2.0, max_queue=512),
+        fault_plan=plan)
+    warm = engine.warmup()
+    builds = scan_body.build_count
+    x = np.random.default_rng(11).uniform(0, 1, (N_REQUESTS, N_QUBITS))
+    x = x.astype(np.float32)
+    planned = [s for s in range(N_REQUESTS)
+               if plan.request_mutation(s) is not None]
+    scan_body.reset_counts()
+    batcher = MicroBatcher(engine).start()
+    futures, rejected = {}, []
+    for lo, hi in ((0, 1), (1, 6), (6, N_REQUESTS)):
+        wave = {}
+        for i in range(lo, hi):
+            try:
+                wave[i] = batcher.submit(x[i])
+            except RequestError:
+                rejected.append(i)
+        for f in wave.values():
+            f.result(timeout=60)
+        futures.update(wave)
+    batcher.close(drain=True)
+    launches = scan_body.launch_count
+    logits = np.stack([futures[i].result()["logits"] for i in sorted(futures)])
+    err = float(np.abs(logits - served["logits"][sorted(futures)]).max())
+    lat_ms = np.array([(f.done_t - f.submit_t) * 1e3
+                       for f in futures.values()])
+    p50, p95 = (float(np.percentile(lat_ms, q)) for q in (50, 95))
+    print(f"[chaos-serve] {N_REQUESTS} requests, planned corruptions "
+          f"{len(planned)} at seqs {planned}, rejected {rejected}, "
+          f"stats {batcher.stats}, compute faults injected {plan.fired} "
+          f"(retried), kernel launches {launches}, builds after warmup "
+          f"{scan_body.build_count - builds} (warmup built "
+          f"{warm['kernel_builds']}); served logits max|chaos-clean| "
+          f"{err:.3e} (atol {LOGIT_ATOL:g}); latency p50={p50:.4f} ms "
+          f"p95={p95:.4f} ms")
+    if rejected != planned or batcher.stats["rejected"] != len(planned):
+        raise AssertionError(f"chaos-serve rejected {rejected}, planned "
+                             f"{planned}")
+    if plan.fired != {"serve.compute": 1}:
+        raise AssertionError(f"chaos-serve compute faults {plan.fired}")
+    if scan_body.build_count != builds or warm["kernel_builds"]:
+        raise AssertionError("chaos-serve built the kernel after warmup")
+    if launches < batcher.stats["batches"]:
+        raise AssertionError(f"chaos-serve: {launches} launches for "
+                             f"{batcher.stats['batches']} batches")
+    _require(err, LOGIT_ATOL, "chaos-serve logits vs the clean engine")
+    return {"launches": launches, "p50": p50, "p95": p95,
+            "rejected": len(rejected), "logit_err": err}
+
+
+def phase_chaos_checkpoint(device) -> dict:
+    """``[chaos-checkpoint]`` and ``[sigterm]``: the n = 12 streamed run
+    (cohort 64 in waves of 32, SGD) for 3 rounds with a checkpoint every
+    round, round 2's async write failing once; then the same run with a
+    SIGTERM raised when round 1 ends, and its resume."""
+    import signal
+
+    from qfedx_tpu_torch.data.stream import SyntheticRegistry
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run.checkpoint import Checkpointer
+
+    n, layers, cohort, wave, rounds = 12, 3, 64, 32, 3
+    registry = SyntheticRegistry(1 << 16, samples=8, n_features=n, seed=6)
+    test = _registry_test_set(registry, n)
+    cfg = FedConfig(local_epochs=1, batch_size=8, learning_rate=0.1)
+    kw = dict(cohort_size=cohort, wave_size=wave, seed=0,
+              eval_every=rounds)
+    plan = counting_plan(seed=0, rules=[
+        {"site": "checkpoint.write", "rounds": [2], "times": 1}])
+    root = Path(tempfile.mkdtemp(prefix="qfedx-chaos-ck-"))
+    launches = dict(NO_LAUNCH)
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    def model():
+        return make_vqc_classifier(n, layers, 2, device=device)
+
+    try:
+        ck = Checkpointer(root / "straight", every=1, fault_plan=plan)
+        straight, _, counts = _streamed(model(), cfg, registry, test, device,
+                                        rounds, checkpointer=ck, **kw)
+        add(counts)
+        saved = sorted(ck._rounds())
+        for r in saved:
+            ck.verify(r)
+        print(f"[chaos-checkpoint] 3 rounds, a checkpoint each (async "
+              f"writes, the last synchronous), round 2's write failed "
+              f"{plan.fired.get('checkpoint.write', 0)} time(s) and was "
+              f"retried: checkpoints {saved}, each sha256 verified")
+        if saved != [1, 2, 3] or plan.fired != {"checkpoint.write": 1}:
+            raise AssertionError(f"chaos-checkpoint saved {saved}, faults "
+                                 f"{plan.fired}")
+        before = signal.getsignal(signal.SIGTERM)
+
+        def term(r, m):
+            if r == 1:
+                signal.raise_signal(signal.SIGTERM)
+
+        t0 = time.perf_counter()
+        try:
+            _streamed(model(), cfg, registry, test, device, rounds,
+                      checkpointer=Checkpointer(root / "term", every=100),
+                      hook=term, **kw)
+        except KeyboardInterrupt as exc:
+            stopped = f"KeyboardInterrupt({exc})"
+            add(dict(scan_body.launch_counts))
+        else:
+            raise AssertionError("sigterm: the run went on after SIGTERM")
+        stop_s = time.perf_counter() - t0
+        restored = signal.getsignal(signal.SIGTERM) is before
+        left = Checkpointer(root / "term", every=100)._rounds()
+        resumed, _, counts = _streamed(
+            model(), cfg, registry, test, device, rounds,
+            checkpointer=Checkpointer(root / "term", every=100), **kw)
+        add(counts)
+        err = _max_err(_theta(resumed.params), _theta(straight.params))
+        print(f"[sigterm] SIGTERM from on_round_end after round 1: "
+              f"{stopped} after {stop_s:.2f} s, checkpoints left {left}, "
+              f"previous handler restored {restored}; the resumed run's "
+              f"theta vs the uninterrupted run's {err:.3e} (atol "
+              f"{ROUND_ATOL:g})")
+        if left != [1] or not restored:
+            raise AssertionError(f"sigterm left {left}, restored {restored}")
+        _require(err, ROUND_ATOL, "sigterm resume vs the straight run")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "resume_err": err}
+
+
 def trees_first(tree):
     """Every leaf's first entry (one client of a (C, …) stream)."""
     from qfedx_tpu_torch.utils import trees
 
     return trees.tree_map(lambda v: v[0], tree)
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -4447,6 +5104,13 @@ def main() -> int:
     streamed = phase_streamed(device)
     streamed_kernel = phase_streamed_kernel(device)
     streamed_stale = phase_streamed_stale(device)
+    chaos = phase_chaos(device)
+    chaos_kernel = phase_chaos_kernel(device)
+    isolation = phase_chaos_isolation(device)
+    bf16_isolation = phase_chaos_isolation(device, bf16)
+    chaos_straggler = phase_chaos_straggler(device)
+    chaos_serve = phase_chaos_serve(device, served)
+    chaos_ckpt = phase_chaos_checkpoint(device)
     source = "qfedx_tpu_torch/ops/csrc/scan_body.cu"
     kernel = "qfedx_tpu/ops/pallas_body.py:401"
     by_path = {
@@ -4485,6 +5149,14 @@ def main() -> int:
             streamed_kernel["launches"],
         "streamed-stale (n=12, 3 rounds, then a dead wave)":
             streamed_stale["launches"],
+        "chaos (n=8, 3 rounds)": chaos["launches"],
+        "chaos-kernel (n=12, 3 rounds of 8 waves)": chaos_kernel["launches"],
+        "chaos-isolation (a NaN wave and its dropped twin)":
+            isolation["launches"],
+        "chaos-straggler (n=12, 2 rounds)": chaos_straggler["launches"],
+        "chaos-serve": {"fwd": chaos_serve["launches"], "fwd_bnd": 0,
+                        "adj": 0},
+        "chaos-checkpoint and sigterm (n=12)": chaos_ckpt["launches"],
     }
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -4525,7 +5197,8 @@ def main() -> int:
                                earlier["max_abs_err"], worst[launch],
                                reupload[launch], spsa["errs"][launch],
                                dp_example["errs"][launch],
-                               streamed_kernel["errs"][launch]),
+                               streamed_kernel["errs"][launch],
+                               isolation["rows"][launch]),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                    "bound_by")},
             "library_ms": None,
@@ -4544,6 +5217,7 @@ def main() -> int:
                        "adj": 0},
         "bf16-cli-train": bf16_cli["launches"],
         "bf16-cli-serve": bf16_cli_served["launches"],
+        "bf16-chaos-isolation": bf16_isolation["launches"],
     }
 
     def bf16_entry(name, launch, key, replaces, tb):
@@ -4559,6 +5233,7 @@ def main() -> int:
             "launches": bf16_cli["launches"][key],
             "max_abs_err": max(bf16_worst[launch], bf16_tiles[launch],
                                bf16_reupload[launch],
+                               bf16_isolation["rows"][launch],
                                *(r["max_abs_err"] for (lk, _), r in
                                  bf16_times.items() if lk == launch)),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -4665,6 +5340,19 @@ def main() -> int:
           f"{streamed_kernel['logit_err']:.3e}; stale theta "
           f"{streamed_stale['theta_err']:.3e}, dead wave under masks "
           f"{streamed_stale['mask_err']:.3e}")
+    print(f"[summary] chaos: n=8 at {CHAOS_RATE:g} casualties "
+          f"{chaos['rate']:.4f} client-rounds/s, logits max|card-cpu| "
+          f"{chaos['logit_err']:.3e}; n=12 waves of 32 "
+          f"{chaos_kernel['rate']:.4f} client-rounds/s, logits "
+          f"{chaos_kernel['logit_err']:.3e}, SGD twin theta "
+          f"{chaos_kernel['sgd_theta_err']:.3e}; a NaN client vs the same "
+          f"client dropped, Δ sums {isolation['delta']:.3e} (f32), "
+          f"{bf16_isolation['delta']:.3e} (bf16); straggler theta "
+          f"{chaos_straggler['theta_err']:.3e}; serving under faults p50 "
+          f"{chaos_serve['p50']:.4f} ms p95 {chaos_serve['p95']:.4f} ms, "
+          f"{chaos_serve['rejected']} rejected; resume after SIGTERM theta "
+          f"{chaos_ckpt['resume_err']:.3e}; whole script "
+          f"{time.perf_counter() - T_START:.1f} s")
     print(card_line())
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

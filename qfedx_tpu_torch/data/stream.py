@@ -29,12 +29,16 @@ event and marks every tensor with ``record_stream`` before using it, so
 the copy overlaps the previous wave's compute and the caching allocator
 cannot hand a wave's memory out while the consumer still reads it.
 
-The fault harness (``utils.faults.FaultPlan``, ``QFEDX_FAULTS``: its
-injected fetch errors, poisoned clients, label flips and planned
-delays) is not ported yet (ROADMAP Queue 1 item 9, 9b): a ``fault_plan``
-raises NotImplementedError. A registry that fails, hangs or is slow
-still produces every path the plan would: retries, ``DroppedWave``,
-``LateWave`` and ``poll_late``.
+A ``fault_plan`` (``utils.faults.FaultPlan``; the trainer passes the
+one ``QFEDX_FAULTS`` pins) injects the reference's faults at the same
+seams: a planned straggle (``client.slow``/``wave.delay``) sleeps once
+per wave before its retries; inside each retried attempt the
+``registry.fetch`` check, the fetch, the ``client.compute`` poison
+(features × NaN/Inf), the ``label_flip`` attack (y → 1 − y) and the
+``ingest.h2d`` check run in that order, so nothing reaches the device
+before the last check passes. Under ``"buffer"`` a wave whose planned
+delay exceeds ``wave_deadline_s`` is declared late up front and its
+upload deferred behind every prompt wave.
 """
 
 from __future__ import annotations
@@ -203,7 +207,8 @@ class WaveStream:
     ``wave_deadline_s``) or ``"buffer"`` (a failed wave drops, a
     deadline-missed one is yielded as a ``LateWave`` and its upload
     finishes in the background for ``poll_late``; buffer mode always
-    runs the uploader thread)."""
+    runs the uploader thread). ``fault_plan``/``round_idx``: the plan
+    consulted at round ``round_idx``'s seams (module docstring)."""
 
     _DONE = object()
 
@@ -219,12 +224,6 @@ class WaveStream:
         on_wave_error: str = "raise",
         wave_deadline_s: float | None = None,
     ):
-        pins.refuse_unported("Queue 1 item 9 (9b)", "QFEDX_FAULTS")
-        if fault_plan is not None:
-            raise NotImplementedError(
-                "WaveStream's fault_plan is not ported yet (ROADMAP Queue 1 "
-                "item 9, 9b)"
-            )
         cohort_ids = np.asarray(cohort_ids)
         if wave_size < 1 or len(cohort_ids) % wave_size != 0:
             raise ValueError(
@@ -236,6 +235,7 @@ class WaveStream:
         self._ids = cohort_ids
         self._wave_size = int(wave_size)
         self.num_waves = len(cohort_ids) // int(wave_size)
+        self._plan = fault_plan
         self._round_idx = int(round_idx)
         if on_wave_error not in ("raise", "drop", "buffer"):
             raise ValueError(
@@ -255,6 +255,14 @@ class WaveStream:
         self._late_items: dict[int, _Staged] = {}
         self._late_failed: set[int] = set()
         self._late_done: set[int] = set()
+        # Planned straggle (client.slow / wave.delay): seconds the
+        # uploader sleeps before fetching each wave.
+        self._delays = None
+        if fault_plan is not None:
+            d = fault_plan.wave_delays(int(round_idx), cohort_ids,
+                                       int(wave_size))
+            if np.any(d > 0):
+                self._delays = d
         self._cuda = self._device.type == "cuda"
         self._side = torch.cuda.Stream(self._device) if self._cuda else None
         self.depth = resolve_stream_depth(depth)
@@ -289,9 +297,31 @@ class WaveStream:
         persistent failure raises a typed ``StreamError``."""
         lo = wave * self._wave_size
         ids = self._ids[lo:lo + self._wave_size]
+        plan = self._plan
+        # A straggler is slow, not flaky: one sleep per wave, before the
+        # retries, so they do not compound it.
+        if self._delays is not None and float(self._delays[wave]) > 0:
+            time.sleep(float(self._delays[wave]))
 
-        def attempt(_k: int):
+        def attempt(k: int):
+            if plan is not None:
+                plan.check("registry.fetch", self._round_idx, wave,
+                           attempt=k)
             cx, cy, cmask = self._registry.batch(ids)
+            if plan is not None:
+                pois = plan.poison(self._round_idx, ids)
+                if not np.all(pois == 1.0):
+                    with np.errstate(invalid="ignore"):  # 0·inf is NaN
+                        cx = np.asarray(cx) * pois.reshape(
+                            (len(ids),) + (1,) * (np.ndim(cx) - 1))
+                # label_flip trains on y → 1 − y, so the attack flows
+                # through real local gradients.
+                flips = plan.label_flips(self._round_idx, ids)
+                if flips.any():
+                    cy = np.where(
+                        flips.reshape((len(ids),) + (1,) * (np.ndim(cy) - 1)),
+                        1 - np.asarray(cy), cy)
+                plan.check("ingest.h2d", self._round_idx, wave, attempt=k)
             return self._to_device((
                 np.ascontiguousarray(cx), np.ascontiguousarray(cy),
                 np.asarray(cmask, dtype=np.float32)))
@@ -333,9 +363,23 @@ class WaveStream:
     def _uploader(self) -> None:
         wave = 0
         try:
+            deferred: list[int] = []
             for wave in range(self.num_waves):
                 if self._closed:
                     break
+                if (
+                    self._on_wave_error == "buffer"
+                    and self._wave_deadline_s is not None
+                    and self._delays is not None
+                    and float(self._delays[wave]) > self._wave_deadline_s
+                ):
+                    # A planned straggler past the deadline is declared
+                    # late at once and uploaded after every prompt wave,
+                    # so it never holds the in-order uploader up.
+                    if not self._put(LateWave(wave, wave * self._wave_size)):
+                        return
+                    deferred.append(wave)
+                    continue
                 try:
                     item = self._upload(wave)
                 except StreamError as exc:
@@ -346,6 +390,18 @@ class WaveStream:
                     item = DroppedWave(
                         wave, wave * self._wave_size, error=exc
                     )
+                if not self._put(item):
+                    return
+            for wave in deferred:
+                if self._closed:
+                    break
+                # The declared stragglers' sleeps and uploads run here;
+                # poll_late collects them.
+                try:
+                    item = self._upload(wave)
+                except StreamError as exc:
+                    item = DroppedWave(wave, wave * self._wave_size,
+                                       error=exc)
                 if not self._put(item):
                     return
         except BaseException as exc:  # noqa: BLE001 — re-raised by consumer
@@ -430,7 +486,15 @@ class WaveStream:
                 # Stale deliveries of waves the deadline already
                 # declared late or dead: "buffer" banks them for
                 # poll_late, "drop" discards them.
-                if isinstance(item, DroppedWave):
+                if isinstance(item, LateWave):
+                    if item.wave < self._next_wave:
+                        # The consumer's deadline already declared it:
+                        # yielding it again would shift later slots.
+                        continue
+                    # Declared by the uploader (planned delay past the
+                    # deadline): its deferred upload goes to poll_late.
+                    self._abandoned.add(item.wave)
+                elif isinstance(item, DroppedWave):
                     if item.wave in self._abandoned and (
                         item.wave < self._next_wave
                     ):
@@ -511,6 +575,11 @@ class WaveStream:
             if isinstance(item, BaseException):
                 # The uploader died: every outstanding straggler with it.
                 self._late_failed.update(self._late_outstanding_set())
+                continue
+            if isinstance(item, LateWave):
+                # A declaration the consumer's own deadline already
+                # covered: its data comes on the deferred pass.
+                self._abandoned.add(item.wave)
                 continue
             if isinstance(item, DroppedWave):
                 if item.wave in self._abandoned:

@@ -20,6 +20,10 @@
 // CNOT is an index permutation, and every complex product accumulates in
 // f32.
 //
+// Built once per element type: -DQFX_INSTANCE=0 compiles only the f32
+// instances, -DQFX_INSTANCE=1 only the bf16 ones (each C entry below
+// refuses the other dtype code), so the two libraries build in parallel.
+//
 // Every instance comes in two element types (template parameter T), as
 // the reference's kernel is generic in the state's dtype: f32, and bf16
 // (QFEDX_DTYPE=bf16), which reads and writes bf16 state, boundaries and
@@ -523,6 +527,16 @@ cudaError_t attrs_of(cudaFuncAttributes* a, int cluster, int bnd) {
 
 }  // namespace
 
+#ifndef QFX_INSTANCE
+#error "build with -DQFX_INSTANCE=0 (the f32 instances) or 1 (the bf16 ones)"
+#elif QFX_INSTANCE == 0
+using Elem = float;  // this library's element type and its dtype code
+constexpr bool kMma = false;
+#else
+using Elem = bf16;
+constexpr bool kMma = true;
+#endif
+
 // Plain C entry (bound with ctypes). Pointers are device pointers; the
 // kernel runs on `stream` and is not synchronised. `dtype` names the
 // element type of the state, boundaries and coefficients: 0 = f32, 1 =
@@ -545,15 +559,10 @@ extern "C" int qfx_scan_body_launch(const void* in_re, const void* in_im,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float, false>(in_re, in_im, out_re, out_im, tmp_re, tmp_im,
-                                bnd_re, bnd_im, desc, n_ops, coeffs, statics,
-                                tb, n, length, st, cluster, smem);
-  if (dtype == 1)
-    return launch<bf16, true>(in_re, in_im, out_re, out_im, tmp_re, tmp_im,
-                              bnd_re, bnd_im, desc, n_ops, coeffs, statics,
-                              tb, n, length, st, cluster, smem);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != QFX_INSTANCE) return (int)cudaErrorInvalidValue;
+  return launch<Elem, kMma>(in_re, in_im, out_re, out_im, tmp_re, tmp_im,
+                            bnd_re, bnd_im, desc, n_ops, coeffs, statics, tb,
+                            n, length, st, cluster, smem);
 }
 
 // How many clusters of `cluster` CTAs with `smem` bytes of dynamic shared
@@ -562,9 +571,8 @@ extern "C" int qfx_scan_body_launch(const void* in_re, const void* in_im,
 // error (0 = filled).
 extern "C" int qfx_scan_body_max_clusters(int cluster, int smem, int dtype,
                                           int* active) {
-  if (dtype == 0) return max_clusters<float, false>(cluster, smem, active);
-  if (dtype == 1) return max_clusters<bf16, true>(cluster, smem, active);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != QFX_INSTANCE) return (int)cudaErrorInvalidValue;
+  return max_clusters<Elem, kMma>(cluster, smem, active);
 }
 
 // Registers, local (spill) bytes and static shared memory of one compiled
@@ -575,13 +583,8 @@ extern "C" int qfx_scan_body_attrs(int cluster, int bnd, int dtype,
                                    int* regs, int* local_bytes,
                                    int* static_smem) {
   cudaFuncAttributes a;
-  cudaError_t err;
-  if (dtype == 0)
-    err = attrs_of<float, false>(&a, cluster, bnd);
-  else if (dtype == 1)
-    err = attrs_of<bf16, true>(&a, cluster, bnd);
-  else
-    return (int)cudaErrorInvalidValue;
+  if (dtype != QFX_INSTANCE) return (int)cudaErrorInvalidValue;
+  cudaError_t err = attrs_of<Elem, kMma>(&a, cluster, bnd);
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

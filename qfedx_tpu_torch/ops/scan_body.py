@@ -39,7 +39,8 @@ same on both devices; only the sweep inside ``scan_body`` changes.
 ``launch_count`` counts kernel launches, ``launch_counts`` splits them
 by launch ("fwd" = A, "fwd_bnd" = B, "adj" = C), ``dtype_counts`` by the
 instance's element type ("float32", "bfloat16"), and ``build_count``
-counts every build-and-load of the kernel library into the process.
+counts every build-and-load of the kernel libraries into the process
+(one library per element type, built by concurrent nvcc processes).
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import NamedTuple
@@ -73,7 +75,7 @@ _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_LIB = None
+_LIBS: dict | None = None  # by the C entries' dtype code (_DTYPE_CODE)
 _LIB_LOCK = threading.Lock()
 build_log = ""  # nvcc's output of the last build (register/spill report)
 
@@ -493,46 +495,69 @@ def _build_tag() -> str:
     return h.hexdigest()[:16]
 
 
-def load_kernel():
-    """Build ``csrc/scan_body.cu`` (with its headers) by nvcc at first use
-    — the shared library is keyed by ``_build_tag`` under ``csrc/_build``
-    — load it into the process once, and return it."""
-    global _LIB, build_count, build_log
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries' argument and result types."""
+    fn = lib.qfx_scan_body_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 3
+    )
+    resident = lib.qfx_scan_body_max_clusters
+    resident.restype = ctypes.c_int
+    resident.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    attrs = lib.qfx_scan_body_attrs
+    attrs.restype = ctypes.c_int
+    attrs.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    return lib
+
+
+def load_kernel() -> dict:
+    """Build ``csrc/scan_body.cu`` (with its headers) by nvcc at first use,
+    once per instance element type, the two nvcc processes side by side —
+    the shared libraries are keyed by ``_build_tag`` and the type under
+    ``csrc/_build`` — load them into the process once, and return them
+    by dtype code (``_DTYPE_CODE``)."""
+    global _LIBS, build_count, build_log
     with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
+        if _LIBS is not None:
+            return _LIBS
         tag = _build_tag()
-        lib_path = _BUILD_DIR / f"libscan_body_{tag}.so"
-        if not lib_path.exists():
+        # One library per instance element type, compiled with
+        # -DQFX_INSTANCE=<its dtype code>.
+        paths = {code: _BUILD_DIR / f"libscan_body_{tag}_{code}.so"
+                 for code in _DTYPE_CODE.values()}
+        todo = {code: p for code, p in paths.items() if not p.exists()}
+        if todo:
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                capture_output=True, text=True,
-            )
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
+            procs = {}
+            for code, path in todo.items():
+                tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+                log = tempfile.TemporaryFile("w+")
+                procs[code] = (tmp, log, subprocess.Popen(
+                    [_nvcc(), *_NVCC_FLAGS, f"-DQFX_INSTANCE={code}", "-o",
+                     str(tmp), str(_SOURCE)],
+                    stdout=log, stderr=subprocess.STDOUT, text=True,
+                ))
+            build_log, failed = "", []
+            for code, (tmp, log, proc) in sorted(procs.items()):
+                if proc.wait() != 0:
+                    failed.append(code)
+                log.seek(0)
+                build_log += log.read()
+                log.close()
+            if failed:
                 raise RuntimeError(
-                    f"nvcc failed to build {_SOURCE.name}:\n{build_log}"
+                    f"nvcc failed to build {_SOURCE.name} (QFX_INSTANCE="
+                    f"{failed}):\n{build_log}"
                 )
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-        fn = lib.qfx_scan_body_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int]
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            + [ctypes.c_int] * 3
-        )
-        resident = lib.qfx_scan_body_max_clusters
-        resident.restype = ctypes.c_int
-        resident.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        attrs = lib.qfx_scan_body_attrs
-        attrs.restype = ctypes.c_int
-        attrs.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+            for code, (tmp, _, _) in procs.items():
+                os.replace(tmp, todo[code])
+        _LIBS = {code: _bind(ctypes.CDLL(str(path)))
+                 for code, path in paths.items()}
         build_count += 1
-        _LIB = lib
-        return lib
+        return _LIBS
 
 
 # --- the wrapper and its plain version --------------------------------------
@@ -596,7 +621,7 @@ class _Prepared(NamedTuple):
     0 = launched) any number of times without counting a launch, so a
     timing loop measures the kernel alone; the wrapper counts its own."""
 
-    lib: ctypes.CDLL
+    lib: ctypes.CDLL       # the library of the launch's instance dtype
     args: tuple
     keep: tuple            # tensors the launch reads or writes
     out: torch.Tensor
@@ -616,8 +641,8 @@ def prepare_launch(packed, spec: _KernelSpec, xs,
     raises."""
     if _dtype_name(packed.dtype) != spec.dtype:
         raise TypeError(f"a {packed.dtype} state for a {spec.dtype} launch")
-    lib = load_kernel()
     cfg = _launch_config(spec)
+    lib = load_kernel()[_DTYPE_CODE[cfg.dtype]]
     desc, statics = _device_tables(spec, packed.device)
     coeffs = (_pack_coeffs(spec, xs, cfg.products == "mma") if xs
               else torch.zeros(1, dtype=packed.dtype,  # static ops only
@@ -668,11 +693,10 @@ def resident_clusters(cfg: LaunchConfig) -> int:
     """How many clusters of ``cfg`` the card keeps resident at once
     (cudaOccupancyMaxActiveClusters); ``tb`` clusters beyond it run in
     further waves."""
-    lib = load_kernel()
+    code = _DTYPE_CODE[cfg.dtype]
     active = ctypes.c_int()
-    err = lib.qfx_scan_body_max_clusters(cfg.cluster, cfg.smem,
-                                         _DTYPE_CODE[cfg.dtype],
-                                         ctypes.byref(active))
+    err = load_kernel()[code].qfx_scan_body_max_clusters(
+        cfg.cluster, cfg.smem, code, ctypes.byref(active))
     if err != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error "
                            f"{err}")
@@ -683,9 +707,10 @@ def instance_attrs() -> dict:
     """Registers, local-memory (spill) bytes and static shared memory of
     each compiled instance, as the runtime reports them (bf16 instances
     under a ``_bf16`` suffix)."""
-    lib = load_kernel()
+    libs = load_kernel()
     out = {}
     for sfx, code in (("", 0), ("_bf16", 1)):
+        lib = libs[code]
         for name in ("global", "cluster"):
             cluster = int(name == "cluster")
             for bnd in (0, 1):

@@ -21,8 +21,10 @@ queued; a third call blocks), which retries under the shared policy
 drains it and re-raises the first writer error.
 
 The port runs in one process, so no decision is broadcast. The fault
-harness's ``checkpoint.write`` site (QFEDX_FAULTS) is not ported yet
-(ROADMAP Queue 1 item 9, 9b): the pin raises NotImplementedError.
+harness's ``checkpoint.write`` site (``utils/faults``, the plan
+``QFEDX_FAULTS`` pins) is consulted inside each retried attempt of the
+background writer, so a transient injected failure recovers in place
+and a persistent one is the ``CheckpointWriteError``.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from qfedx_tpu_torch.utils import pins, trees
+from qfedx_tpu_torch.utils import faults, trees
 from qfedx_tpu_torch.utils.retry import RetryExhausted, retry_with_deadline
 
 
@@ -85,19 +87,21 @@ class Checkpointer:
     """Save params every ``every`` rounds to ``directory``; keep the last
     ``keep``. Restore validates the leaf count and shapes against a
     template parameter dict, so a checkpoint of another model config
-    fails loudly."""
+    fails loudly. ``fault_plan``: the plan the async writer consults at
+    ``checkpoint.write`` (None: the one ``QFEDX_FAULTS`` pins, read per
+    attempt)."""
 
     _PAT = re.compile(r"ckpt_(\d{6})\.npz$")
 
     def __init__(self, directory: str | os.PathLike, every: int = 5,
-                 keep: int = 3):
-        pins.refuse_unported("Queue 1 item 9 (9b)", "QFEDX_FAULTS")
+                 keep: int = 3, fault_plan=None):
         if every < 1:
             raise ValueError("every must be ≥ 1")
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.every = every
         self.keep = keep
+        self.fault_plan = fault_plan
         self._queue: queue_mod.Queue | None = None
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
@@ -147,11 +151,17 @@ class Checkpointer:
                 if item is None:
                     return  # shutdown sentinel (wait() retires the thread)
                 round_idx, params = item
+
+                def attempt(k: int, _r=round_idx, _p=params):
+                    plan = faults.resolve_plan(self.fault_plan)
+                    if plan is not None:
+                        plan.check("checkpoint.write", _r, attempt=k)
+                    return self.save(_r, _p)
+
                 try:
                     retry_with_deadline(
-                        lambda _k, _r=round_idx, _p=params: self.save(_r, _p),
-                        attempts=3, base_delay_s=0.05, max_delay_s=0.5,
-                        deadline_s=60.0,
+                        attempt, attempts=3, base_delay_s=0.05,
+                        max_delay_s=0.5, deadline_s=60.0,
                         describe=f"checkpoint write (round {round_idx})",
                         jitter_site=f"checkpoint/{round_idx}",
                     )

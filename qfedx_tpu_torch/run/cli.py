@@ -316,13 +316,15 @@ def _refuse_unported_train_flags(a: argparse.Namespace) -> None:
 
 
 def run_train(cfg: ExperimentConfig, resume: bool = False,
-              device=None) -> dict:
+              device=None, data: dict | None = None) -> dict:
     """Train ``cfg`` in a tracked run directory on ``device`` (None = the
-    card); returns the summary ``summary.json`` holds."""
+    card); returns the summary ``summary.json`` holds. ``data`` is what
+    ``build_data(cfg)`` returns, for a caller that has built it already."""
     from qfedx_tpu_torch.run.metrics import ExperimentRun
     from qfedx_tpu_torch.run.trainer import train_federated
 
-    data = build_data(cfg)
+    if data is None:
+        data = build_data(cfg)
     model = build_model(cfg, data["num_classes"], device=device)
     test_x, test_y = data["test"]
     val_x, val_y = data["val"]
@@ -391,7 +393,10 @@ def run_serve(args, device=None) -> dict:
     400}`` for a malformed or non-finite line (the stream keeps
     flowing), ``{"id", "error", "code": 500}`` for a failed batch. The
     in-flight window is capped at the admission queue's depth, so a slow
-    device backpressures the reader. The latencies are kept exactly (the
+    device backpressures the reader. A SIGTERM lands as a
+    ``KeyboardInterrupt`` (``utils/host``), so the drain answers every
+    admitted request. ``QFEDX_FAULTS`` reaches the engine's and the
+    batcher's fault sites. The latencies are kept exactly (the
     reference's bounded histogram is ROADMAP Queue 1 item 14)."""
     import contextlib
 
@@ -399,6 +404,10 @@ def run_serve(args, device=None) -> dict:
 
     from qfedx_tpu_torch.serve import MicroBatcher, RequestError, ServeConfig
     from qfedx_tpu_torch.serve.engine import engine_from_run_dir
+    from qfedx_tpu_torch.utils.host import (
+        install_sigterm_interrupt,
+        restore_sigterm,
+    )
 
     if args.trace or args.tuned is not None:
         raise NotImplementedError(
@@ -454,6 +463,7 @@ def run_serve(args, device=None) -> dict:
         out_f.write(json.dumps(rec) + "\n")
         out_f.flush()
 
+    sigterm_token = install_sigterm_interrupt()
     batcher = MicroBatcher(engine).start()
     responses = 0
     try:
@@ -495,6 +505,7 @@ def run_serve(args, device=None) -> dict:
             with contextlib.suppress(Exception):
                 emit(*pair)
                 responses += 1
+        restore_sigterm(sigterm_token)
         if in_f is not sys.stdin:
             in_f.close()
         if out_f is not sys.stdout:

@@ -8,11 +8,13 @@ the same field names as the reference's, so either package's readers
 take either package's runs.
 
 The port runs in one process, so the run directory's name is decided
-locally. The flight recorder, the watchdog and the tune controller that
-the reference wires into a run (their event rows, the black box, the
-SIGTERM drain) and the phase spans of QFEDX_TRACE are not ported yet
-(ROADMAP Queue 1 item 14): with their pins off they do nothing in the
-reference either, and with a pin on the port raises.
+locally. A run translates SIGTERM into ``KeyboardInterrupt`` while it is
+open (``utils/host``), so an orchestrator's TERM unwinds it like a
+Ctrl-C. The flight recorder, the watchdog and the tune controller that
+the reference wires into a run (their event rows, the black box) and
+the phase spans of QFEDX_TRACE are not ported yet (ROADMAP Queue 1 item
+14): with their pins off they do nothing in the reference either, and
+with a pin on the port raises.
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ from pathlib import Path
 from typing import Any, Mapping
 
 from qfedx_tpu_torch.utils import pins
+from qfedx_tpu_torch.utils.host import (
+    install_sigterm_interrupt,
+    restore_sigterm,
+)
 
 # Every row carries ``"schema": METRICS_SCHEMA_VERSION``; bump it when a
 # REQUIRED field is renamed or retyped.
@@ -167,7 +173,11 @@ class ExperimentRun:
             json.dumps(_jsonable(summary), indent=2))
 
     def __enter__(self):
+        # The streamed trainer and serve install their own translation
+        # on top; each restores what it found.
+        self._sigterm_token = install_sigterm_interrupt()
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        restore_sigterm(getattr(self, "_sigterm_token", None))
         self.metrics.close()

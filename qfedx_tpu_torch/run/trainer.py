@@ -446,10 +446,21 @@ def train_federated_streamed(
     at q = B/S). ``comm_mb_per_round`` is (W + 1)·|θ|. A
     ``KeyboardInterrupt`` (from ``on_round_end`` or Ctrl-C) closes the
     streams, drains the checkpoint writer and saves the last completed
-    round synchronously before it propagates. ``fault_plan`` and
-    ``QFEDX_FAULTS`` are not ported yet (ROADMAP Queue 1 item 9, 9b),
-    nor are the obs spans, the /metrics endpoint and the SIGTERM
-    translation (item 14). ``params=``, ``perms_for_round=`` (the round's
+    round synchronously before it propagates; a SIGTERM is translated
+    into that ``KeyboardInterrupt`` for the run (``utils/host``).
+
+    ``fault_plan`` (or the plan ``QFEDX_FAULTS`` pins; ``utils/
+    faults``) injects the reference's faults: each round, before any
+    wave dispatches, its ``survivors`` (dropped clients) and
+    ``byzantine_attack`` (scale, sign flip, noise) reach every wave's
+    partial and a straggler's origin record; the stream poisons
+    ``nan``/``inf`` clients, flips ``label_flip`` clients' labels,
+    injects fetch/H2D errors and planned delays. The rows'
+    ``dropped_clients``, ``rejected_updates``, ``clipped_clients`` and
+    ``participants`` then equal the plan's counts (plus lost waves'
+    casualties). A plan needs QFEDX_GUARDS. The obs spans and the
+    /metrics endpoint are not ported yet (item 14). ``params=``,
+    ``perms_for_round=`` (the round's
     (cohort, E, S) shuffles) and ``draws_for_round=`` (its ``RoundDraws``
     streams over the cohort) exist for the parity tests."""
     from qfedx_tpu_torch.data.stream import DroppedWave, LateWave, WaveStream
@@ -467,13 +478,12 @@ def train_federated_streamed(
     from qfedx_tpu_torch.fed.robust import ROBUST_AGGREGATORS
     from qfedx_tpu_torch.fed.sampling import CohortSampler
     from qfedx_tpu_torch.fed.secure_agg import unmatched_mask_sum
+    from qfedx_tpu_torch.utils import faults
+    from qfedx_tpu_torch.utils.host import (
+        install_sigterm_interrupt,
+        restore_sigterm,
+    )
 
-    pins.refuse_unported("Queue 1 item 9 (9b)", "QFEDX_FAULTS")
-    if fault_plan is not None:
-        raise NotImplementedError(
-            "train_federated_streamed's fault_plan is not ported yet "
-            "(ROADMAP Queue 1 item 9, 9b)"
-        )
     wave_size = cohort_size if wave_size is None else int(wave_size)
     if cohort_size % wave_size != 0:
         raise ValueError(
@@ -486,7 +496,15 @@ def train_federated_streamed(
             "QFEDX_HIER=off forces the flat one-program round, which "
             f"needs the whole cohort in one wave (waves={num_waves})"
         )
+    plan = faults.resolve_plan(fault_plan)
     guards = guards_enabled()
+    if plan is not None and not guards:
+        raise ValueError(
+            "a fault plan is active (QFEDX_FAULTS / fault_plan) but "
+            "QFEDX_GUARDS=off built the unguarded round program — "
+            "injected casualties would corrupt θ instead of exercising "
+            "the recovery path"
+        )
     agg = resolve_aggregator(cfg)
     robust = agg in ROBUST_AGGREGATORS
     if robust and cfg.secure_agg and num_waves < 2:
@@ -571,17 +589,26 @@ def train_federated_streamed(
     if eval_every <= num_rounds:
         result.accuracies.append(evaluate(params, test_x, test_y)["accuracy"])
 
-    def origin(rnd: int) -> dict:
+    def origin(rnd: int, cohort_ids: np.ndarray) -> dict:
         """Everything a wave of round ``rnd`` is computed against besides
-        θ: the draws, the cohort's shuffles and the mask seed."""
+        θ: the draws, the cohort's shuffles, the mask seed and the plan's
+        survivors (None when all survive) and attack (None when all are
+        honest), decided before any wave dispatches."""
         given = None if draws_for_round is None else draws_for_round(rnd)
         perms = (perms_for_round(rnd) if perms_for_round is not None
                  else draw_perms(round_generator(seed, rnd), cohort_size,
                                  cfg.local_epochs, s_pad))
+        surv = byz = None
+        if plan is not None:
+            s_np = plan.survivors(rnd, cohort_ids)
+            if not np.all(s_np == 1.0):
+                surv = s_np
+            byz = plan.byzantine_attack(rnd, cohort_ids)
         return dict(draws=RoundDraws(seed, rnd, given),
                     perms=torch.as_tensor(perms, dtype=torch.int64),
                     sa_seed=(round_seed(seed, rnd, SA_SEED_SALT)
-                             if cfg.secure_agg else None))
+                             if cfg.secure_agg else None),
+                    surv=surv, byz=byz)
 
     def participation(o: dict) -> np.ndarray:
         if cfg.client_fraction >= 1.0:
@@ -591,6 +618,7 @@ def train_federated_streamed(
     def wave_partial(p, o: dict, lo: int, wx, wy, wm):
         return partial_fn(p, wx, wy, wm, lo,
                           perms=o["perms"][lo:lo + wave_size],
+                          survivors=o["surv"], byzantine=o["byz"],
                           sa_seed=o["sa_seed"], draws=o["draws"])
 
     def zero() -> torch.Tensor:
@@ -600,17 +628,18 @@ def train_federated_streamed(
     # each with its origin round's θ and derivation.
     pending_late: list = []
     last_done, last_params = start_round, params
+    sigterm_token = install_sigterm_interrupt()
     try:
         for rnd in range(start_round, num_rounds):
             t0 = time.perf_counter()
             cohort_ids = sampler.round_ids(rnd)
-            o = origin(rnd)
+            o = origin(rnd, cohort_ids)
             # θ this round's waves train against, and the origin θ of its
             # stragglers; rounds make new tensors, so it stays intact.
             params_in = params
             stream = WaveStream(
                 registry, device, cohort_ids, wave_size, depth=stream_depth,
-                round_idx=rnd,
+                fault_plan=plan, round_idx=rnd,
                 on_wave_error=("buffer" if stale else
                                "drop" if guards else "raise"),
                 wave_deadline_s=wave_deadline_s,
@@ -641,6 +670,7 @@ def train_federated_streamed(
                     else:
                         params, stats = round_fn(
                             params, wx, wy, wm, perms=o["perms"],
+                            survivors=o["surv"], byzantine=o["byz"],
                             sa_seed=o["sa_seed"], draws=o["draws"])
                 if stale and pending_late:
                     # Stragglers of earlier rounds, each computed against
@@ -676,13 +706,17 @@ def train_federated_streamed(
                     pending_late[:] = still_pending
                 if lost:
                     # Fetch-dead waves: their sampled clients are
-                    # casualties; under cohort-graph masks the server adds
-                    # their regenerated masks back.
+                    # casualties (the plan's dropped ones too: no
+                    # dispatched partial counted them); under cohort-graph
+                    # masks the server adds the masks of the survivors
+                    # among them back.
                     dead = np.zeros(cohort_size, dtype=np.float32)
                     for dw in lost:
                         dead[dw.wave_base:dw.wave_base + wave_size] = 1.0
-                    eff_pre = participation(o)
-                    n_lost = float((eff_pre * dead).sum())
+                    part_np = participation(o)
+                    eff_pre = (part_np if o["surv"] is None
+                               else part_np * o["surv"])
+                    n_lost = float((part_np * dead).sum())
                     if stale:
                         # Per-wave graphs: nothing to correct.
                         host_extra_dropped += n_lost
@@ -819,5 +853,6 @@ def train_federated_streamed(
             except Exception:  # noqa: BLE001 — best-effort unwind
                 pass
         pending_late.clear()
+        restore_sigterm(sigterm_token)
     result.params = params
     return result

@@ -15,7 +15,12 @@ Counterpart of ``qfedx_tpu/serve/batcher.py`` (``MicroBatcher``,
   every queued request; ``close(drain=False)`` fails them with
   ``ShuttingDown``.
 
-The telemetry, flight, watch, tune and fault hooks are not ported yet.
+The ``serve.request`` fault site (``utils/faults``: the engine's
+``fault_plan`` or the plan ``QFEDX_FAULTS`` pins) mutates request #seq
+before validation — ``nan`` features, or ``malformed``: each dimension
++ 1 — so the planned request is rejected on its own and never joins a
+batch. The telemetry, flight, watch and tune hooks are not ported yet
+(ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from collections import deque
 from typing import Any
 
 import numpy as np
+
+from qfedx_tpu_torch.utils import faults
 
 
 class RequestError(ValueError):
@@ -77,7 +84,9 @@ class Future:
 
 
 class MicroBatcher:
-    """Admission queue + dispatcher thread in front of a ServeEngine."""
+    """Admission queue + dispatcher thread in front of a ServeEngine.
+    The ``serve.request`` site reads the engine's ``fault_plan`` (None:
+    the one ``QFEDX_FAULTS`` pins)."""
 
     def __init__(self, engine, clock=time.monotonic):
         self.engine = engine
@@ -147,6 +156,16 @@ class MicroBatcher:
         with self._cond:
             seq = self._seq
             self._seq += 1
+        plan = faults.resolve_plan(self.engine.fault_plan)
+        if plan is not None:
+            kind = plan.request_mutation(seq)
+            if kind == "nan":
+                features = np.full(self.engine.feature_shape, np.nan,
+                                   dtype=np.float32)
+            elif kind == "malformed":
+                features = np.zeros(
+                    tuple(s + 1 for s in self.engine.feature_shape),
+                    dtype=np.float32)
         try:
             x = self._validate(features)
         except RequestError:

@@ -13,7 +13,10 @@ Counterpart of ``qfedx_tpu/serve/engine.py`` (``ServeConfig``,
    kernel CTA per sample), so the real rows equal the unpadded forward,
    and pad rows are sliced off before any post-processing.
 3. **Transient device errors retry** under the shared seeded-jitter
-   policy (``utils/retry``), the device→host fetch inside the attempt.
+   policy (``utils/retry``), the device→host fetch inside the attempt,
+   and so does the ``serve.compute`` fault site (``utils/faults``: the
+   engine's ``fault_plan`` or the plan ``QFEDX_FAULTS`` pins, read per
+   attempt; the batch sequence is its round coordinate).
 
 ``engine_from_run_dir`` restores a tracked run directory (its
 ``config.json`` and newest last-good checkpoint, written by either
@@ -21,7 +24,7 @@ package) of any model family — the VQC, the TinyCNN (image requests),
 the MPS classifier, the kernel head — into an engine; ``python -m
 qfedx_tpu_torch serve --run-dir`` (``run/cli.py``) serves it.
 
-Not ported yet: the telemetry/flight/watch/tune/fault hooks (ROADMAP
+Not ported yet: the telemetry, flight, watch and tune hooks (ROADMAP
 Queue 1 item 14).
 """
 
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from qfedx_tpu_torch.serve.forward import _ROUTING_PINS, persistent_forward
-from qfedx_tpu_torch.utils import pins, trees
+from qfedx_tpu_torch.utils import faults, pins, trees
 from qfedx_tpu_torch.utils.retry import retry_with_deadline
 
 
@@ -107,7 +110,9 @@ class ServeEngine:
     ``model``: a ``models.api.Model``; ``params``: its parameter dict
     (moved to ``device``); ``feature_shape``: per-request feature shape,
     e.g. ``(n_qubits,)``. ``device=None`` means the card and raises
-    without one.
+    without one. ``fault_plan``: the plan consulted at
+    ``serve.compute`` and, by the batcher, ``serve.request`` (None: the
+    one ``QFEDX_FAULTS`` pins).
     """
 
     def __init__(
@@ -117,8 +122,10 @@ class ServeEngine:
         feature_shape: tuple[int, ...],
         config: ServeConfig | None = None,
         device=None,
+        fault_plan=None,
     ):
         self.device = pins.resolve_device(device)
+        self.fault_plan = fault_plan
         self.model = model
         self.params = trees.tree_map(lambda v: v.to(self.device), params)
         self.feature_shape = tuple(int(s) for s in feature_shape)
@@ -198,8 +205,15 @@ class ServeEngine:
             xb[:m] = x
         else:
             xb = x
+
+        def attempt(k: int):
+            plan = faults.resolve_plan(self.fault_plan)
+            if plan is not None:
+                plan.check("serve.compute", seq, attempt=k)
+            return self._forward(xb)
+
         logits = retry_with_deadline(
-            lambda _k: self._forward(xb),
+            attempt,
             attempts=3,
             base_delay_s=0.002,
             max_delay_s=0.05,
@@ -264,8 +278,8 @@ def engine_from_run_dir(
         experiment_config_from_dict,
     )
 
-    pins.refuse_unported("Queue 1 item 14", "QFEDX_FAULTS", "QFEDX_TRACE",
-                         "QFEDX_FLIGHT", "QFEDX_WATCH", "QFEDX_TUNE")
+    pins.refuse_unported("Queue 1 item 14", "QFEDX_TRACE", "QFEDX_FLIGHT",
+                         "QFEDX_WATCH", "QFEDX_TUNE")
     run_dir = Path(run_dir)
     cfg_path = run_dir / "config.json"
     if not cfg_path.exists():

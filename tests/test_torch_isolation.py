@@ -44,6 +44,7 @@ def test_port_imports_no_jax_and_no_reference():
     for mod in ("ops.scan_body", "ops.fuse", "models.vqc", "serve.engine",
                 "serve.batcher", "utils.retry", "utils.trees", "fed.config",
                 "fed.sampling", "fed.client", "fed.round", "fed.evaluate",
+                "data.stream", "utils.faults", "utils.host",
                 "data.idx", "data._iris", "data.synthetic", "data.datasets",
                 "data.partition", "data.pipeline", "run.config",
                 "run.metrics", "run.checkpoint", "run.trainer", "run.cli",

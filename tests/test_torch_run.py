@@ -455,6 +455,28 @@ def test_cli_train_then_serve(monkeypatch, tmp_path, small_data, capsys):
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
 
 
+def test_run_train_takes_prebuilt_data(monkeypatch, tmp_path, small_data):
+    """``run_train(data=)`` trains on what ``build_data`` gave the same
+    config, without building it again, to the CLI run's rows."""
+    _port_pallas(monkeypatch)
+    pcli.main(_train_argv(tmp_path), device="cpu")
+    args = pcli.build_parser().parse_args(_train_argv(tmp_path)[:-2]
+                                          + ["--name", "prebuilt"])
+    cfg = pcli.config_from_args(args)
+    data = pcli.build_data(cfg)
+
+    def no_build(_cfg):
+        raise AssertionError("build_data called with data given")
+
+    monkeypatch.setattr(pcli, "build_data", no_build)
+    pcli.run_train(cfg, device="cpu", data=data)
+    rows = {name: [json.loads(line) for line in (
+        tmp_path / name / "metrics.jsonl").read_text().splitlines()]
+        for name in ("cli", "prebuilt")}
+    assert [(r["round"], r["loss"], r["accuracy"]) for r in rows["cli"]] == [
+        (r["round"], r["loss"], r["accuracy"]) for r in rows["prebuilt"]]
+
+
 @pytest.mark.parametrize("extra", [
     ["--plots"], ["--profile"], ["--trace"], ["--tuned", "x.json"],
     ["--sv-size", "4"],

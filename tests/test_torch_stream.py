@@ -15,7 +15,8 @@ and the cohort sampler (fed/sampling.py ``CohortSampler``).
   ``LateWave`` then ``poll_late`` ("buffer"); an uploader that dies
   without a word;
 - the ``QFEDX_STREAM`` pin parsed as the reference parses it;
-- ``fault_plan`` and ``QFEDX_FAULTS`` refused (ROADMAP Queue 1 item 9b).
+- where a fault plan is still refused (the unguarded round, a plan that
+  does not validate); the plan's seams: ``tests/test_torch_stream_faults.py``.
 
 Lateness comes from registries gated by a ``threading.Event`` that the
 test opens when the stream has yielded its marker, never from sleeps
@@ -413,21 +414,27 @@ def test_stream_depth_pin_parses_as_reference(monkeypatch, value):
 
 
 def test_fault_plans_are_refused(monkeypatch):
+    """Where a plan is still refused: the unguarded round
+    (QFEDX_GUARDS=off) and a QFEDX_FAULTS that does not validate. The
+    stream reads no pin: its plan comes from its caller (the seams
+    themselves: tests/test_torch_stream_faults.py)."""
     from qfedx_tpu_torch.fed.config import FedConfig
     from qfedx_tpu_torch.run.trainer import train_federated_streamed
+    from qfedx_tpu_torch.utils.faults import FaultPlan
 
     reg = ArrayRegistry(*_data())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        WaveStream(reg, "cpu", np.arange(16), wave_size=4,
-                   fault_plan=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
+    monkeypatch.setenv("QFEDX_GUARDS", "off")
+    with pytest.raises(ValueError, match="QFEDX_GUARDS"):
         train_federated_streamed(None, FedConfig(), reg, None, None,
-                                 cohort_size=16, fault_plan=object())
-    monkeypatch.setenv("QFEDX_FAULTS", '{"rules": []}')
-    with pytest.raises(NotImplementedError, match="QFEDX_FAULTS"):
-        WaveStream(reg, "cpu", np.arange(16), wave_size=4)
-    with pytest.raises(NotImplementedError, match="item 9"):
+                                 cohort_size=16, fault_plan=FaultPlan())
+    monkeypatch.delenv("QFEDX_GUARDS")
+    monkeypatch.setenv("QFEDX_FAULTS", '{"rules": [{"site": "typo"}]}')
+    with pytest.raises(ValueError, match="typo"):
         train_federated_streamed(None, FedConfig(), reg, None, None,
                                  cohort_size=16)
+    s = WaveStream(reg, "cpu", np.arange(16), wave_size=4)
+    assert [item[0] for item in s] == [0, 4, 8, 12]
+    s.close()
     monkeypatch.setenv("QFEDX_FAULTS", "off")
-    WaveStream(reg, "cpu", np.arange(16), wave_size=4).close()
+    WaveStream(reg, "cpu", np.arange(16), wave_size=4,
+               fault_plan=FaultPlan()).close()
