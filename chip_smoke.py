@@ -252,13 +252,36 @@ Phases (any failure raises and exits non-zero):
    async checkpoint write and ``[sigterm]`` stops a run at a SIGTERM
    raised when round 1 ends (the last completed round checkpointed, the
    handler restored) and resumes it to the uninterrupted run's θ;
-20. print one JSON line describing each launch of the kernel, f32 and
+20. observability (``qfedx_tpu_torch/obs``): ``[obs-train]`` runs
+   [cli-train]'s argv with ``--trace --profile``: ``trace.json`` with its
+   device lane and ``profile_summary.json`` written, the profiler's
+   scan-body kernel events by launch kind (``obs.profile.
+   kernel_launches``) equal to the wrapper's launches inside the
+   capture, the launches and θ equal to [cli-train]'s untraced run
+   (θ within OBS_THETA_ATOL), and the first device timeline of the
+   n = 12 round printed: busy share under the profiler, top device ops,
+   inter-op gaps, device time per phase; ``[obs-serve]`` serves
+   [cli-serve]'s requests from that run with ``--trace``, the /metrics
+   endpoint on a free port, the watchdog and the flight recorder on and
+   the p95 SLO set below any latency, under a profiler capture, fed
+   through a FIFO so that ``qfedx_serve_batches`` is scraped mid-stream
+   against the Launch A count, ``serve.p95_slo`` is named on /healthz
+   (503) and ``flight.json`` dumped; the profiler's Launch A events equal
+   the warmup's plus one per served batch; the logits equal
+   [cli-serve]'s, no build after warmup, the histogram's p50/p95 beside
+   the exact ones and the served stream's device timeline printed;
+   ``[obs-streamed]`` runs one round of [chaos-kernel]'s shape untraced
+   and traced: the same launches and θ (within OBS_THETA_ATOL), the
+   ``faults.injected.*`` counters equal to the plan's injected errors,
+   the ``fed.*`` counters to its ledger, one ``ingest.h2d`` span per
+   wave;
+21. print one JSON line describing each launch of the kernel, f32 and
    bf16 instances (launches on the CLI run, and per path, the dense,
    reupload, amplitude, config-4, federation-option, model-family,
-   noise, streamed and fault-plan paths included;
+   noise, streamed, fault-plan and observability paths included;
    max error; kernel-alone, plain and bound at the CLI run's shape, and
    at the earlier slices', the reupload, SPSA and per-example shapes);
-21. print the final ``{"ok": true, "device": {...}}`` line.
+22. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -1673,9 +1696,11 @@ def phase_cli_train(root, shapes: dict) -> dict:
           "one chunk deep, round 1 holds the first use and round 2's "
           "dispatch and the last round only its drain, so these resolve no "
           "rate; [cli-rate] measures it)")
+    final = ckpt.restore(CLI_ROUNDS, template)
     return {"run": run, "rows": rows, "launches": launches, "times": times,
             "clients": shapes["clients"], "steps": steps,
-            "theta_err": theta_err, "shapes": shapes, "summary": summary}
+            "theta_err": theta_err, "shapes": shapes, "summary": summary,
+            "theta": [v for d in final.values() for v in d.values()]}
 
 
 def phase_cli_chunked(root, unchunked: dict, argv=CLI_ARGV,
@@ -1836,7 +1861,7 @@ def phase_cli_serve(root, run_dir, dtype=torch.float32,
     want_dt = "bfloat16" if _is_bf16(dtype) else "float32"
     if by_dtype[want_dt] != launches["fwd"]:
         raise AssertionError(f"serving ran instances {by_dtype}")
-    return {"launches": launches, "logit_err": err,
+    return {"launches": launches, "logit_err": err, "logits": got,
             "p50": summary["p50_ms"], "p95": summary["p95_ms"]}
 
 
@@ -2714,7 +2739,7 @@ def twin_argv(argv) -> tuple[list, int]:
 
 def phase_encoding_cli_train(root, argv, name: str, tag: str,
                              encoding: str, per_step=None,
-                             record=None) -> dict:
+                             record=None, own_data: bool = False) -> dict:
     """``train`` of a run at n >= 10 (in-process) on the card, then its
     first CPU_TWIN_ROUNDS rounds on the CPU: a complete run directory,
     those rounds' loss and θ card vs CPU within TRAINED_LOGIT_ATOL,
@@ -2726,7 +2751,9 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
     (the HEA body of the angle and amplitude encodings; reupload's
     per-sample banks at 256 groups do not, as in the reference), no build
     after round 1. ``record`` (a dict) receives each run's Kraus branch
-    choices under "card" and "cpu"."""
+    choices under "card" and "cpu". The card run takes the data built for
+    the shape probe, unless ``own_data`` (its wall then holds the build
+    too: the noise phases price a round from it)."""
     from qfedx_tpu_torch.models.vqc import make_vqc_classifier
     from qfedx_tpu_torch.noise.trajectory import record_branches
     from qfedx_tpu_torch.run.checkpoint import Checkpointer
@@ -2739,7 +2766,8 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
     t0 = time.perf_counter()
     with record_branches() as record["card"]:
         summary, launches, rounds, _ = cli_train(
-            argv + ["--run-root", str(root), "--name", name], None)
+            argv + ["--run-root", str(root), "--name", name], None,
+            None if own_data else data)
     wall = time.perf_counter() - t0
     t0 = time.perf_counter()
     cpu_argv, cpu_rounds = twin_argv(argv)
@@ -2755,8 +2783,8 @@ def phase_encoding_cli_train(root, argv, name: str, tag: str,
           f"{clients} clients x S_pad={shapes['s_pad']}, {shapes['steps']} "
           f"local steps per round at tb={clients * batch}; eval sets "
           f"{shapes['n_val']} / {shapes['n_test']}; card {wall:.2f} s "
-          f"({rounds_n} rounds), cpu {cpu_wall:.2f} s ({cpu_rounds}) (host "
-          "clock, in-process)")
+          f"({rounds_n} rounds{', its data build included' if own_data else ''}"
+          f"), cpu {cpu_wall:.2f} s ({cpu_rounds}) (host clock, in-process)")
     ckpt = Checkpointer(run / "checkpoints", every=1)
     for r in range(1, rounds_n + 1):
         ckpt.verify(r)
@@ -3205,7 +3233,8 @@ def phase_config2(root) -> dict:
     builds = scan_body.build_count
     t0 = time.perf_counter()
     summary, launches, rounds, _ = cli_train(
-        CONFIG2_ARGV + ["--run-root", str(root), "--name", "config2"], None)
+        CONFIG2_ARGV + ["--run-root", str(root), "--name", "config2"], None,
+        data)
     wall = time.perf_counter() - t0
     t0 = time.perf_counter()
     cpu_summary, _, _, _ = cli_train(
@@ -3217,7 +3246,7 @@ def phase_config2(root) -> dict:
           f"classes={classes} {clients} clients x S_pad={shapes['s_pad']}, "
           f"{shapes['steps']} local steps per round, each {clients} x 32 "
           f"one-sample groups; card {wall:.2f} s, cpu {cpu_wall:.2f} s "
-          "(host clock, in-process, data build included)")
+          "(host clock, in-process; the data built once, before both)")
     for row, cpu in zip(rows, cpu_rows):
         loss_err = abs(row["loss"] - cpu["loss"])
         print(f"[config2] round {row['round']}: loss card {row['loss']!r} "
@@ -3474,7 +3503,7 @@ def family_cli_train(root, argv, name: str, tag: str, atol: float,
     try:
         t0 = time.perf_counter()
         summary, launches, rounds, _ = cli_train(
-            argv + ["--run-root", str(root), "--name", name], None)
+            argv + ["--run-root", str(root), "--name", name], None, data)
         wall = time.perf_counter() - t0
         t0 = time.perf_counter()
         cpu_argv, cpu_rounds = twin_argv(argv)
@@ -3492,7 +3521,7 @@ def family_cli_train(root, argv, name: str, tag: str, atol: float,
           f"{shapes['s_pad']}, {shapes['steps']} local steps per round, "
           f"route {sorted(set(routes))}; card {wall:.2f} s, cpu "
           f"{cpu_wall:.2f} s for {cpu_rounds} round(s) (host clock, "
-          "in-process, data build included)")
+          "in-process; the data built once, before both)")
     want_route = "folded" if expect_folded else "one client at a time"
     if set(routes) != {want_route}:
         raise AssertionError(f"{tag} trained {routes}, not {want_route}")
@@ -3766,7 +3795,8 @@ def phase_noise_cli(root, argv, name: str, tag: str) -> dict:
     per_step = {"fwd": 0 if circuit else clients, "fwd_bnd": 0, "adj": 0}
     record: dict = {}
     run = phase_encoding_cli_train(root, argv, name, tag, "angle",
-                                   per_step=per_step, record=record)
+                                   per_step=per_step, record=record,
+                                   own_data=True)
     cpu = record["cpu"]
     # The branch choices of the rounds the CPU twin ran come first.
     card = [t.cpu() for t in record["card"][:len(cpu)]]
@@ -4995,6 +5025,363 @@ def phase_chaos_checkpoint(device) -> dict:
     return {"launches": launches, "resume_err": err}
 
 
+# --- observability (obs/) -----------------------------------------------------
+
+OBS_THETA_ATOL = 1e-6  # traced vs untraced: the same card, the same inputs
+OBS_LOGIT_ATOL = 1e-5  # [obs-serve] vs [cli-serve]: θ within OBS_THETA_ATOL
+
+
+@contextlib.contextmanager
+def capture_window(log: list):
+    """Wrap ``obs.profile.capture`` so that the wrapper's launches made
+    inside each profiled window are appended to ``log``."""
+    from qfedx_tpu_torch.obs import profile
+    from qfedx_tpu_torch.ops import scan_body
+
+    orig = profile.capture
+
+    class Counted(orig):
+        def __enter__(self):
+            out = super().__enter__()
+            self._start = dict(scan_body.launch_counts)
+            return out
+
+        def __exit__(self, *exc):
+            log.append({k: scan_body.launch_counts[k] - self._start[k]
+                        for k in self._start})
+            return super().__exit__(*exc)
+
+    profile.capture = Counted
+    try:
+        yield
+    finally:
+        profile.capture = orig
+
+
+def phase_obs_train(root, cli_run: dict) -> dict:
+    """``[obs-train]``: [cli-train]'s argv with ``--trace --profile`` into
+    its own run directory (see the module docstring)."""
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.obs import merge, profile
+    from qfedx_tpu_torch.run.checkpoint import Checkpointer
+
+    name = "obs"
+    argv = CLI_ARGV + ["--trace", "--profile", "--run-root", str(root),
+                       "--name", name]
+    window: list = []
+    t0 = time.perf_counter()
+    with env_pins(QFEDX_TRACE="0"), capture_window(window):
+        summary, launches, rounds, _ = cli_train(argv, None)
+    wall = time.perf_counter() - t0
+    run = root / name
+    rows = _rows(run)
+    trace = json.loads((run / "trace.json").read_text())["traceEvents"]
+    lane = [e for e in trace
+            if e.get("pid") == merge.DEVICE_LANE_PID and e["ph"] == "X"]
+    host = {e["name"] for e in trace if e["ph"] == "X"
+            and e.get("pid") != merge.DEVICE_LANE_PID}
+    psum = json.loads((run / "profile_summary.json").read_text())
+    census = profile.kernel_launches(profile.load_capture(
+        profile.find_capture(run / "profile")))
+    shapes = cli_run["shapes"]
+    steps = shapes["steps"]
+    inside = window[0] if len(window) == 1 else None
+    want_inside = {"fwd": _batches(shapes["n_val"]) * (1 + CLI_ROUNDS),
+                   "fwd_bnd": CLI_ROUNDS * steps, "adj": CLI_ROUNDS * steps}
+    template = make_vqc_classifier(N_QUBITS, N_LAYERS, 2,
+                                   device="cpu").init(0)
+    final = Checkpointer(run / "checkpoints").restore(CLI_ROUNDS, template)
+    theta_err = _max_err([v for d in final.values() for v in d.values()],
+                         cli_run["theta"])
+    print(f"[obs-train] {' '.join(argv)}: {wall:.2f} s (host clock, "
+          f"under the profiler); time_s per round "
+          f"{[r['time_s'] for r in rows]} vs [cli-train]'s untraced "
+          f"{cli_run['times']}; trace.json {len(host)} host span names, "
+          f"{len(lane)} device-lane events; launches {launches} vs "
+          f"[cli-train]'s {cli_run['launches']}; theta "
+          f"max|traced-untraced| {theta_err:.3e} (atol {OBS_THETA_ATOL:g})")
+    print(f"[obs-train] the profiler's scan-body kernel events by launch "
+          f"kind {census}; the wrapper's launches inside the capture "
+          f"{inside} (expected {want_inside}: {steps} B + {steps} C per "
+          f"round, A = the round-0 and per-round evaluations; the final "
+          f"evaluation runs after the capture)")
+    print(f"[obs-train] device timeline of {CLI_ROUNDS} n={N_QUBITS} "
+          f"rounds (under the profiler, whose per-kernel overhead inflates "
+          f"the busy share): busy fraction {psum['device_busy_fraction']!r}"
+          f" of a {psum['device_window_s']!r} s window, "
+          f"{psum['ops_executed']} device ops ({psum['ops_distinct']} "
+          f"distinct) on {psum['device_lanes']} lane(s), gaps p50 "
+          f"{psum['gap_p50_us']!r} us p95 {psum['gap_p95_us']!r} us mean "
+          f"{psum['gap_mean_us']!r} us")
+    for row in psum["top_ops"][:8]:
+        print(f"[obs-train] top device op: {row['count']} x "
+              f"{row['op'][:90]} total {row['total_ms']!r} ms")
+    breakdown = json.loads((run / "summary.json").read_text())[
+        "phase_breakdown"]
+    for span, row in sorted(breakdown.items(),
+                            key=lambda kv: -kv[1]["total_s"]):
+        if "device_busy_s" in row or span.startswith(("round.", "trainer.")):
+            print(f"[obs-train] phase {span}: {row['count']} x, host "
+                  f"{row['total_s']!r} s, device busy "
+                  f"{row.get('device_busy_s')!r} s (utilization "
+                  f"{row.get('utilization')!r})")
+    if not lane:
+        raise AssertionError("obs-train: trace.json has no device lane")
+    if not {"round.dispatch", "round.fetch", "round.eval", "final.eval",
+            "fed.trace.local_update", "engine.trace"} <= host:
+        raise AssertionError(f"obs-train: span names {sorted(host)}")
+    if launches != cli_run["launches"] or inside != want_inside:
+        raise AssertionError(f"obs-train launched {launches} ({inside} "
+                             "inside the capture)")
+    if census != {**inside, "unattributed": 0,
+                  "total": sum(inside.values())}:
+        raise AssertionError(f"the profiler counted {census}, the wrapper "
+                             f"{inside}")
+    _require(theta_err, OBS_THETA_ATOL, "obs-train theta, traced vs not")
+    return {"run": run, "launches": launches, "census": census,
+            "summary": psum, "theta_err": theta_err}
+
+
+def _scrape(url: str) -> tuple[int, str]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def phase_obs_serve(root, run_dir, cli_served: dict) -> dict:
+    """``[obs-serve]``: [cli-serve]'s requests through ``serve --trace``
+    with /metrics, the watchdog and the flight recorder on, under a
+    profiler capture (see the module docstring)."""
+    import socket
+    import threading
+
+    from qfedx_tpu_torch import obs
+    from qfedx_tpu_torch.obs import flight, profile, server, watch
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run import cli
+
+    x = np.random.default_rng(17).uniform(0, 1, (N_SERVE_REQUESTS, N_QUBITS))
+    x = x.astype(np.float32)
+    lines = [json.dumps({"id": f"q{i}", "features": v.tolist()})
+             for i, v in enumerate(x)]
+    lines.insert(10, "{malformed")
+    first = N_SERVE_REQUESTS // 2  # valid requests before the scrape
+    fifo = root / "obs-requests.fifo"
+    os.mkfifo(fifo)
+    out = root / "obs-responses.jsonl"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    mid: dict = {}
+    recorded: list = []
+
+    class Recording(obs.Histogram):
+        __slots__ = ()
+
+        def record(self, value):
+            recorded.append(float(value))
+            super().record(value)
+
+    def feed():
+        try:
+            # The CLI opens its input after the warmup.
+            with open(fifo, "w") as f:
+                mid["fwd0"] = scan_body.launch_counts["fwd"]
+                mid["builds0"] = scan_body.build_count
+                f.write("\n".join(lines[:first + 1]) + "\n")
+                f.flush()
+                deadline = time.monotonic() + 120
+                while obs.registry().counters.get(
+                        "serve.requests_served", 0) < first:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError("first half never served")
+                    time.sleep(0.002)
+                mid["launched"] = scan_body.launch_counts["fwd"] - mid["fwd0"]
+                code, body = _scrape(base + "/metrics")
+                mid["metrics"] = (code, [ln for ln in body.splitlines()
+                                         if ln.startswith("qfedx_serve_")])
+                watch.evaluate_once()
+                mid["healthz"] = _scrape(base + "/healthz")
+                f.write("\n".join(lines[first + 1:]) + "\n")
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            mid["error"] = exc
+
+    feeder = threading.Thread(target=feed, name="obs-serve-feed",
+                              daemon=True)
+    feeder.start()
+    orig = obs.Histogram
+    prof_dir = root / "serve-profile"
+    try:
+        with env_pins(QFEDX_METRICS_PORT=str(port), QFEDX_WATCH="on",
+                      QFEDX_FLIGHT="on", QFEDX_SERVE_SLO_MS="0.001",
+                      QFEDX_TRACE="0", QFEDX_TRACE_XLA="1"):
+            obs.Histogram = Recording
+            scan_body.reset_counts()
+            with profile.capture(prof_dir):
+                summary = cli.main(["serve", "--run-dir", str(run_dir),
+                                    "--input", str(fifo), "--output",
+                                    str(out), "--trace"])
+            launched = scan_body.launch_counts["fwd"] - mid.get("fwd0", 0)
+            builds = scan_body.build_count
+    finally:
+        obs.Histogram = orig
+        if feeder.is_alive():
+            # The CLI failed before reading: a reader end unblocks the
+            # feeder's open, and its writes then fail.
+            fd = os.open(fifo, os.O_RDONLY | os.O_NONBLOCK)
+            feeder.join(30)
+            os.close(fd)
+        server.stop_server()
+        watch.reset()
+        dumped = flight.last_dump()
+        flight.reset()
+    if "error" in mid:
+        raise mid["error"]
+    code, metrics = mid["metrics"]
+    scraped = {ln.split()[0]: float(ln.split()[1]) for ln in metrics
+               if not ln.startswith("#") and "{" not in ln}
+    hz_code, hz_body = mid["healthz"]
+    health = json.loads(hz_body)
+    active = [a["rule"] for a in health.get("alerts", {}).get("active", [])]
+    resp = [json.loads(line) for line in out.read_text().splitlines()]
+    got = np.array([r["logits"] for r in resp if "logits" in r])
+    trace = json.loads((run_dir / "serve_trace.json").read_text())
+    compute = sum(1 for e in trace["traceEvents"]
+                  if e["ph"] == "X" and e["name"] == "serve.compute")
+    exact = {q: obs.percentile(sorted(recorded), q) for q in (0.5, 0.95)}
+    psum = profile.summarize(profile.parse_capture(prof_dir))
+    census = profile.kernel_launches(profile.load_capture(
+        profile.find_capture(prof_dir)))
+    if got.shape != cli_served["logits"].shape:
+        raise AssertionError(f"obs-serve logits {got.shape}")
+    err = float(np.abs(got - cli_served["logits"]).max())
+    print(f"[obs-serve] {summary['served']} served in {summary['batches']} "
+          f"batches; mid-stream /metrics ({code}) after {first} requests: "
+          f"qfedx_serve_batches {scraped.get('qfedx_serve_batches')!r}, "
+          f"Launch A since warmup {mid['launched']}; /healthz {hz_code} "
+          f"status {health['status']!r}, active rules {active}; flight.json "
+          f"{dumped}; latency p50 {summary['p50_ms']} ms p95 "
+          f"{summary['p95_ms']} ms (histogram) vs exact "
+          f"{exact[0.5]:.4f} / {exact[0.95]:.4f} ms; logits "
+          f"max|obs-serve - cli-serve| {err:.3e} (atol {OBS_LOGIT_ATOL:g}); "
+          f"serve.compute spans {compute}; Launch A after warmup "
+          f"{launched}; builds {mid['builds0']} -> {builds}")
+    print(f"[obs-serve] the profiler's scan-body kernel events {census} "
+          f"over the warmup ({mid['fwd0']} A) and {summary['batches']} "
+          f"served batches; device timeline of the served stream (under "
+          f"the profiler): busy fraction {psum['device_busy_fraction']!r} "
+          f"of a {psum['device_window_s']!r} s window, "
+          f"{psum['ops_executed']} device ops, gaps p50 "
+          f"{psum['gap_p50_us']!r} us p95 {psum['gap_p95_us']!r} us; "
+          + ", ".join(f"{k} {v['device_busy_s']!r} s device of "
+                      f"{v['wall_s']!r} s" for k, v in sorted(
+                          psum["spans"].items())))
+    for row in psum["top_ops"][:5]:
+        print(f"[obs-serve] top device op: {row['count']} x "
+              f"{row['op'][:90]} total {row['total_ms']!r} ms")
+    if code != 200 or scraped.get("qfedx_serve_batches") != mid["launched"]:
+        raise AssertionError(f"obs-serve: /metrics {metrics} vs "
+                             f"{mid['launched']} launches")
+    if hz_code != 503 or "serve.p95_slo" not in active:
+        raise AssertionError(f"obs-serve: /healthz {hz_code} {health}")
+    if dumped is None or not (run_dir / "flight.json").is_file():
+        raise AssertionError("obs-serve: no flight.json dumped")
+    if compute != summary["batches"] or launched != summary["batches"]:
+        raise AssertionError(f"obs-serve: {compute} compute spans and "
+                             f"{launched} launches for {summary['batches']}"
+                             " batches")
+    if builds != mid["builds0"]:
+        raise AssertionError("obs-serve: a build after warmup")
+    if census != {"fwd": mid["fwd0"] + summary["batches"], "fwd_bnd": 0,
+                  "adj": 0, "unattributed": 0,
+                  "total": mid["fwd0"] + summary["batches"]}:
+        raise AssertionError(f"obs-serve: the profiler counted {census} "
+                             f"for {summary['batches']} batches after a "
+                             f"warmup of {mid['fwd0']} A")
+    _require(err, OBS_LOGIT_ATOL, "obs-serve logits vs cli-serve")
+    return {"launches": {"fwd": launched, "fwd_bnd": 0, "adj": 0},
+            "logit_err": err, "p50": summary["p50_ms"],
+            "p95": summary["p95_ms"], "exact": exact, "census": census,
+            "summary": psum}
+
+
+def phase_obs_streamed(device) -> dict:
+    """``[obs-streamed]``: one round of [chaos-kernel]'s shape, untraced
+    then under QFEDX_TRACE=1 (see the module docstring)."""
+    from qfedx_tpu_torch import obs
+    from qfedx_tpu_torch.data.stream import SyntheticRegistry
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.fed.sampling import CohortSampler
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+
+    n, layers, cohort, wave, batch, seed = 12, 3, 256, 32, 8, 0
+    registry = SyntheticRegistry(1 << 16, samples=8, n_features=n, seed=2)
+    test = _registry_test_set(registry, n)
+    cfg = FedConfig(local_epochs=1, batch_size=batch, learning_rate=0.1,
+                    optimizer="adam", aggregator="clip_mean",
+                    clip_bound=CHAOS_CLIP)
+    sampler = CohortSampler(registry.num_clients, cohort, seed)
+    runs = {}
+    for traced in ("0", "1"):
+        plan = chaos_kernel_plan(sampler, 1, cohort)
+        with env_pins(QFEDX_TRACE=traced):
+            obs.reset()
+            t0 = time.perf_counter()
+            res, rows, launches = _streamed(
+                make_vqc_classifier(n, layers, 2, device=device), cfg,
+                registry, test, device, 1, cohort_size=cohort,
+                wave_size=wave, seed=seed, eval_every=1, fault_plan=plan)
+            wall = time.perf_counter() - t0
+        reg = obs.registry()
+        runs[traced] = dict(theta=_theta(res.params), rows=rows,
+                            launches=launches, fired=dict(plan.fired),
+                            wall=wall, spans=[s.name for s in reg.spans],
+                            counters=dict(reg.counters),
+                            gauges=dict(reg.gauges), plan=plan)
+    obs.reset()
+    plain, traced = runs["0"], runs["1"]
+    want = _chaos_ledger("obs-streamed", traced["rows"], traced["plan"],
+                         sampler.round_ids, cohort, clip=True)[0]
+    counters = traced["counters"]
+    injected = {k[len("faults.injected."):]: v for k, v in counters.items()
+                if k.startswith("faults.injected.")}
+    ledger = {"dropped_clients": counters.get("fed.dropped_clients", 0),
+              "rejected_updates": counters.get("fed.rejected_updates", 0),
+              "clipped_clients": counters.get("fed.clipped_clients", 0)}
+    ingest = {k: v for k, v in counters.items() if k.startswith("ingest.")}
+    spans = traced["spans"]
+    h2d = spans.count("ingest.h2d")
+    theta_err = _max_err(traced["theta"], plain["theta"])
+    print(f"[obs-streamed] one round, cohort {cohort} in {cohort // wave} "
+          f"waves of {wave}, n={n}: untraced {plain['wall']:.2f} s, traced "
+          f"{traced['wall']:.2f} s (host clock); launches "
+          f"{traced['launches']} vs {plain['launches']}; theta "
+          f"max|traced-untraced| {theta_err:.3e} (atol {OBS_THETA_ATOL:g}); "
+          f"faults.injected {injected} vs the plan's {traced['fired']}; fed "
+          f"counters {ledger} vs the ledger {want}; ingest counters "
+          f"{ingest}, ingest.h2d spans {h2d}, queue depth gauge "
+          f"{traced['gauges'].get('ingest.queue_depth')!r}; round spans "
+          f"{sorted({s for s in spans if s.startswith('round.')})}")
+    if traced["launches"] != plain["launches"]:
+        raise AssertionError("obs-streamed: tracing changed the launches")
+    _require(theta_err, OBS_THETA_ATOL, "obs-streamed theta, traced vs not")
+    if injected != traced["fired"] or not injected:
+        raise AssertionError(f"obs-streamed injected {injected}")
+    if ledger != {k: want[k] for k in ledger}:
+        raise AssertionError(f"obs-streamed fed counters {ledger}")
+    if any(ingest.values()) or h2d != cohort // wave:
+        raise AssertionError(f"obs-streamed ingest {ingest}, {h2d} h2d spans")
+    if not {"round.dispatch", "round.fetch", "round.eval"} <= set(spans):
+        raise AssertionError(f"obs-streamed spans {sorted(set(spans))}")
+    return {"launches": traced["launches"], "theta_err": theta_err}
+
+
 def trees_first(tree):
     """Every leaf's first entry (one client of a (C, …) stream)."""
     from qfedx_tpu_torch.utils import trees
@@ -5111,6 +5498,13 @@ def main() -> int:
     chaos_straggler = phase_chaos_straggler(device)
     chaos_serve = phase_chaos_serve(device, served)
     chaos_ckpt = phase_chaos_checkpoint(device)
+    obs_root = Path(tempfile.mkdtemp(prefix="qfedx-obs-"))
+    try:
+        obs_train = phase_obs_train(obs_root, cli_run)
+        obs_serve = phase_obs_serve(obs_root, obs_train["run"], cli_served)
+    finally:
+        shutil.rmtree(obs_root, ignore_errors=True)
+    obs_streamed = phase_obs_streamed(device)
     source = "qfedx_tpu_torch/ops/csrc/scan_body.cu"
     kernel = "qfedx_tpu/ops/pallas_body.py:401"
     by_path = {
@@ -5157,6 +5551,9 @@ def main() -> int:
         "chaos-serve": {"fwd": chaos_serve["launches"], "fwd_bnd": 0,
                         "adj": 0},
         "chaos-checkpoint and sigterm (n=12)": chaos_ckpt["launches"],
+        "obs-train (traced, profiled)": obs_train["launches"],
+        "obs-serve (traced, /metrics, watchdog)": obs_serve["launches"],
+        "obs-streamed (traced, one round)": obs_streamed["launches"],
     }
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -5351,7 +5748,17 @@ def main() -> int:
           f"{chaos_straggler['theta_err']:.3e}; serving under faults p50 "
           f"{chaos_serve['p50']:.4f} ms p95 {chaos_serve['p95']:.4f} ms, "
           f"{chaos_serve['rejected']} rejected; resume after SIGTERM theta "
-          f"{chaos_ckpt['resume_err']:.3e}; whole script "
+          f"{chaos_ckpt['resume_err']:.3e}")
+    print(f"[summary] observability: traced CLI run theta vs untraced "
+          f"{obs_train['theta_err']:.3e}, profiler census "
+          f"{obs_train['census']}, busy fraction under the profiler "
+          f"{obs_train['summary']['device_busy_fraction']!r}, gaps p50 "
+          f"{obs_train['summary']['gap_p50_us']!r} us; traced serve p50 "
+          f"{obs_serve['p50']} ms p95 {obs_serve['p95']} ms (histogram) vs "
+          f"{obs_serve['exact'][0.5]:.4f} / {obs_serve['exact'][0.95]:.4f} "
+          f"ms exact, the profiler's serving census {obs_serve['census']}; "
+          f"traced streamed round theta "
+          f"{obs_streamed['theta_err']:.3e}; whole script "
           f"{time.perf_counter() - T_START:.1f} s")
     print(card_line())
     print(json.dumps(kernels))

@@ -10,3 +10,5 @@ and raise without one; the CPU runs only when a caller passes
 ``device="cpu"``, and there every kernel wrapper takes its plain PyTorch
 version.
 """
+
+__version__ = "0.4.0"

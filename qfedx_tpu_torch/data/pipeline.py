@@ -192,9 +192,12 @@ def preprocess(
     then flattens; "pool" chunk-averages the flat image; "pca" standardizes
     + projects (quantum path; ROADMAP.md:19).
     """
-    return _preprocess(
-        train_xy, test_xy, classes, val_split, features, n_features, seed
-    )
+    from qfedx_tpu_torch import obs
+
+    with obs.span("data.preprocess", features=features):
+        return _preprocess(
+            train_xy, test_xy, classes, val_split, features, n_features, seed
+        )
 
 
 def _preprocess(

@@ -39,6 +39,11 @@ per wave before its retries; inside each retried attempt the
 before the last check passes. Under ``"buffer"`` a wave whose planned
 delay exceeds ``wave_deadline_s`` is declared late up front and its
 upload deferred behind every prompt wave.
+
+Telemetry (``obs``, the reference's names): the ``ingest.straggle`` and
+``ingest.h2d`` spans (the latter closes once the copies are queued), the
+``ingest.queue_depth`` gauge and the ``ingest.waves_dropped``,
+``ingest.waves_late`` and ``ingest.waves_salvaged`` counters.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import time
 import numpy as np
 import torch
 
+from qfedx_tpu_torch import obs
 from qfedx_tpu_torch.utils import pins
 from qfedx_tpu_torch.utils.retry import RetryExhausted, retry_with_deadline
 
@@ -301,7 +307,9 @@ class WaveStream:
         # A straggler is slow, not flaky: one sleep per wave, before the
         # retries, so they do not compound it.
         if self._delays is not None and float(self._delays[wave]) > 0:
-            time.sleep(float(self._delays[wave]))
+            with obs.span("ingest.straggle", wave=wave,
+                          seconds=float(self._delays[wave])):
+                time.sleep(float(self._delays[wave]))
 
         def attempt(k: int):
             if plan is not None:
@@ -322,9 +330,12 @@ class WaveStream:
                         flips.reshape((len(ids),) + (1,) * (np.ndim(cy) - 1)),
                         1 - np.asarray(cy), cy)
                 plan.check("ingest.h2d", self._round_idx, wave, attempt=k)
-            return self._to_device((
-                np.ascontiguousarray(cx), np.ascontiguousarray(cy),
-                np.asarray(cmask, dtype=np.float32)))
+            # Closes once the copies are queued on the side stream: the
+            # span never waits for them.
+            with obs.span("ingest.h2d", wave=wave, clients=len(ids)):
+                return self._to_device((
+                    np.ascontiguousarray(cx), np.ascontiguousarray(cy),
+                    np.asarray(cmask, dtype=np.float32)))
 
         try:
             tensors, event = retry_with_deadline(
@@ -392,6 +403,7 @@ class WaveStream:
                     )
                 if not self._put(item):
                     return
+                obs.gauge("ingest.queue_depth", self._queue.qsize())
             for wave in deferred:
                 if self._closed:
                     break
@@ -508,6 +520,7 @@ class WaveStream:
                                 item.lo // self._wave_size] = item
                         continue
                 break
+            obs.gauge("ingest.queue_depth", self._queue.qsize())
             if item is self._DONE:
                 raise StopIteration
             if isinstance(item, BaseException):
@@ -516,6 +529,11 @@ class WaveStream:
         self._next_wave += 1
         if isinstance(item, _Staged):
             return self._deliver(item)
+        # Counted once per delivered marker, whichever path made it.
+        if isinstance(item, DroppedWave):
+            obs.counter("ingest.waves_dropped")
+        elif isinstance(item, LateWave):
+            obs.counter("ingest.waves_late")
         return item
 
     # -- straggler salvage (buffer mode) --------------------------------------
@@ -596,6 +614,8 @@ class WaveStream:
         self._late_done.update(lo // self._wave_size for lo, _ in items)
         self._late_done.update(failed)
         self._late_failed.clear()
+        if items:
+            obs.counter("ingest.waves_salvaged", len(items))
         return items, failed
 
     def abandon_late(self) -> list[int]:

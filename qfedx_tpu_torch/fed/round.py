@@ -56,6 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from qfedx_tpu_torch import obs
 from qfedx_tpu_torch.fed.client import (
     make_local_update,
     make_local_update_clients,
@@ -397,16 +398,17 @@ def _make_wave_block(model: Model, cfg: FedConfig, cohort_clients: int,
                              "apply_train's dropout, shots or "
                              "trajectories)")
         device = trees.tree_leaves(params)[0].device
-        # Participation is decided on the host (a CPU draw over the
-        # cohort), so the secure-agg pair graph needs no device read.
-        part_h = (np.ones(cohort_clients, np.float32)
-                  if cfg.client_fraction >= 1.0
-                  else draws.participation(cohort_clients,
-                                           cfg.client_fraction))
-        eff_h = part_h if survivors is None else part_h * np.asarray(
-            torch.as_tensor(survivors).cpu(), dtype=np.float32)
-        part = torch.as_tensor(part_h[ids], device=device)
-        eff = torch.as_tensor(eff_h[ids], device=device)
+        with obs.span("fed.trace.sampling"):
+            # Participation is decided on the host (a CPU draw over the
+            # cohort), so the secure-agg pair graph needs no device read.
+            part_h = (np.ones(cohort_clients, np.float32)
+                      if cfg.client_fraction >= 1.0
+                      else draws.participation(cohort_clients,
+                                               cfg.client_fraction))
+            eff_h = part_h if survivors is None else part_h * np.asarray(
+                torch.as_tensor(survivors).cpu(), dtype=np.float32)
+            part = torch.as_tensor(part_h[ids], device=device)
+            eff = torch.as_tensor(eff_h[ids], device=device)
         steps = cfg.local_epochs * (cx.shape[1] // cfg.batch_size)
         step_draws = tdraws = None
         if step_stream is not None:
@@ -415,9 +417,9 @@ def _make_wave_block(model: Model, cfg: FedConfig, cohort_clients: int,
         if train_specs:
             tdraws = draws.train_draws(train_specs, width, steps,
                                        cfg.batch_size, device, first=base)
-        deltas, ns, losses = train_clients(params, cx, cy, cmask, generator,
-                                           perms, step_draws, tdraws)
-        with torch.no_grad():
+
+        @torch.no_grad()
+        def postprocess(deltas, ns, losses):
             if byzantine is not None:
                 # The adversary tampers after local training and before
                 # upload; the quarantine and defenses below see it.
@@ -488,6 +490,23 @@ def _make_wave_block(model: Model, cfg: FedConfig, cohort_clients: int,
                     cfg.secure_agg_mode, cfg.secure_agg_neighbors,
                 )
                 contrib = trees.tree_add(contrib, masks)
+            return contrib, weight, losses, n_part, rejected, dropped, clipped
+
+        # The reference's span layout: the folded path's postprocess is a
+        # phase of its own, the per-client path's sits inside its local
+        # update.
+        with obs.span("fed.trace.local_update",
+                      path="folded" if folded else "vmap"):
+            deltas, ns, losses = train_clients(params, cx, cy, cmask,
+                                               generator, perms, step_draws,
+                                               tdraws)
+            if not folded:
+                post = postprocess(deltas, ns, losses)
+        if folded:
+            with obs.span("fed.trace.postprocess"):
+                post = postprocess(deltas, ns, losses)
+        contrib, weight, losses, n_part, rejected, dropped, clipped = post
+        with torch.no_grad(), obs.span("fed.trace.aggregate"):
             if robust_per_client:
                 # update_sum = combine · m keeps Σ wΔ / Σ w intact.
                 combined, m, _ = robust_combine(

@@ -64,6 +64,7 @@ from dataclasses import replace
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from qfedx_tpu_torch import obs
 from qfedx_tpu_torch.circuits.ansatz import (
     ansatz_layer,
     data_reuploading,
@@ -227,14 +228,20 @@ def make_vqc_classifier(
                                            n=n_qubits)
         return z_logits(state, params["readout"], n_qubits)
 
+    # engine.trace times the program build and run of each engine route;
+    # the reference's fires once per trace, this one at every call.
     def apply(params: dict, x) -> torch.Tensor:
         x = _features(params, x)
         if engine() == "vmap":
-            return _apply_dense(params, x)
-        state = _forward_b(params["ansatz"], x)
-        k = params["readout"]["scale"].shape[0]
-        z = expect_z_all_b(state, n_qubits)[:, :k]
-        return params["readout"]["scale"] * z + params["readout"]["bias"]
+            with obs.span("engine.trace", engine="vmap", n_qubits=n_qubits,
+                          scan=_scan_on() and not remat):
+                return _apply_dense(params, x)
+        with obs.span("engine.trace", engine="batched", n_qubits=n_qubits,
+                      scan=_scan_on()):
+            state = _forward_b(params["ansatz"], x)
+            k = params["readout"]["scale"].shape[0]
+            z = expect_z_all_b(state, n_qubits)[:, :k]
+            return params["readout"]["scale"] * z + params["readout"]["bias"]
 
     def apply_clients(cparams: dict, x) -> torch.Tensor:
         """Per-client forward: params leaves (C, …), x (C, B, n) → logits
@@ -243,16 +250,20 @@ def make_vqc_classifier(
         axis leads the dense state's batch axis."""
         x = _features(cparams, x)
         if engine() == "vmap":
-            return _apply_dense(cparams, x)
-        c, bsz = x.shape[0], x.shape[1]
-        state = _forward_b(cparams["ansatz"],
-                           x.reshape((c * bsz,) + tuple(x.shape[2:])))
-        k = cparams["readout"]["scale"].shape[-1]
-        z = expect_z_all_b(state, n_qubits)[:, :k].reshape(c, bsz, k)
-        return (
-            cparams["readout"]["scale"][:, None, :] * z
-            + cparams["readout"]["bias"][:, None, :]
-        )
+            with obs.span("engine.trace", engine="vmap", n_qubits=n_qubits,
+                          scan=_scan_on() and not remat):
+                return _apply_dense(cparams, x)
+        with obs.span("engine.trace", engine="folded", n_qubits=n_qubits,
+                      scan=_scan_on()):
+            c, bsz = x.shape[0], x.shape[1]
+            state = _forward_b(cparams["ansatz"],
+                               x.reshape((c * bsz,) + tuple(x.shape[2:])))
+            k = cparams["readout"]["scale"].shape[-1]
+            z = expect_z_all_b(state, n_qubits)[:, :k].reshape(c, bsz, k)
+            return (
+                cparams["readout"]["scale"][:, None, :] * z
+                + cparams["readout"]["bias"][:, None, :]
+            )
 
     def noisy_forward_state(params, x, gumbel):
         """The trajectory forward on (B, feat) features: per layer the

@@ -37,6 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from qfedx_tpu_torch import obs
 from qfedx_tpu_torch.ops import statevector as sv
 from qfedx_tpu_torch.ops.cpx import CArray, RDTYPE, cmul
 from qfedx_tpu_torch.ops.statevector import _LANE_BITS, _LANES, _SLAB_MIN
@@ -384,6 +385,11 @@ def fuse_ops(ops: list, n: int) -> list:
     flush_diag()
     flush_row()
     flush_lane()
+    # The reference counts these once per compile; eager code runs the
+    # pass at every call, so here they count program builds per call.
+    obs.counter("fuse.passes")
+    obs.counter("fuse.ops_in", len(ops))
+    obs.counter("fuse.ops_out", len(out))
     return out
 
 
@@ -986,6 +992,9 @@ def fuse_ops_stacked(ops: list, n: int, length: int) -> ScanProgram:
     flush(lambda acc: True)
 
     pre, body = _merge_scan_boundary(out, n, length)
+    obs.counter("fuse.passes")
+    obs.counter("fuse.ops_in", len(ops))
+    obs.counter("fuse.ops_out", len(pre) + len(body))
     return ScanProgram(tuple(pre), tuple(body), length)
 
 

@@ -44,6 +44,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from qfedx_tpu_torch import obs
 from qfedx_tpu_torch.utils import faults, trees
 from qfedx_tpu_torch.utils.retry import RetryExhausted, retry_with_deadline
 
@@ -158,17 +159,18 @@ class Checkpointer:
                         plan.check("checkpoint.write", _r, attempt=k)
                     return self.save(_r, _p)
 
-                try:
-                    retry_with_deadline(
-                        attempt, attempts=3, base_delay_s=0.05,
-                        max_delay_s=0.5, deadline_s=60.0,
-                        describe=f"checkpoint write (round {round_idx})",
-                        jitter_site=f"checkpoint/{round_idx}",
-                    )
-                except RetryExhausted as exc:
-                    raise CheckpointWriteError(
-                        round_idx, exc.last, exc.attempts
-                    ) from exc.last
+                with obs.span("checkpoint.async_write", round=round_idx):
+                    try:
+                        retry_with_deadline(
+                            attempt, attempts=3, base_delay_s=0.05,
+                            max_delay_s=0.5, deadline_s=60.0,
+                            describe=f"checkpoint write (round {round_idx})",
+                            jitter_site=f"checkpoint/{round_idx}",
+                        )
+                    except RetryExhausted as exc:
+                        raise CheckpointWriteError(
+                            round_idx, exc.last, exc.attempts
+                        ) from exc.last
             except BaseException as e:  # noqa: BLE001 — surfaced by wait()
                 if self._error is None:  # keep the FIRST (root-cause) error
                     self._error = e
@@ -247,6 +249,8 @@ class Checkpointer:
     def _pop_suppressed(self) -> BaseException | None:
         err, self._error = self._error, None
         if err is not None:
+            # The counter needs a metrics gate; the warning does not.
+            obs.counter("checkpoint.async_write_error_suppressed")
             warnings.warn(
                 "async checkpoint write failed and was suppressed during "
                 f"unwind: {err!r} — the latest on-disk checkpoint may "
@@ -351,6 +355,7 @@ class Checkpointer:
             try:
                 loaded = self._load_leaves(cand, leaves)
             except CheckpointIntegrityError as exc:
+                obs.counter("checkpoint.corrupt_skipped")
                 warnings.warn(
                     f"skipping corrupt checkpoint (round {cand}): {exc} — "
                     "falling back to the previous last-good checkpoint",

@@ -22,12 +22,16 @@ run. The staleness settings (``--staleness-mode``, ``--staleness-alpha``,
 ``--staleness-max-age``) go into ``FedConfig`` as in the reference; the
 resident trainer ignores them, as the reference's does (the streamed
 trainer, ``run/trainer.train_federated_streamed``, is a library entry
-in both packages). Not ported yet, each raising NotImplementedError:
-``--plots``, ``--profile``, ``--trace`` and ``--tuned`` (ROADMAP Queue 1
-item 14); sharding (``run/config.build_model``, item 12); and the
-``tune``,
-``inspect``, ``demo``, ``sweep`` and ``bench`` subcommands (item 14) and
-``lint`` (item 15).
+in both packages). ``train --trace`` writes the run's ``trace.json`` and
+the summary's ``phase_breakdown``; ``--profile`` (or ``QFEDX_PROFILE``)
+captures a ``torch.profiler`` timeline into ``<run-dir>/profile`` and
+parses it into ``profile_summary.json``, and with ``--trace`` the
+``trace.json`` gets the device lane. ``serve --trace`` writes
+``serve_trace.json`` beside the served run. Not ported yet, each raising
+NotImplementedError: ``--plots``, ``--tuned`` and ``serve --tuned``
+(ROADMAP Queue 1 item 14b); sharding (``run/config.build_model``, item
+12); and the ``tune``, ``inspect``, ``demo``, ``sweep`` and ``bench``
+subcommands (item 14b) and ``lint`` (item 15).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from pathlib import Path
 
 from qfedx_tpu_torch.fed.config import DPConfig, FedConfig
 from qfedx_tpu_torch.run.config import (
@@ -48,8 +53,8 @@ from qfedx_tpu_torch.run.config import (
 
 # The reference's other subcommands, with the ROADMAP Queue 1 item that
 # ports each.
-_UNPORTED = {"tune": 14, "inspect": 14, "demo": 14, "sweep": 14, "bench": 14,
-             "lint": 15}
+_UNPORTED = {"tune": "14b", "inspect": "14b", "demo": "14b", "sweep": "14b",
+             "bench": "14b", "lint": "15"}
 
 
 def _parse_classes(s: str | None):
@@ -177,13 +182,17 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--resume", action="store_true",
                    help="reuse the --name run dir and resume from its latest checkpoint")
     t.add_argument("--plots", action="store_true",
-                   help="not ported yet: raises (ROADMAP Queue 1 item 14)")
+                   help="not ported yet: raises (ROADMAP Queue 1 item 14b)")
     t.add_argument("--profile", action="store_true",
-                   help="not ported yet: raises (ROADMAP Queue 1 item 14)")
+                   help="capture a torch.profiler device timeline into "
+                        "<run-dir>/profile and parse it into "
+                        "profile_summary.json (crash-safe)")
     t.add_argument("--trace", action="store_true",
-                   help="not ported yet: raises (ROADMAP Queue 1 item 14)")
+                   help="record obs spans (QFEDX_TRACE=1): per-round "
+                        "phases in metrics.jsonl, phase_breakdown in "
+                        "summary.json, trace.json for Perfetto")
     t.add_argument("--tuned", default=None, metavar="PATH",
-                   help="not ported yet: raises (ROADMAP Queue 1 item 14)")
+                   help="not ported yet: raises (ROADMAP Queue 1 item 14b)")
 
     v = sub.add_parser(
         "serve",
@@ -211,10 +220,11 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--output", default="-",
                    help="JSONL response stream ('-' = stdout), in input order")
     v.add_argument("--trace", action="store_true",
-                   help="not ported yet: raises (ROADMAP Queue 1 item 14)")
+                   help="record serve.* spans (QFEDX_TRACE=1) and write "
+                        "serve_trace.json into the run dir")
     v.add_argument("--tuned", nargs="?", const="", default=None,
                    metavar="PATH",
-                   help="not ported yet: raises (ROADMAP Queue 1 item 14)")
+                   help="not ported yet: raises (ROADMAP Queue 1 item 14b)")
 
     # Not ported yet: main() raises for each, whatever its arguments.
     for name, item in _UNPORTED.items():
@@ -306,8 +316,7 @@ def _refuse_unported_train_flags(a: argparse.Namespace) -> None:
     silently run something else. (Sharding raises in
     ``run/config.build_model``.)"""
     for flag, on, item in (
-        ("--plots", a.plots, 14), ("--profile", a.profile, 14),
-        ("--trace", a.trace, 14), ("--tuned", a.tuned is not None, 14),
+        ("--plots", a.plots, "14b"), ("--tuned", a.tuned is not None, "14b"),
     ):
         if on:
             raise NotImplementedError(
@@ -316,13 +325,27 @@ def _refuse_unported_train_flags(a: argparse.Namespace) -> None:
 
 
 def run_train(cfg: ExperimentConfig, resume: bool = False,
-              device=None, data: dict | None = None) -> dict:
+              device=None, data: dict | None = None, profile: bool = False,
+              trace: bool = False) -> dict:
     """Train ``cfg`` in a tracked run directory on ``device`` (None = the
     card); returns the summary ``summary.json`` holds. ``data`` is what
-    ``build_data(cfg)`` returns, for a caller that has built it already."""
+    ``build_data(cfg)`` returns, for a caller that has built it already.
+    ``trace`` sets QFEDX_TRACE for the run (the pin is the contract, the
+    flag sugar); ``profile`` captures the training under
+    ``torch.profiler`` into ``<run-dir>/profile`` (``QFEDX_PROFILE`` can
+    redirect or enable it) and parses it, even when training fails."""
+    import contextlib
+
+    from qfedx_tpu_torch import obs
     from qfedx_tpu_torch.run.metrics import ExperimentRun
     from qfedx_tpu_torch.run.trainer import train_federated
+    from qfedx_tpu_torch.utils import pins
 
+    if trace:
+        # Read per call, so this covers the whole run; reset() makes the
+        # trace.json window exactly this run.
+        pins.set_pin("QFEDX_TRACE", "1")
+        obs.reset()
     if data is None:
         data = build_data(cfg)
     model = build_model(cfg, data["num_classes"], device=device)
@@ -348,24 +371,67 @@ def run_train(cfg: ExperimentConfig, resume: bool = False,
             if (r + 1) % 5 == 0:
                 print(f"[round {r + 1:3d}] " + json.dumps(m))
 
-        result = train_federated(
-            model,
-            cfg.fed,
-            data["cx"],
-            data["cy"],
-            data["cmask"],
-            eval_x,
-            eval_y,
-            num_rounds=cfg.num_rounds,
-            seed=cfg.seed,
-            eval_every=cfg.eval_every,
-            eval_batches=cfg.eval_batches,
-            rounds_per_call=cfg.rounds_per_call,
-            pipeline_depth=cfg.pipeline_depth,
-            on_round_end=on_round_end,
-            checkpointer=run.checkpointer(every=cfg.checkpoint_every),
+        prof_dir = obs.profile.profile_dir(str(run.dir / "profile"))
+        if profile and prof_dir is None:
+            prof_dir = str(run.dir / "profile")
+        bridge_set = False
+        if prof_dir is not None and obs.enabled() and not pins.pin_is_set(
+            "QFEDX_TRACE_XLA"
+        ):
+            # Spans as record_function ranges while profiling, so the
+            # parse attributes device time per phase; cleared after.
+            pins.set_pin("QFEDX_TRACE_XLA", "1")
+            bridge_set = True
+        profile_ctx = (
+            obs.profile.capture(
+                prof_dir, cuda=pins.resolve_device(device).type == "cuda")
+            if prof_dir is not None else contextlib.nullcontext()
         )
-        test_metrics = result.evaluate(result.params, test_x, test_y)
+        prof_parsed = None
+        try:
+            with profile_ctx:
+                result = train_federated(
+                    model,
+                    cfg.fed,
+                    data["cx"],
+                    data["cy"],
+                    data["cmask"],
+                    eval_x,
+                    eval_y,
+                    num_rounds=cfg.num_rounds,
+                    seed=cfg.seed,
+                    eval_every=cfg.eval_every,
+                    eval_batches=cfg.eval_batches,
+                    rounds_per_call=cfg.rounds_per_call,
+                    pipeline_depth=cfg.pipeline_depth,
+                    on_round_end=on_round_end,
+                    checkpointer=run.checkpointer(every=cfg.checkpoint_every),
+                )
+        finally:
+            if bridge_set:
+                pins.clear_pin("QFEDX_TRACE_XLA")
+            if prof_dir is not None:
+                # Parsed on the crash path too: a killed run most needs
+                # its device timeline.
+                try:
+                    prof_parsed = obs.profile.parse_capture(prof_dir)
+                    psum = obs.profile.summarize(prof_parsed)
+                    obs.profile.attach_span_device(psum)
+                    (run.dir / "profile_summary.json").write_text(
+                        json.dumps(psum, indent=2))
+                except Exception as exc:  # noqa: BLE001 — reporting must
+                    print(f"[qfedx_tpu_torch] profile parse failed: {exc}")
+                    prof_parsed = None  # not mask the run's own outcome
+                else:
+                    print(
+                        "[qfedx_tpu_torch] profile summary: "
+                        f"{run.dir / 'profile_summary.json'} "
+                        f"(ops={psum['ops_executed']}, "
+                        f"gap_p50={psum['gap_p50_us']}us, "
+                        f"busy={psum['device_busy_fraction']}, under the "
+                        "profiler)")
+        with obs.span("final.eval"):
+            test_metrics = result.evaluate(result.params, test_x, test_y)
         summary = {
             "final_accuracy": test_metrics["accuracy"],
             "final_val_accuracy": result.final_accuracy if have_val else None,
@@ -380,6 +446,17 @@ def run_train(cfg: ExperimentConfig, resume: bool = False,
             "final_epsilon": result.epsilons[-1] if result.epsilons else None,
         }
         run.finish(**summary)
+        if obs.enabled():
+            # A parsed capture adds the device-op lane on the same clock.
+            if prof_parsed is not None:
+                trace_path = obs.profile.write_merged_trace(
+                    run.dir / "trace.json", prof_parsed)
+                print(f"[qfedx_tpu_torch] phase trace: {trace_path} "
+                      "(host spans + device lane; load in Perfetto)")
+            else:
+                trace_path = obs.write_chrome_trace(run.dir / "trace.json")
+                print(f"[qfedx_tpu_torch] phase trace: {trace_path} "
+                      "(load in Perfetto / chrome://tracing)")
         print("[qfedx_tpu_torch] " + json.dumps(summary))
         return summary
 
@@ -395,25 +472,30 @@ def run_serve(args, device=None) -> dict:
     in-flight window is capped at the admission queue's depth, so a slow
     device backpressures the reader. A SIGTERM lands as a
     ``KeyboardInterrupt`` (``utils/host``), so the drain answers every
-    admitted request. ``QFEDX_FAULTS`` reaches the engine's and the
-    batcher's fault sites. The latencies are kept exactly (the
-    reference's bounded histogram is ROADMAP Queue 1 item 14)."""
+    admitted request, and with ``QFEDX_FLIGHT`` the black box lands in
+    the run directory. ``QFEDX_FAULTS`` reaches the engine's and the
+    batcher's fault sites. The summary's p50/p95 come from a bounded
+    ``obs.Histogram`` (within one bucket-width of the exact quantile,
+    never above it); ``--trace`` writes ``serve_trace.json``."""
     import contextlib
 
-    import numpy as np
-
+    from qfedx_tpu_torch import obs
+    from qfedx_tpu_torch.obs import flight
     from qfedx_tpu_torch.serve import MicroBatcher, RequestError, ServeConfig
     from qfedx_tpu_torch.serve.engine import engine_from_run_dir
+    from qfedx_tpu_torch.utils import pins
     from qfedx_tpu_torch.utils.host import (
         install_sigterm_interrupt,
         restore_sigterm,
     )
 
-    if args.trace or args.tuned is not None:
+    if args.tuned is not None:
         raise NotImplementedError(
-            "serve --trace and --tuned are not ported yet (ROADMAP Queue 1 "
-            "item 14)"
+            "serve --tuned is not ported yet (ROADMAP Queue 1 item 14b)"
         )
+    if args.trace:
+        pins.set_pin("QFEDX_TRACE", "1")
+        obs.reset()
     buckets = (
         tuple(int(b) for b in args.buckets.split(",")) if args.buckets
         else None
@@ -428,7 +510,8 @@ def run_serve(args, device=None) -> dict:
     print(f"[qfedx_tpu_torch] serving {info['model']} from "
           f"{info['run_dir']} (round {info['round']}, "
           f"{info['num_classes']} classes)", file=sys.stderr)
-    warm = engine.warmup()
+    with obs.span("serve.warmup_all"):
+        warm = engine.warmup()
     print("[qfedx_tpu_torch] warm buckets: " + ", ".join(
         f"{b} ({v['wall_s']:.2f}s wall)" for b, v in warm["buckets"].items()
     ) + f"; kernel builds {warm['kernel_builds']}", file=sys.stderr)
@@ -438,7 +521,9 @@ def run_serve(args, device=None) -> dict:
 
     in_f = sys.stdin if args.input == "-" else open(args.input)
     out_f = sys.stdout if args.output == "-" else open(args.output, "w")
-    lat_ms: list[float] = []
+    # Bounded: a long-lived loop holds ~2 KB of buckets however much
+    # traffic it answers.
+    lat_hist = obs.Histogram()
     window: list = []  # ordered (id, future | error-dict) in-flight pairs
 
     def emit(rid, fut_or_err):
@@ -453,7 +538,8 @@ def run_serve(args, device=None) -> dict:
             else:
                 # Submit → answer on the batcher's clock: emit may run
                 # long after completion when the input stream is slow.
-                lat_ms.append((fut_or_err.done_t - fut_or_err.submit_t) * 1e3)
+                lat_hist.record(
+                    (fut_or_err.done_t - fut_or_err.submit_t) * 1e3)
                 rec = {
                     "id": rid,
                     "pred": res["pred"],
@@ -463,6 +549,7 @@ def run_serve(args, device=None) -> dict:
         out_f.write(json.dumps(rec) + "\n")
         out_f.flush()
 
+    flight.set_dump_path(Path(args.run_dir) / "flight.json")
     sigterm_token = install_sigterm_interrupt()
     batcher = MicroBatcher(engine).start()
     responses = 0
@@ -498,6 +585,7 @@ def run_serve(args, device=None) -> dict:
     except KeyboardInterrupt:
         print("[qfedx_tpu_torch] interrupted — draining in-flight requests",
               file=sys.stderr)
+        flight.maybe_dump(reason="sigterm")
     finally:
         batcher.close(drain=True)
         while window:  # answered by the drain; emit in order
@@ -510,17 +598,23 @@ def run_serve(args, device=None) -> dict:
             in_f.close()
         if out_f is not sys.stdout:
             out_f.close()
+        # In the finally, so a crash still leaves the completed spans.
+        if obs.enabled():
+            trace_path = obs.write_chrome_trace(
+                Path(args.run_dir) / "serve_trace.json")
+            print(f"[qfedx_tpu_torch] serve trace: {trace_path}",
+                  file=sys.stderr)
 
-    def pct(q):
-        return round(float(np.percentile(lat_ms, q)), 3) if lat_ms else None
+    def pct(q):  # the nearest-rank rule over log buckets (obs/histo.py)
+        return round(lat_hist.percentile(q), 3) if lat_hist.count else None
 
     # "served" counts requests the engine answered; "responses" counts
     # emitted lines, error records included.
     summary = {
         "served": batcher.stats["served"],
         "responses": responses,
-        "p50_ms": pct(50),
-        "p95_ms": pct(95),
+        "p50_ms": pct(0.50),
+        "p95_ms": pct(0.95),
         **{k: batcher.stats[k] for k in ("rejected", "shed", "batches")},
     }
     print("[qfedx_tpu_torch] serve summary: " + json.dumps(summary),
@@ -543,5 +637,6 @@ def main(argv=None, device=None):
     if args.cmd == "train":
         _refuse_unported_train_flags(args)
         return run_train(config_from_args(args), resume=args.resume,
-                         device=device)
+                         device=device, profile=args.profile,
+                         trace=args.trace)
     return run_serve(args, device=device)

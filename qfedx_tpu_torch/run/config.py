@@ -259,6 +259,7 @@ def build_data(cfg: ExperimentConfig) -> dict[str, Any]:
         pack_clients,
         partition_stats,
     )
+    from qfedx_tpu_torch import obs
     from qfedx_tpu_torch.data.pipeline import preprocess
 
     d, m = cfg.data, cfg.model
@@ -273,11 +274,13 @@ def build_data(cfg: ExperimentConfig) -> dict[str, Any]:
     else:
         features = "image"
 
-    spec, train_xy, test_xy = load_dataset(
-        d.dataset, d.raw_folder, seed=d.seed,
-        synthetic_train=d.synthetic_train, synthetic_test=d.synthetic_test,
-        synthetic_noise=d.synthetic_noise,
-    )
+    with obs.span("data.load", dataset=d.dataset):
+        spec, train_xy, test_xy = load_dataset(
+            d.dataset, d.raw_folder, seed=d.seed,
+            synthetic_train=d.synthetic_train,
+            synthetic_test=d.synthetic_test,
+            synthetic_noise=d.synthetic_noise,
+        )
     prep = preprocess(
         train_xy,
         test_xy,
@@ -297,15 +300,17 @@ def build_data(cfg: ExperimentConfig) -> dict[str, Any]:
             f"({m.encoding} encoding); lower --qubits to "
             f"{tr_x.shape[-1]} or pick a wider dataset/feature mode"
         )
-    if d.partition == "dirichlet":
-        parts = dirichlet_partition(tr_y, d.num_clients, d.alpha, seed=d.seed)
-    elif d.partition == "iid":
-        parts = iid_partition(len(tr_y), d.num_clients, seed=d.seed)
-    else:
-        raise ValueError(f"unknown partition {d.partition!r}")
-    cx, cy, cmask = pack_clients(
-        tr_x, tr_y, parts, pad_multiple=cfg.fed.batch_size
-    )
+    with obs.span("data.partition", scheme=d.partition):
+        if d.partition == "dirichlet":
+            parts = dirichlet_partition(tr_y, d.num_clients, d.alpha,
+                                        seed=d.seed)
+        elif d.partition == "iid":
+            parts = iid_partition(len(tr_y), d.num_clients, seed=d.seed)
+        else:
+            raise ValueError(f"unknown partition {d.partition!r}")
+        cx, cy, cmask = pack_clients(
+            tr_x, tr_y, parts, pad_multiple=cfg.fed.batch_size
+        )
     return {
         "cx": cx,
         "cy": cy,

@@ -10,11 +10,15 @@ take either package's runs.
 The port runs in one process, so the run directory's name is decided
 locally. A run translates SIGTERM into ``KeyboardInterrupt`` while it is
 open (``utils/host``), so an orchestrator's TERM unwinds it like a
-Ctrl-C. The flight recorder, the watchdog and the tune controller that
-the reference wires into a run (their event rows, the black box) and
-the phase spans of QFEDX_TRACE are not ported yet (ROADMAP Queue 1 item
-14): with their pins off they do nothing in the reference either, and
-with a pin on the port raises.
+Ctrl-C. A run wires the observability layer in as the reference does:
+the flight recorder dumps ``flight.json`` into the run directory
+(``QFEDX_FLIGHT``) on any unwinding exception, watchdog alerts land in
+``metrics.jsonl`` as ``{"event": "alert"}`` rows (``QFEDX_WATCH``), and
+with ``QFEDX_TRACE`` the summary carries ``phase_breakdown`` and
+``obs_counters`` — and a crash still leaves ``trace.json`` and a partial
+summary (``flush_partial_observability``). The tune controller
+(``QFEDX_TUNE``) is not ported yet (ROADMAP Queue 1 item 14b): with its
+pin on a run raises.
 """
 
 from __future__ import annotations
@@ -51,9 +55,9 @@ _EVENT_REQUIRED_FIELDS: dict[str, Any] = {
     "ts": lambda v: isinstance(v, (int, float)),
 }
 
-# Pins of the reference's run-level telemetry (ROADMAP Queue 1 item 14).
-OBS_PINS = ("QFEDX_TRACE", "QFEDX_FLIGHT", "QFEDX_WATCH", "QFEDX_TUNE",
-            "QFEDX_PROFILE", "QFEDX_METRICS_PORT")
+# The reference's run-level pin of a path the port does not have yet
+# (ROADMAP Queue 1 item 14b).
+UNPORTED_PINS = ("QFEDX_TUNE",)
 
 
 def validate_metrics_record(rec: Mapping[str, Any]) -> dict:
@@ -148,7 +152,7 @@ class ExperimentRun:
     def __init__(
         self, root: str | Path, name: str, config: Any = None, resume: bool = False
     ):
-        pins.refuse_unported("Queue 1 item 14", *OBS_PINS)
+        pins.refuse_unported("Queue 1 item 14b", *UNPORTED_PINS)
         self.dir = Path(root) / _agreed_run_dir_name(Path(root), name, resume)
         self.dir.mkdir(parents=True, exist_ok=True)
         if config is not None:
@@ -157,9 +161,23 @@ class ExperimentRun:
             )
         self.metrics = MetricsLogger(self.dir / "metrics.jsonl")
         self._t0 = time.time()
+        # The black box lands in THIS run's directory and the watchdog's
+        # alerts in THIS run's metrics.jsonl (both no-ops with their pins
+        # off); the sink is identity-matched on __exit__.
+        from qfedx_tpu_torch.obs import flight, watch
+
+        flight.set_dump_path(self.dir / "flight.json")
+        self._alert_sink = self.metrics.log
+        watch.set_event_sink(self._alert_sink)
 
     def on_round_end(self, round_idx: int, metrics: Mapping[str, Any]) -> None:
         self.metrics.log({"round": round_idx + 1, **metrics})
+        # The round edge in the flight ring (bounded; off by default).
+        from qfedx_tpu_torch.obs import flight
+
+        flight.record("round", f"r{round_idx + 1}",
+                      loss=metrics.get("loss"),
+                      accuracy=metrics.get("accuracy"))
 
     def checkpointer(self, every: int = 5, keep: int = 3):
         from qfedx_tpu_torch.run.checkpoint import Checkpointer
@@ -167,17 +185,70 @@ class ExperimentRun:
         return Checkpointer(self.dir / "checkpoints", every=every, keep=keep)
 
     def finish(self, **summary: Any) -> None:
+        from qfedx_tpu_torch import obs
+
         summary = dict(summary)
         summary["wall_time_s"] = time.time() - self._t0
+        if obs.enabled():
+            # The per-phase rollup of every span the run recorded.
+            summary["phase_breakdown"] = obs.phase_rollup()
+            counters = obs.registry().counters
+            if counters:
+                summary["obs_counters"] = {
+                    k: round(v, 6) for k, v in counters.items()
+                }
         (self.dir / "summary.json").write_text(
             json.dumps(_jsonable(summary), indent=2))
+
+    def flush_partial_observability(self, reason: str) -> None:
+        """Crash-flush: write the COMPLETED spans as a valid trace.json
+        and, when no summary exists yet, a partial summary with the
+        phase rollup. Spans still open at the crash never reached the
+        registry, so the trace parses. Never raises."""
+        from qfedx_tpu_torch import obs
+
+        if not obs.enabled():
+            return
+        try:
+            obs.write_chrome_trace(self.dir / "trace.json")
+            if not (self.dir / "summary.json").exists():
+                partial = {
+                    "partial": True,
+                    "crashed": reason,
+                    "wall_time_s": time.time() - self._t0,
+                    "phase_breakdown": obs.phase_rollup(),
+                }
+                counters = obs.registry().counters
+                if counters:
+                    partial["obs_counters"] = {
+                        k: round(v, 6) for k, v in counters.items()
+                    }
+                (self.dir / "summary.json").write_text(
+                    json.dumps(_jsonable(partial), indent=2)
+                )
+        except Exception:  # noqa: BLE001 — flushing must not mask the crash
+            pass
 
     def __enter__(self):
         # The streamed trainer and serve install their own translation
         # on top; each restores what it found.
+        from qfedx_tpu_torch.obs import flight
+
         self._sigterm_token = install_sigterm_interrupt()
+        flight.record("lifecycle", "run.start", dir=str(self.dir))
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        from qfedx_tpu_torch.obs import flight, watch
+
         restore_sigterm(getattr(self, "_sigterm_token", None))
+        watch.clear_event_sink(only_if=self._alert_sink)
+        if exc_type is not None:
+            # The black box dumps on ANY unwinding exception, SIGTERM's
+            # KeyboardInterrupt included, and needs no QFEDX_TRACE.
+            flight.maybe_dump(
+                reason=getattr(exc_type, "__name__", str(exc_type)))
         self.metrics.close()
+        if exc_type is not None:
+            self.flush_partial_observability(
+                getattr(exc_type, "__name__", str(exc_type)))

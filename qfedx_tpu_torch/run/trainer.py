@@ -50,6 +50,17 @@ Queue 1 item 12) raise NotImplementedError.
 ``train_federated_streamed`` trains over a client registry in streamed
 waves: the cohort sampler, the wave uploader, the hierarchical partial
 rounds and the staleness buffer (its docstring).
+
+Telemetry (``obs``, the reference's names, each default off): the spans
+``trainer.init``, ``trainer.shard_data``, ``round.dispatch`` (the
+launches of a chunk or of a round's waves: the device runs on),
+``round.fetch`` (the one device→host read), ``round.eval`` and
+``round.checkpoint``; the ``fed.*`` counters of the rows' ledgers; with
+QFEDX_TRACE each row's ``phases`` walls and ``mem_bytes_in_use``. The
+streamed trainer adds the ``fed.loss``, ``fed.epsilon`` and
+``fed.last_completed_round`` gauges, the ``round.time_s`` histogram,
+its /healthz source, the watchdog and the flight ring's lifecycle
+edges. No span synchronizes the device.
 """
 
 from __future__ import annotations
@@ -63,6 +74,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from qfedx_tpu_torch import obs
 from qfedx_tpu_torch.fed.accountant import RDPAccountant
 from qfedx_tpu_torch.fed.config import FedConfig
 from qfedx_tpu_torch.fed.evaluate import make_evaluator
@@ -168,17 +180,20 @@ def train_federated(
     evaluate = make_evaluator(model, max_batches=eval_batches)
     evaluate_full = make_evaluator(model)
 
-    if params is None:
-        params = model.init(seed)
-    start_round = 0
-    if checkpointer is not None:
-        restored = checkpointer.restore_latest(params)
-        if restored is not None:
-            params, start_round = restored
+    with obs.span("trainer.init"):
+        if params is None:
+            params = model.init(seed)
+        start_round = 0
+        if checkpointer is not None:
+            restored = checkpointer.restore_latest(params)
+            if restored is not None:
+                params, start_round = restored
     device = trees.tree_leaves(params)[0].device
-    dcx = torch.as_tensor(np.asarray(cx, dtype=np.float32), device=device)
-    dcy = torch.as_tensor(np.asarray(cy), device=device)
-    dcm = torch.as_tensor(np.asarray(cmask, dtype=np.float32), device=device)
+    with obs.span("trainer.shard_data"):
+        dcx = torch.as_tensor(np.asarray(cx, dtype=np.float32), device=device)
+        dcy = torch.as_tensor(np.asarray(cy), device=device)
+        dcm = torch.as_tensor(np.asarray(cmask, dtype=np.float32),
+                              device=device)
 
     ex_dev = ey_dev = None
     if rounds_per_call > 1 and in_chunk_eval:
@@ -223,7 +238,9 @@ def train_federated(
         evaluate=evaluate_full,
     )
     if eval_every <= num_rounds:
-        result.accuracies.append(evaluate(params, test_x, test_y)["accuracy"])
+        with obs.span("round.eval", round=0):
+            metrics0 = evaluate(params, test_x, test_y)
+        result.accuracies.append(metrics0["accuracy"])
 
     def run_round(p, r):
         kw = {"draws": RoundDraws(
@@ -242,22 +259,25 @@ def train_federated(
 
     depth = resolve_pipeline_depth(pipeline_depth)
     # In-flight chunks: (chunk_len, first_round, params_ref, stats, accs,
-    # t_dispatch); params_ref is None unless the drain needs θ (host
-    # eval, checkpoint, final round).
+    # dispatch_span, t_dispatch); params_ref is None unless the drain
+    # needs θ (host eval, checkpoint, final round).
     pending: deque = deque()
     prev_fetch_end = 0.0
 
     def drain_one() -> None:
         nonlocal prev_fetch_end
-        chunk, base_rnd, params_ref, stats, accs, t_dispatch = pending.popleft()
+        (chunk, base_rnd, params_ref, stats, accs, sp_dispatch,
+         t_dispatch) = pending.popleft()
         # ONE fetch per chunk: the only point the loop waits on the device.
-        fields = torch.stack([torch.stack([
-            s.mean_loss.float(), s.rejected_updates.float(),
-            s.applied.float(), s.clipped_clients.float(),
-            s.trimmed_fraction.float(),
-        ]) for s in stats]).cpu().numpy()
-        chunk_accs = (None if accs is None
-                      else torch.stack(accs).cpu().numpy())
+        with obs.span("round.fetch", round=base_rnd + 1,
+                      chunk=chunk) as sp_fetch:
+            fields = torch.stack([torch.stack([
+                s.mean_loss.float(), s.rejected_updates.float(),
+                s.applied.float(), s.clipped_clients.float(),
+                s.trimmed_fraction.float(),
+            ]) for s in stats]).cpu().numpy()
+            chunk_accs = (None if accs is None
+                          else torch.stack(accs).cpu().numpy())
         t_fetch_end = time.perf_counter()
         dt_per_round = (t_fetch_end - max(t_dispatch, prev_fetch_end)) / chunk
         prev_fetch_end = t_fetch_end
@@ -274,13 +294,20 @@ def train_federated(
                 "chunk_rounds": chunk,
             }
             if guards:
-                metrics["rejected_updates"] = int(round(rejected))
+                rej_i = int(round(rejected))
+                metrics["rejected_updates"] = rej_i
+                if rej_i:
+                    obs.counter("fed.rejected_updates", rej_i)
                 if applied < 0.5:
                     metrics["skipped"] = True
+                    obs.counter("fed.rounds_skipped")
             if agg != "mean":
                 metrics["aggregator"] = agg
                 if agg == "clip_mean":
-                    metrics["clipped_clients"] = int(round(clipped))
+                    clip_i = int(round(clipped))
+                    metrics["clipped_clients"] = clip_i
+                    if clip_i:
+                        obs.counter("fed.clipped_clients", clip_i)
                 else:
                     metrics["trimmed_fraction"] = round(trimmed, 4)
             if accountant is not None:
@@ -295,26 +322,35 @@ def train_federated(
                         "(Opacus/TF-privacy convention; not a strict "
                         "shuffle bound)"
                     )
+            sp_eval = sp_ckpt = None
             if chunk_accs is not None:
                 acc = float(chunk_accs[i])
                 result.accuracies.append(acc)
                 metrics["accuracy"] = acc
                 metrics["eval_n"] = int(ex_dev.shape[0])
             elif (r + 1) % eval_every == 0 or r == num_rounds - 1:
-                eval_metrics = evaluate(params_ref, test_x, test_y)
+                with obs.span("round.eval", round=r + 1) as sp_eval:
+                    eval_metrics = evaluate(params_ref, test_x, test_y)
                 result.accuracies.append(eval_metrics["accuracy"])
                 metrics.update(eval_metrics)
             if checkpointer is not None:
                 # The final round is always saved, synchronously, after
                 # the queued writes: the weights the run reports exist
                 # on disk when train_federated returns.
-                if r == num_rounds - 1:
-                    checkpointer.wait()
-                    checkpointer.save(r + 1, params_ref)
-                elif depth > 0:
-                    checkpointer.maybe_save_async(r + 1, params_ref)
-                else:
-                    checkpointer.maybe_save(r + 1, params_ref)
+                with obs.span("round.checkpoint", round=r + 1) as sp_ckpt:
+                    if r == num_rounds - 1:
+                        checkpointer.wait()
+                        checkpointer.save(r + 1, params_ref)
+                    elif depth > 0:
+                        checkpointer.maybe_save_async(r + 1, params_ref)
+                    else:
+                        checkpointer.maybe_save(r + 1, params_ref)
+            if obs.enabled():
+                metrics["phases"] = _phases(sp_dispatch, sp_fetch, chunk,
+                                            sp_eval, sp_ckpt)
+                mem = obs.record_device_memory()
+                if mem and "bytes_in_use" in mem:
+                    metrics["mem_bytes_in_use"] = mem["bytes_in_use"]
             if on_round_end is not None:
                 on_round_end(r, metrics)
 
@@ -335,13 +371,19 @@ def train_federated(
             t_dispatch = time.perf_counter()
             with_accs = chunk > 1 and rounds_per_call > 1 and in_chunk_eval
             stats, accs = [], ([] if with_accs else None)
-            for i in range(chunk):
-                params, st = run_round(params, rnd + i)
-                stats.append(st)
-                if with_accs:
-                    accs.append(chunk_accuracy(params))
+            # The dispatch span times the chunk's launches (the device
+            # runs on; the wait lands in round.fetch) and any kernel
+            # build they trigger.
+            with obs.span("round.dispatch", round=rnd + 1,
+                          chunk=chunk) as sp_dispatch:
+                for i in range(chunk):
+                    params, st = run_round(params, rnd + i)
+                    stats.append(st)
+                    if with_accs:
+                        accs.append(chunk_accuracy(params))
             # A round returns new tensors, so θ needs no snapshot here.
-            pending.append((chunk, rnd, params, stats, accs, t_dispatch))
+            pending.append((chunk, rnd, params, stats, accs, sp_dispatch,
+                            t_dispatch))
             while len(pending) > depth:
                 drain_one()
             rnd += chunk
@@ -373,6 +415,25 @@ def train_federated(
             "accuracy"
         ]
     return result
+
+
+def _phases(sp_dispatch, sp_fetch, chunk: int, sp_eval=None,
+            sp_ckpt=None) -> dict:
+    """A round's phase walls for its metrics row: the chunk's dispatch,
+    fetch and build seconds as per-round shares (the convention of
+    ``time_s``/``chunk_rounds``), the round's own evaluation and
+    checkpoint."""
+    phases = {
+        "dispatch_s": round(sp_dispatch.duration / chunk, 6),
+        "fetch_s": round(sp_fetch.duration / chunk, 6),
+    }
+    if sp_dispatch.compile_s > 0:
+        phases["compile_s"] = round(sp_dispatch.compile_s / chunk, 6)
+    if sp_eval is not None:
+        phases["eval_s"] = round(sp_eval.duration, 6)
+    if sp_ckpt is not None:
+        phases["checkpoint_s"] = round(sp_ckpt.duration, 6)
+    return phases
 
 
 def _host_stats(stats) -> dict:
@@ -458,8 +519,11 @@ def train_federated_streamed(
     injects fetch/H2D errors and planned delays. The rows'
     ``dropped_clients``, ``rejected_updates``, ``clipped_clients`` and
     ``participants`` then equal the plan's counts (plus lost waves'
-    casualties). A plan needs QFEDX_GUARDS. The obs spans and the
-    /metrics endpoint are not ported yet (item 14). ``params=``,
+    casualties). A plan needs QFEDX_GUARDS. Telemetry: the round spans
+    and ``fed.*`` counters, the ``fed.loss``/``fed.epsilon``/
+    ``fed.last_completed_round`` gauges, the ``round.time_s`` histogram,
+    the trainer's /healthz source, the watchdog and the flight ring
+    (module docstring). ``params=``,
     ``perms_for_round=`` (the round's
     (cohort, E, S) shuffles) and ``draws_for_round=`` (its ``RoundDraws``
     streams over the cohort) exist for the parity tests."""
@@ -478,6 +542,8 @@ def train_federated_streamed(
     from qfedx_tpu_torch.fed.robust import ROBUST_AGGREGATORS
     from qfedx_tpu_torch.fed.sampling import CohortSampler
     from qfedx_tpu_torch.fed.secure_agg import unmatched_mask_sum
+    from qfedx_tpu_torch.obs import flight, watch
+    from qfedx_tpu_torch.obs import server as obs_server
     from qfedx_tpu_torch.utils import faults
     from qfedx_tpu_torch.utils.host import (
         install_sigterm_interrupt,
@@ -555,16 +621,17 @@ def train_federated_streamed(
 
     evaluate = make_evaluator(model, max_batches=eval_batches)
     evaluate_full = make_evaluator(model)
-    if params is None:
-        params = model.init(seed)
-    if device is not None:
-        params = trees.tree_map(lambda t: t.to(pins.resolve_device(device)),
-                                params)
-    start_round = 0
-    if checkpointer is not None:
-        restored = checkpointer.restore_latest(params)
-        if restored is not None:
-            params, start_round = restored
+    with obs.span("trainer.init"):
+        if params is None:
+            params = model.init(seed)
+        if device is not None:
+            params = trees.tree_map(
+                lambda t: t.to(pins.resolve_device(device)), params)
+        start_round = 0
+        if checkpointer is not None:
+            restored = checkpointer.restore_latest(params)
+            if restored is not None:
+                params, start_round = restored
     device = trees.tree_leaves(params)[0].device
     s_pad = registry.batch(np.arange(1))[0].shape[1]
 
@@ -587,7 +654,9 @@ def train_federated_streamed(
         evaluate=evaluate_full,
     )
     if eval_every <= num_rounds:
-        result.accuracies.append(evaluate(params, test_x, test_y)["accuracy"])
+        with obs.span("round.eval", round=0):
+            metrics0 = evaluate(params, test_x, test_y)
+        result.accuracies.append(metrics0["accuracy"])
 
     def origin(rnd: int, cohort_ids: np.ndarray) -> dict:
         """Everything a wave of round ``rnd`` is computed against besides
@@ -629,6 +698,24 @@ def train_federated_streamed(
     pending_late: list = []
     last_done, last_params = start_round, params
     sigterm_token = install_sigterm_interrupt()
+    # Live telemetry (each default off): /metrics and /healthz, the
+    # watchdog, the flight ring's lifecycle edge, and the trainer's
+    # health source — last completed round and the age of the last
+    # metrics flush, which the trainer.stall rule reads.
+    obs_server.maybe_start()
+    watch.maybe_start()
+    flight.record("lifecycle", "trainer.start", rounds=num_rounds,
+                  cohort=cohort_size, waves=num_waves)
+    beat = {"last_completed_round": start_round,
+            "last_flush_t": time.monotonic()}
+    obs_server.set_health_source("trainer", lambda: {
+        "last_completed_round": beat["last_completed_round"],
+        "rounds_total": num_rounds,
+        "last_flush_age_s": round(time.monotonic() - beat["last_flush_t"], 3),
+        "cohort": cohort_size,
+        "waves": num_waves,
+        "stale_buffered": len(pending_late),
+    })
     try:
         for rnd in range(start_round, num_rounds):
             t0 = time.perf_counter()
@@ -650,127 +737,132 @@ def train_federated_streamed(
             host_extra_dropped = 0.0  # casualties no partial carries
             stale_discarded = 0
             try:
-                acc = None
-                parts: list = []
-                stats = None
-                for item in stream:
-                    if isinstance(item, DroppedWave):
-                        lost.append(item)
-                        continue
-                    if isinstance(item, LateWave):
-                        late.append(item)
-                        continue
-                    lo, (wx, wy, wm) = item
-                    if hier:
-                        part = wave_partial(params, o, lo, wx, wy, wm)
-                        if robust or stale:
-                            parts.append(part)
+                # The whole wave fan-in: launches and uploads overlap it.
+                with obs.span("round.dispatch", round=rnd + 1,
+                              waves=num_waves,
+                              cohort=cohort_size) as sp_dispatch:
+                    acc = None
+                    parts: list = []
+                    stats = None
+                    for item in stream:
+                        if isinstance(item, DroppedWave):
+                            lost.append(item)
+                            continue
+                        if isinstance(item, LateWave):
+                            late.append(item)
+                            continue
+                        lo, (wx, wy, wm) = item
+                        if hier:
+                            part = wave_partial(params, o, lo, wx, wy, wm)
+                            if robust or stale:
+                                parts.append(part)
+                            else:
+                                acc = part if acc is None else accum_fn(acc, part)
                         else:
-                            acc = part if acc is None else accum_fn(acc, part)
-                    else:
-                        params, stats = round_fn(
-                            params, wx, wy, wm, perms=o["perms"],
-                            survivors=o["surv"], byzantine=o["byz"],
-                            sa_seed=o["sa_seed"], draws=o["draws"])
-                if stale and pending_late:
-                    # Stragglers of earlier rounds, each computed against
-                    # its origin round; one salvage deadline for all.
-                    still_pending = []
-                    poll_deadline = time.monotonic() + stale_poll_s
-                    for pl in pending_late:
-                        age = rnd - pl["round"]
-                        items, failed = pl["stream"].poll_late(
-                            timeout_s=max(0.0,
-                                          poll_deadline - time.monotonic()))
-                        for lo, (lwx, lwy, lwm) in items:
-                            stale_parts.append((pl["round"], wave_partial(
-                                pl["params"], pl["origin"], lo, lwx, lwy,
-                                lwm)))
-                        dead_waves = list(failed)
-                        keep = pl["stream"].late_pending()
-                        if keep and age >= cfg.staleness_max_age:
-                            dead_waves += pl["stream"].abandon_late()
-                            keep = False
-                        if dead_waves:
-                            # A dead straggler's sampled clients: no
-                            # partial ever counted them.
-                            p_np = participation(pl["origin"])
-                            for w in dead_waves:
-                                host_extra_dropped += float(p_np[
-                                    w * wave_size:(w + 1) * wave_size].sum())
-                            stale_discarded += len(dead_waves)
-                        if keep:
-                            still_pending.append(pl)
+                            params, stats = round_fn(
+                                params, wx, wy, wm, perms=o["perms"],
+                                survivors=o["surv"], byzantine=o["byz"],
+                                sa_seed=o["sa_seed"], draws=o["draws"])
+                    if stale and pending_late:
+                        # Stragglers of earlier rounds, each computed against
+                        # its origin round; one salvage deadline for all.
+                        still_pending = []
+                        poll_deadline = time.monotonic() + stale_poll_s
+                        for pl in pending_late:
+                            age = rnd - pl["round"]
+                            items, failed = pl["stream"].poll_late(
+                                timeout_s=max(0.0,
+                                              poll_deadline - time.monotonic()))
+                            for lo, (lwx, lwy, lwm) in items:
+                                stale_parts.append((pl["round"], wave_partial(
+                                    pl["params"], pl["origin"], lo, lwx, lwy,
+                                    lwm)))
+                            dead_waves = list(failed)
+                            keep = pl["stream"].late_pending()
+                            if keep and age >= cfg.staleness_max_age:
+                                dead_waves += pl["stream"].abandon_late()
+                                keep = False
+                            if dead_waves:
+                                # A dead straggler's sampled clients: no
+                                # partial ever counted them.
+                                p_np = participation(pl["origin"])
+                                for w in dead_waves:
+                                    host_extra_dropped += float(p_np[
+                                        w * wave_size:(w + 1) * wave_size].sum())
+                                stale_discarded += len(dead_waves)
+                            if keep:
+                                still_pending.append(pl)
+                            else:
+                                pl["stream"].close()
+                        pending_late[:] = still_pending
+                    if lost:
+                        obs.counter("fed.dropped_waves", len(lost))
+                        # Fetch-dead waves: their sampled clients are
+                        # casualties (the plan's dropped ones too: no
+                        # dispatched partial counted them); under cohort-graph
+                        # masks the server adds the masks of the survivors
+                        # among them back.
+                        dead = np.zeros(cohort_size, dtype=np.float32)
+                        for dw in lost:
+                            dead[dw.wave_base:dw.wave_base + wave_size] = 1.0
+                        part_np = participation(o)
+                        eff_pre = (part_np if o["surv"] is None
+                                   else part_np * o["surv"])
+                        n_lost = float((part_np * dead).sum())
+                        if stale:
+                            # Per-wave graphs: nothing to correct.
+                            host_extra_dropped += n_lost
                         else:
-                            pl["stream"].close()
-                    pending_late[:] = still_pending
-                if lost:
-                    # Fetch-dead waves: their sampled clients are
-                    # casualties (the plan's dropped ones too: no
-                    # dispatched partial counted them); under cohort-graph
-                    # masks the server adds the masks of the survivors
-                    # among them back.
-                    dead = np.zeros(cohort_size, dtype=np.float32)
-                    for dw in lost:
-                        dead[dw.wave_base:dw.wave_base + wave_size] = 1.0
-                    part_np = participation(o)
-                    eff_pre = (part_np if o["surv"] is None
-                               else part_np * o["surv"])
-                    n_lost = float((part_np * dead).sum())
-                    if stale:
-                        # Per-wave graphs: nothing to correct.
-                        host_extra_dropped += n_lost
-                    else:
-                        if acc is not None and cfg.secure_agg:
-                            corr = unmatched_mask_sum(
-                                o["sa_seed"], cohort_size,
-                                trees.tree_map(torch.zeros_like, params),
-                                eff_pre, eff_pre * (1.0 - dead),
-                                cfg.secure_agg_scale,
-                                cfg.secure_agg_neighbors,
-                                cfg.secure_agg_mode,
-                            )
-                            acc = acc._replace(update_sum=trees.tree_add(
-                                acc.update_sum, corr))
-                        if acc is not None:
-                            acc = acc._replace(
-                                dropped_clients=acc.dropped_clients + n_lost)
+                            if acc is not None and cfg.secure_agg:
+                                corr = unmatched_mask_sum(
+                                    o["sa_seed"], cohort_size,
+                                    trees.tree_map(torch.zeros_like, params),
+                                    eff_pre, eff_pre * (1.0 - dead),
+                                    cfg.secure_agg_scale,
+                                    cfg.secure_agg_neighbors,
+                                    cfg.secure_agg_mode,
+                                )
+                                acc = acc._replace(update_sum=trees.tree_add(
+                                    acc.update_sum, corr))
+                            if acc is not None:
+                                acc = acc._replace(
+                                    dropped_clients=acc.dropped_clients + n_lost)
+                            elif parts:
+                                parts[-1] = parts[-1]._replace(
+                                    dropped_clients=parts[-1].dropped_clients
+                                    + n_lost)
+                    if hier and stale:
+                        if stale_parts:
+                            ages = np.asarray(
+                                [0.0] * len(parts)
+                                + [float(rnd - og) for og, _ in stale_parts],
+                                np.float32)
+                            params, stats = apply_stacked_fn(
+                                params, stack_partials(
+                                    parts + [sp for _, sp in stale_parts]),
+                                ages=ages)
+                        elif robust and parts:
+                            params, stats = apply_stacked_fn(
+                                params, stack_partials(parts))
                         elif parts:
-                            parts[-1] = parts[-1]._replace(
-                                dropped_clients=parts[-1].dropped_clients
-                                + n_lost)
-                if hier and stale:
-                    if stale_parts:
-                        ages = np.asarray(
-                            [0.0] * len(parts)
-                            + [float(rnd - og) for og, _ in stale_parts],
-                            np.float32)
-                        params, stats = apply_stacked_fn(
-                            params, stack_partials(
-                                parts + [sp for _, sp in stale_parts]),
-                            ages=ages)
-                    elif robust and parts:
-                        params, stats = apply_stacked_fn(
-                            params, stack_partials(parts))
-                    elif parts:
-                        acc = parts[0]
-                        for extra in parts[1:]:
-                            acc = accum_fn(acc, extra)
+                            acc = parts[0]
+                            for extra in parts[1:]:
+                                acc = accum_fn(acc, extra)
+                            params, stats = apply_fn(params, acc)
+                    elif hier and robust and parts:
+                        params, stats = apply_stacked_fn(params,
+                                                         stack_partials(parts))
+                    elif hier and acc is not None:
                         params, stats = apply_fn(params, acc)
-                elif hier and robust and parts:
-                    params, stats = apply_stacked_fn(params,
-                                                     stack_partials(parts))
-                elif hier and acc is not None:
-                    params, stats = apply_fn(params, acc)
-                if stats is None:
-                    # Every wave died (or went late): θ passes through,
-                    # the skipped-round shape.
-                    n_lost = 0.0 if (stale or not lost) else n_lost
-                    stats = RoundStats(
-                        mean_loss=zero(), total_weight=zero(),
-                        num_participants=zero(), rejected_updates=zero(),
-                        dropped_clients=zero() + n_lost, applied=zero(),
-                        clipped_clients=zero(), trimmed_fraction=zero())
+                    if stats is None:
+                        # Every wave died (or went late): θ passes through,
+                        # the skipped-round shape.
+                        n_lost = 0.0 if (stale or not lost) else n_lost
+                        stats = RoundStats(
+                            mean_loss=zero(), total_weight=zero(),
+                            num_participants=zero(), rejected_updates=zero(),
+                            dropped_clients=zero() + n_lost, applied=zero(),
+                            clipped_clients=zero(), trimmed_fraction=zero())
             finally:
                 if stale and stream.late_pending():
                     # Straggler salvage in flight: later rounds collect or
@@ -779,7 +871,8 @@ def train_federated_streamed(
                                              params=params_in, origin=o))
                 else:
                     stream.close()
-            st = _host_stats(stats)
+            with obs.span("round.fetch", round=rnd + 1) as sp_fetch:
+                st = _host_stats(stats)
             dt = time.perf_counter() - t0
 
             loss = st["mean_loss"]
@@ -794,24 +887,37 @@ def train_federated_streamed(
                 "participants": int(st["num_participants"]),
             }
             if guards:
-                metrics["dropped_clients"] = int(round(
-                    st["dropped_clients"] + host_extra_dropped))
-                metrics["rejected_updates"] = int(round(
-                    st["rejected_updates"]))
+                n_drop = int(round(st["dropped_clients"] + host_extra_dropped))
+                n_rej = int(round(st["rejected_updates"]))
+                metrics["dropped_clients"] = n_drop
+                metrics["rejected_updates"] = n_rej
+                if n_drop:
+                    obs.counter("fed.dropped_clients", n_drop)
+                if n_rej:
+                    obs.counter("fed.rejected_updates", n_rej)
                 if lost:
                     metrics["dropped_waves"] = len(lost)
                 if st["applied"] < 0.5:
                     metrics["skipped"] = True
+                    obs.counter("fed.rounds_skipped")
             if stale:
                 metrics["late_waves"] = len(late)
                 metrics["stale_partials_applied"] = len(stale_parts)
+                if late:
+                    obs.counter("fed.late_waves", len(late))
+                if stale_parts:
+                    obs.counter("fed.stale_partials_applied",
+                                len(stale_parts))
                 if stale_discarded:
                     metrics["stale_discarded_waves"] = stale_discarded
+                    obs.counter("fed.stale_discarded_waves", stale_discarded)
             if agg != "mean":
                 metrics["aggregator"] = agg
                 if agg == "clip_mean":
-                    metrics["clipped_clients"] = int(round(
-                        st["clipped_clients"]))
+                    n_clip = int(round(st["clipped_clients"]))
+                    metrics["clipped_clients"] = n_clip
+                    if n_clip:
+                        obs.counter("fed.clipped_clients", n_clip)
                 else:
                     metrics["trimmed_fraction"] = round(
                         st["trimmed_fraction"], 4)
@@ -821,18 +927,37 @@ def train_federated_streamed(
                 eps = accountant.epsilon(cfg.dp.delta)
                 result.epsilons.append(eps)
                 metrics["epsilon"] = eps
+            sp_eval = None
             if (rnd + 1) % eval_every == 0 or rnd == num_rounds - 1:
-                eval_metrics = evaluate(params, test_x, test_y)
+                with obs.span("round.eval", round=rnd + 1) as sp_eval:
+                    eval_metrics = evaluate(params, test_x, test_y)
                 result.accuracies.append(eval_metrics["accuracy"])
                 metrics.update(eval_metrics)
             if checkpointer is not None:
-                if rnd == num_rounds - 1:
-                    checkpointer.wait()
-                    checkpointer.save(rnd + 1, params)
-                else:
-                    checkpointer.maybe_save_async(rnd + 1, params)
+                with obs.span("round.checkpoint", round=rnd + 1):
+                    if rnd == num_rounds - 1:
+                        checkpointer.wait()
+                        checkpointer.save(rnd + 1, params)
+                    else:
+                        checkpointer.maybe_save_async(rnd + 1, params)
+            if obs.enabled():
+                metrics["phases"] = _phases(sp_dispatch, sp_fetch, 1,
+                                            sp_eval)
+                mem = obs.record_device_memory()
+                if mem and "bytes_in_use" in mem:
+                    metrics["mem_bytes_in_use"] = mem["bytes_in_use"]
             if on_round_end is not None:
                 on_round_end(rnd, metrics)
+            # The heartbeat after the row flushed: last_flush_age_s is
+            # the ledger's staleness. The watchdog's divergence rules
+            # read the gauges (each gates itself).
+            beat["last_completed_round"] = rnd + 1
+            beat["last_flush_t"] = time.monotonic()
+            obs.gauge("fed.last_completed_round", rnd + 1)
+            obs.gauge("fed.loss", loss)
+            if "epsilon" in metrics:
+                obs.gauge("fed.epsilon", metrics["epsilon"])
+            obs.histogram("round.time_s", dt)
             last_done, last_params = rnd + 1, params
     except (KeyboardInterrupt, SystemExit):
         # Drain, persist, re-raise: the last completed round is saved
@@ -847,6 +972,8 @@ def train_federated_streamed(
                 pass
         raise
     finally:
+        flight.record("lifecycle", "trainer.exit", last_done=last_done)
+        obs_server.clear_health_source("trainer")
         for pl in pending_late:
             try:
                 pl["stream"].close()

@@ -19,8 +19,17 @@ The ``serve.request`` fault site (``utils/faults``: the engine's
 ``fault_plan`` or the plan ``QFEDX_FAULTS`` pins) mutates request #seq
 before validation — ``nan`` features, or ``malformed``: each dimension
 + 1 — so the planned request is rejected on its own and never joins a
-batch. The telemetry, flight, watch and tune hooks are not ported yet
-(ROADMAP Queue 1 item 14).
+batch.
+
+Telemetry (``obs``, the reference's names): ``start`` brings up the
+/metrics endpoint and the watchdog, registers the ``serve`` health
+source (cleared on ``close``) and records flight lifecycle edges; the
+counters ``serve.requests_rejected`` and ``serve.requests_shed``, the
+gauge ``serve.queue_depth``, a ``serve.queue`` span per flush (its size,
+trigger and, when tracing, the request ids), a ``trace_context(reqs=)``
+around the engine call so its spans carry those ids, and the
+``serve.latency_ms`` histogram (submit → answer). The tune controller's
+seam (``QFEDX_TUNE``) is ROADMAP Queue 1 item 14b.
 """
 
 from __future__ import annotations
@@ -32,6 +41,9 @@ from typing import Any
 
 import numpy as np
 
+from qfedx_tpu_torch import obs
+from qfedx_tpu_torch.obs import flight, watch
+from qfedx_tpu_torch.obs import server as obs_server
 from qfedx_tpu_torch.utils import faults
 
 
@@ -103,17 +115,38 @@ class MicroBatcher:
             "served": 0, "rejected": 0, "shed": 0, "batches": 0,
             "deadline_flushes": 0, "full_flushes": 0,
         }
+        self._health_fn = None  # registered by start(); identity-matched on close
 
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> "MicroBatcher":
         if self._thread is not None:
             raise RuntimeError("batcher already started")
+        obs_server.maybe_start()
+        watch.maybe_start()
+        flight.record("lifecycle", "batcher.start",
+                      max_queue=self.config.max_queue)
+        # One stable callable: close()'s only_if match is by identity.
+        self._health_fn = self._health
+        obs_server.set_health_source("serve", self._health_fn)
         self._thread = threading.Thread(
             target=self._loop, name="qfedx-serve-batcher", daemon=True
         )
         self._thread.start()
         return self
+
+    def _health(self) -> dict:
+        with self._cond:
+            return {
+                "queue_depth": len(self._pending),
+                # The ceiling, so the watchdog's serve.queue_sat rule can
+                # read queue_depth as a saturation fraction.
+                "max_queue": self.config.max_queue,
+                "closed": self._closed,
+                "engine_warm": bool(getattr(self.engine, "_warm", False)),
+                "buckets": list(self.config.buckets),
+                **dict(self.stats),
+            }
 
     def close(self, drain: bool = True, timeout: float | None = None):
         """Stop admission; drain (answer) or fail the queued requests;
@@ -127,6 +160,10 @@ class MicroBatcher:
             if self._thread.is_alive():
                 raise TimeoutError("dispatcher did not drain in time")
             self._thread = None
+        # Unregister after the drain, and only a registration of ours.
+        if self._health_fn is not None:
+            obs_server.clear_health_source("serve", only_if=self._health_fn)
+        flight.record("lifecycle", "batcher.close", drain=drain)
 
     def __enter__(self):
         return self.start()
@@ -171,18 +208,21 @@ class MicroBatcher:
         except RequestError:
             with self._cond:
                 self.stats["rejected"] += 1
+            obs.counter("serve.requests_rejected")
             raise
         with self._cond:
             if self._closed:
                 raise ShuttingDown("batcher is closed")
             if len(self._pending) >= self.config.max_queue:
                 self.stats["shed"] += 1
+                obs.counter("serve.requests_shed")
                 raise Overloaded(
                     f"queue depth {len(self._pending)} at max_queue="
                     f"{self.config.max_queue}"
                 )
             fut = Future(seq, self._clock)
             self._pending.append((fut.submit_t, x, fut))
+            obs.gauge("serve.queue_depth", len(self._pending))
             self._cond.notify_all()
         return fut
 
@@ -215,10 +255,29 @@ class MicroBatcher:
     def _loop(self):
         while True:
             with self._cond:
-                taken = self._take_locked()
-                if taken is None:
+                # The idle wait stays outside any span: an idle traced
+                # server must not record a span per poll tick.
+                while not self._pending and not self._closed:
+                    self._cond.wait(timeout=0.05)
+                if not self._pending and self._closed:
                     return
-                reqs, kind = taken
+            trace_ids = None
+            with obs.span("serve.queue") as sp:
+                with self._cond:
+                    taken = self._take_locked()
+                if taken is not None:
+                    meta = {"size": len(taken[0]), "flush": taken[1]}
+                    if obs.enabled():
+                        # The ids this flush serves, the string the
+                        # engine's spans carry through trace_context.
+                        trace_ids = ",".join(
+                            str(f.seq) for _t, _x, f in taken[0])
+                        meta["reqs"] = trace_ids
+                    sp.set(**meta)
+            if taken is None:
+                return
+            reqs, kind = taken
+            with self._cond:
                 if kind == "deadline":
                     self.stats["deadline_flushes"] += 1
                 elif kind == "full":
@@ -233,7 +292,11 @@ class MicroBatcher:
                 continue
             x = np.stack([r[1] for r in reqs])
             try:
-                logits = self.engine.infer(x, seq=batch_seq)
+                if trace_ids is not None:
+                    with obs.trace_context(reqs=trace_ids):
+                        logits = self.engine.infer(x, seq=batch_seq)
+                else:
+                    logits = self.engine.infer(x, seq=batch_seq)
             except BaseException as exc:  # noqa: BLE001 — per-request surfacing
                 for _, _, fut in reqs:
                     fut._set(error=exc)
@@ -245,6 +308,9 @@ class MicroBatcher:
                     "probs": post["probs"][i],
                     "pred": int(post["pred"][i]),
                 })
+                obs.histogram(
+                    "serve.latency_ms", (fut.done_t - fut.submit_t) * 1e3
+                )
             with self._cond:
                 self.stats["served"] += len(reqs)
                 self.stats["batches"] += 1

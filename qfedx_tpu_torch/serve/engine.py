@@ -24,14 +24,22 @@ package) of any model family — the VQC, the TinyCNN (image requests),
 the MPS classifier, the kernel head — into an engine; ``python -m
 qfedx_tpu_torch serve --run-dir`` (``run/cli.py``) serves it.
 
-Not ported yet: the telemetry, flight, watch and tune hooks (ROADMAP
-Queue 1 item 14).
+Telemetry (``obs``, the reference's names): ``warmup`` brings up the
+/metrics endpoint (``QFEDX_METRICS_PORT``) and the watchdog
+(``QFEDX_WATCH``) and records a flight lifecycle edge; the spans
+``serve.warmup``, ``serve.pad``, ``serve.compute`` and ``serve.fetch``
+(nested in ``serve.compute``: the device→host copy, the one place a
+batch waits for the card) and the counters ``serve.warmup_buckets``,
+``serve.compute_retries``, ``serve.batches`` and
+``serve.requests_served``. Not ported yet: the tune controller
+(``QFEDX_TUNE``, ROADMAP Queue 1 item 14b).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -40,6 +48,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from qfedx_tpu_torch import obs
 from qfedx_tpu_torch.serve.forward import _ROUTING_PINS, persistent_forward
 from qfedx_tpu_torch.utils import faults, pins, trees
 from qfedx_tpu_torch.utils.retry import retry_with_deadline
@@ -131,6 +140,8 @@ class ServeEngine:
         self.feature_shape = tuple(int(s) for s in feature_shape)
         self.config = config or ServeConfig.resolve()
         self._fwd = persistent_forward(model.apply)
+        self._warm = False
+        self._fetch = threading.local()  # serve.fetch meta while in infer
 
     # -- buckets -------------------------------------------------------------
 
@@ -149,9 +160,15 @@ class ServeEngine:
         )
 
     def _forward(self, xb: np.ndarray) -> np.ndarray:
+        """Logits of the padded batch ``xb`` on the host. Inside ``infer``
+        the device→host copy runs in a ``serve.fetch`` span."""
         with torch.inference_mode():
             out = self._fwd(self.params, torch.as_tensor(xb, device=self.device))
-            return out.cpu().numpy()
+            meta = getattr(self._fetch, "meta", None)
+            if meta is None:
+                return out.cpu().numpy()
+            with obs.span("serve.fetch", **meta):
+                return out.cpu().numpy()
 
     # -- warmup --------------------------------------------------------------
 
@@ -159,21 +176,33 @@ class ServeEngine:
         """Run every bucket once ahead of traffic (builds and loads the
         kernel library). Returns per-bucket wall seconds, the kernel
         builds this warmup caused, and the route it resolved."""
+        from qfedx_tpu_torch.obs import flight, watch
+        from qfedx_tpu_torch.obs import server as obs_server
         from qfedx_tpu_torch.ops import scan_body
         from qfedx_tpu_torch.ops.cpx import state_dtype
 
+        # The serving stack's telemetry seam (each default off).
+        obs_server.maybe_start()
+        watch.maybe_start()
+        flight.record(
+            "lifecycle", "engine.warmup", buckets=str(self.config.buckets)
+        )
         builds0 = scan_body.build_count
         per_bucket = {}
         for b in self.config.buckets:
             x = np.zeros((b,) + self.feature_shape, dtype=np.float32)
-            t0 = time.perf_counter()
-            out = self._forward(x)
-            per_bucket[b] = {"wall_s": time.perf_counter() - t0}
+            with obs.span("serve.warmup", bucket=b) as sp:
+                t0 = time.perf_counter()
+                out = self._forward(x)
+                wall = time.perf_counter() - t0
+            per_bucket[b] = {"wall_s": wall, "compile_s": sp.compile_s}
             if not np.all(np.isfinite(out)):
                 raise RuntimeError(
                     f"warmup forward at bucket {b} produced non-finite "
                     "logits — refusing to serve a broken checkpoint"
                 )
+        self._warm = True
+        obs.counter("serve.warmup_buckets", len(per_bucket))
         return {
             "buckets": per_bucket,
             "num_classes": int(out.shape[-1]),
@@ -200,27 +229,37 @@ class ServeEngine:
         x = np.asarray(x, dtype=np.float32)
         m = x.shape[0]
         bucket = self.bucket_for(m)
-        if m < bucket:
-            xb = np.zeros((bucket,) + x.shape[1:], dtype=x.dtype)
-            xb[:m] = x
-        else:
-            xb = x
+        with obs.span("serve.pad", batch=m, bucket=bucket):
+            if m < bucket:
+                xb = np.zeros((bucket,) + x.shape[1:], dtype=x.dtype)
+                xb[:m] = x
+            else:
+                xb = x
 
         def attempt(k: int):
+            if k > 0:
+                obs.counter("serve.compute_retries")
             plan = faults.resolve_plan(self.fault_plan)
             if plan is not None:
                 plan.check("serve.compute", seq, attempt=k)
             return self._forward(xb)
 
-        logits = retry_with_deadline(
-            attempt,
-            attempts=3,
-            base_delay_s=0.002,
-            max_delay_s=0.05,
-            deadline_s=5.0,
-            describe=f"serve compute (batch {seq})",
-            jitter_site=f"serve/{seq}",
-        )
+        self._fetch.meta = {"batch": m}
+        try:
+            with obs.span("serve.compute", batch=m, bucket=bucket, seq=seq):
+                logits = retry_with_deadline(
+                    attempt,
+                    attempts=3,
+                    base_delay_s=0.002,
+                    max_delay_s=0.05,
+                    deadline_s=5.0,
+                    describe=f"serve compute (batch {seq})",
+                    jitter_site=f"serve/{seq}",
+                )
+        finally:
+            self._fetch.meta = None
+        obs.counter("serve.batches")
+        obs.counter("serve.requests_served", m)
         return logits[:m]
 
     def postprocess(self, logits: np.ndarray) -> dict[str, np.ndarray]:
@@ -278,8 +317,7 @@ def engine_from_run_dir(
         experiment_config_from_dict,
     )
 
-    pins.refuse_unported("Queue 1 item 14", "QFEDX_TRACE", "QFEDX_FLIGHT",
-                         "QFEDX_WATCH", "QFEDX_TUNE")
+    pins.refuse_unported("Queue 1 item 14b", "QFEDX_TUNE")
     run_dir = Path(run_dir)
     cfg_path = run_dir / "config.json"
     if not cfg_path.exists():

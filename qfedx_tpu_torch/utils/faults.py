@@ -4,8 +4,8 @@ Counterpart of ``qfedx_tpu/utils/faults.py``, copied bit for bit (the
 port imports nothing of the JAX package): the same ``SITES`` in the same
 order, the same SplitMix64 coordinates, the same per-rule salts, so a
 plan fires on the same clients, waves, attempts and requests in both
-packages. The reference's ``faults.injected.*`` counters are telemetry
-(ROADMAP Queue 1 item 14) and are not kept here.
+packages. A firing site bumps the reference's ``faults.injected.<site>``
+obs counter (``faults.injected.serve.request`` for a mutated request).
 
 Cross-device federation at QFed scale is DEFINED by partial
 participation: clients die mid-round, local updates go non-finite,
@@ -590,8 +590,9 @@ class FaultPlan:
                 self.seed + 7919 * (idx + 1), "serve.request", seq, 0, [0]
             )[0]
             if u < float(rule.rate):
-                # The reference counts faults.injected.serve.request here
-                # (telemetry, ROADMAP Queue 1 item 14).
+                from qfedx_tpu_torch import obs
+
+                obs.counter("faults.injected.serve.request")
                 return rule.kind
         return None
 
@@ -621,6 +622,9 @@ class FaultPlan:
                 self.seed + 7919 * (idx + 1), site, round_idx, wave, [0]
             )[0]
             if u < float(rule.rate):
+                from qfedx_tpu_torch import obs
+
+                obs.counter(f"faults.injected.{site}")
                 raise FaultInjected(site, round_idx, wave, attempt)
 
 

@@ -135,6 +135,62 @@ def depth_pin(name: str, default: int, on_value: int = 1) -> int:
     )
 
 
+def port_pin(name: str, default: int = 0) -> int:
+    """TCP-port pin (QFEDX_METRICS_PORT): unset → ``default`` (0 = feature
+    off), ``off``/``0`` → 0, digits in [0, 65535] → that port, anything
+    else raises. Via the pin 0 means "no server"; a port of 0 handed to
+    the server itself binds an ephemeral port (tests)."""
+    env = os.environ.get(name)
+    if env is None:
+        return default
+    if env.lower() == "off":
+        return 0
+    if not env.isdigit() or int(env) > 65535:
+        raise ValueError(
+            f"{name}={env!r}: expected 'off' or a port in [0, 65535]"
+        )
+    return int(env)
+
+
+def set_pin(name: str, value: str) -> None:
+    """Write a pin for this process (CLI flag sugar: ``--trace`` sets
+    QFEDX_TRACE=1), through the same module the reads go through."""
+    os.environ[name] = value
+
+
+def clear_pin(name: str) -> None:
+    """Unset a pin (no-op when absent) — ``set_pin``'s inverse."""
+    os.environ.pop(name, None)
+
+
+def pin_is_set(name: str) -> bool:
+    """Is the pin present in the environment at all? (A caller that only
+    overlays a default must not clobber an operator's explicit value.)"""
+    return name in os.environ
+
+
+def interval_pin(name: str, on_value: float, default: float = 0.0) -> float:
+    """Period-in-seconds pin with the on/off grammar as a prefix: unset →
+    ``default`` (0.0 = feature off), ``0``/``off`` → 0.0, ``1``/``on`` →
+    ``on_value``, a bare number → that period, anything else raises."""
+    env = os.environ.get(name)
+    if env is None:
+        return default
+    as_bool = parse_onoff(env)
+    if as_bool is not None:
+        return on_value if as_bool else 0.0
+    try:
+        period = float(env)
+    except ValueError:
+        raise ValueError(
+            f"{name}={env!r}: expected '0'/'off', '1'/'on' or a period "
+            "in seconds"
+        ) from None
+    if period < 0:
+        raise ValueError(f"{name}={env!r}: period must be >= 0")
+    return period
+
+
 def refuse_unported(item: str, *names: str) -> None:
     """Raise NotImplementedError naming ROADMAP ``item`` when any of the
     pins ``names`` is set to anything but empty, ``0`` or ``off``: the

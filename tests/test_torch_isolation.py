@@ -48,5 +48,7 @@ def test_port_imports_no_jax_and_no_reference():
                 "data.idx", "data._iris", "data.synthetic", "data.datasets",
                 "data.partition", "data.pipeline", "run.config",
                 "run.metrics", "run.checkpoint", "run.trainer", "run.cli",
-                "__main__"):
+                "obs.histo", "obs.trace", "obs.export", "obs.flight",
+                "obs.server", "obs.watch", "obs.merge", "obs.profile",
+                "obs.census", "__main__"):
         assert f"qfedx_tpu_torch.{mod}" in report["modules"]

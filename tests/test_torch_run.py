@@ -478,11 +478,14 @@ def test_run_train_takes_prebuilt_data(monkeypatch, tmp_path, small_data):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--plots"], ["--profile"], ["--trace"], ["--tuned", "x.json"],
+    ["--plots"], ["--profile", "--plots"], ["--trace", "--tuned", "x.json"],
+    ["--tuned", "x.json"],
     ["--sv-size", "4"],
     ["--sv-size", "2"],
 ])
 def test_cli_unported_paths_raise(tmp_path, small_data, extra):
+    """``--profile`` and ``--trace`` run (tests/test_torch_obs_run.py);
+    beside them the flags of item 14b still raise."""
     with pytest.raises(NotImplementedError):
         pcli.main(_train_argv(tmp_path, *extra), device="cpu")
 
