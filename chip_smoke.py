@@ -4,6 +4,12 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
+For a rehearsal of the tuning and tool phases alone (item 21 below),
+``python3 chip_smoke.py --only tune,sweep`` (any of ``TOOL_PHASES``; a
+phase that reads another's output brings it along) builds the kernel,
+trains one traced and profiled [cli-train] run on the card to read from,
+and runs those phases; it prints no ``kernels`` line and no final line.
+
 Phases (any failure raises and exits non-zero):
 
 1. print the card's name and power limit; require CUDA;
@@ -275,13 +281,35 @@ Phases (any failure raises and exits non-zero):
    ``faults.injected.*`` counters equal to the plan's injected errors,
    the ``fed.*`` counters to its ledger, one ``ingest.h2d`` span per
    wave;
-21. print one JSON line describing each launch of the kernel, f32 and
+21. tuning and the tools, on [obs-train]'s run directory: ``[tune]``
+   sweeps two bucket sets × two deadlines through ``tune --run-dir``,
+   TUNE_REQUESTS requests at each offered load (every cell warms without a build and launches one A per forward, the
+   warmed buckets plus the batches served, each at a warmed bucket;
+   each cell's throughput_at_slo, p50/p95 and capacity printed);
+   ``[serve-tuned]`` replays the sidecar (its buckets served, logits
+   within LOGIT_ATOL of the CPU port); ``[tune-controller]`` runs the
+   reference's drifting-load script with ticks by hand (QFEDX_TUNE=60:
+   shrink, tighten, the alert's revert) into the run's metrics.jsonl,
+   then a live stream under QFEDX_TUNE=TUNE_LIVE_PERIOD (singles, then
+   bursts): decisions = the ``tune.decisions`` counter = event rows =
+   flight entries, no build, every forward at a warmed bucket, logits
+   within LOGIT_ATOL of the CPU port; ``[tune-cli]`` trains one round
+   of [cli-train]'s argv untuned and ``--tuned`` (θ equal, exactly;
+   ``tuned_from`` recorded); ``[sweep]`` runs the quick preset's cells
+   on the card and the CPU (accuracy within SWEEP_ACC_ATOL, ε equal),
+   the aggregates and the table, and ``run_sweep`` only where matplotlib
+   imports; ``[demo]`` holds the encoder walkthrough's numbers against
+   the CPU (DEMO_ATOL); ``[inspect]`` reads the run directory (rounds,
+   tune and alert rows, flight recorder, sidecar, floor row);
+   ``[bench-history]`` reads the checkout's BENCH_r*.json and a regressed
+   and an empty fixture (exit codes 0, 1, 2);
+22. print one JSON line describing each launch of the kernel, f32 and
    bf16 instances (launches on the CLI run, and per path, the dense,
    reupload, amplitude, config-4, federation-option, model-family,
-   noise, streamed, fault-plan and observability paths included;
+   noise, streamed, fault-plan, observability and tool paths included;
    max error; kernel-alone, plain and bound at the CLI run's shape, and
    at the earlier slices', the reupload, SPSA and per-example shapes);
-22. print the final ``{"ok": true, "device": {...}}`` line.
+23. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -1869,10 +1897,12 @@ def phase_cli_serve(root, run_dir, dtype=torch.float32,
 
 
 @contextlib.contextmanager
-def env_pins(**values):
+def env_pins(*restore, **values):
     """Set the QFEDX_* pins ``values`` for the block (the port reads its
-    pins at every call), restored after."""
-    before = {k: os.environ.get(k) for k in values}
+    pins at every call); those and the pins named in ``restore`` (which
+    the block may write itself, as ``--tuned`` does through utils/pins)
+    are restored after."""
+    before = {k: os.environ.get(k) for k in (*restore, *values)}
     os.environ.update(values)
     try:
         yield
@@ -5382,6 +5412,605 @@ def phase_obs_streamed(device) -> dict:
     return {"launches": traced["launches"], "theta_err": theta_err}
 
 
+# --- tuning and the tools (tune/, serve --tuned, sweep, demo, inspect) ------
+
+TUNE_BUCKET_SETS = "1,8;1,8,32"
+TUNE_DEADLINES = "2.5,5"
+# Offered-load requests per (cell, rate) point of [tune]: at the fastest
+# point (0.8 of the (1, 8, 32) capacity, ~2600 rps) about 0.8 s of
+# arrivals, so that each p95 rests on ~100 tail samples.
+TUNE_REQUESTS = 2048
+TUNE_LIVE_PERIOD = "0.25"  # QFEDX_TUNE of [tune-controller]'s live stream
+TUNE_CFG = dict(buckets=BUCKETS, deadline_ms=5.0, max_queue=256, slo_ms=50.0)
+DEMO_ATOL = 1e-6  # run_demo's numbers, card vs CPU (the tests' bound)
+# [sweep]'s n = 4 cells: accuracy card vs CPU. Under Adam the two runs part
+# by ±lr steps on zero-gradient angles (see [streamed]), which can move
+# a test prediction near the boundary: two points of accuracy.
+SWEEP_ACC_ATOL = 0.02
+TOOL_PHASES = ("tune", "serve-tuned", "tune-controller", "tune-cli",
+               "sweep", "demo", "inspect", "bench-history")
+# A selected phase runs the phases it reads from first.
+TOOL_NEEDS = {"serve-tuned": ("tune",), "tune-cli": ("tune",)}
+_SERVE_PIN_NAMES = ("QFEDX_SERVE_BUCKETS", "QFEDX_SERVE_DEADLINE_MS",
+                    "QFEDX_SERVE_QUEUE", "QFEDX_SERVE_SLO_MS")
+
+
+class EngineLog:
+    """Patches ``ServeEngine.warmup`` and ``ServeEngine._forward`` so
+    that every engine warmed inside the block records its config, the
+    builds its warmup caused, the batch shape of each forward (warmup
+    and traffic, retries included) and, read at the next engine's warmup
+    or at the block's end, the Launch A it made."""
+
+    def __enter__(self):
+        from qfedx_tpu_torch.ops import scan_body
+        from qfedx_tpu_torch.serve import engine
+
+        self.cls, self.sb = engine.ServeEngine, scan_body
+        self.orig = (self.cls.warmup, self.cls._forward)
+        self.engines: list = []
+        log = self
+
+        def warmup(eng):
+            log._close()
+            rec = {"buckets": tuple(eng.config.buckets),
+                   "deadline_ms": eng.config.deadline_ms,
+                   "fwd0": scan_body.launch_counts["fwd"],
+                   "builds0": scan_body.build_count, "shapes": []}
+            log.engines.append(rec)
+            eng._smoke_log = rec
+            out = log.orig[0](eng)
+            rec["warm_builds"] = scan_body.build_count - rec["builds0"]
+            return out
+
+        def forward(eng, xb):
+            rec = getattr(eng, "_smoke_log", None)
+            if rec is not None:
+                rec["shapes"].append(int(xb.shape[0]))
+            return log.orig[1](eng, xb)
+
+        self.cls.warmup, self.cls._forward = warmup, forward
+        return self
+
+    def _close(self):
+        if self.engines and "launches" not in self.engines[-1]:
+            rec = self.engines[-1]
+            rec["launches"] = self.sb.launch_counts["fwd"] - rec["fwd0"]
+            rec["builds"] = self.sb.build_count - rec["builds0"]
+
+    def __exit__(self, *exc):
+        self._close()
+        self.cls.warmup, self.cls._forward = self.orig
+
+    def check(self, tag: str) -> dict:
+        """Every engine: no build at or after warmup, one Launch A per
+        forward (the warmed buckets plus the batches served), every
+        forward at a warmed bucket. Returns the totals."""
+        for rec in self.engines:
+            served = len(rec["shapes"]) - len(rec["buckets"])
+            if rec["warm_builds"] or rec["builds"]:
+                raise AssertionError(f"{tag}: {rec['builds']} builds")
+            if rec["launches"] != len(rec["shapes"]):
+                raise AssertionError(
+                    f"{tag}: {rec['launches']} Launch A for "
+                    f"{len(rec['buckets'])} warmed buckets + {served} "
+                    "batches")
+            cold = sorted(set(rec["shapes"]) - set(rec["buckets"]))
+            if cold:
+                raise AssertionError(f"{tag}: forwards at {cold}, outside "
+                                     f"the warmed {rec['buckets']}")
+        return {"fwd": sum(r["launches"] for r in self.engines),
+                "fwd_bnd": 0, "adj": 0}
+
+
+def _cpu_logits(run_dir, x) -> np.ndarray:
+    """The CPU port's logits of ``x`` on the run's newest checkpoint."""
+    from qfedx_tpu_torch.serve.engine import engine_from_run_dir
+
+    engine, _ = engine_from_run_dir(run_dir, device="cpu")
+    with torch.no_grad():
+        return engine.model.apply(engine.params, x).numpy()
+
+
+def phase_tune(run_dir) -> dict:
+    """``[tune]``: ``tune --run-dir`` over two bucket sets × two
+    deadlines on the traced n = 12 run: every cell warms without a build
+    and launches one A per forward at a warmed bucket; each cell's
+    score printed."""
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run import cli
+    from qfedx_tpu_torch.utils import pins
+
+    argv = ["tune", "--run-dir", str(run_dir), "--buckets",
+            TUNE_BUCKET_SETS, "--deadlines", TUNE_DEADLINES,
+            "--requests", str(TUNE_REQUESTS)]
+    t0 = time.perf_counter()
+    with env_pins(*_SERVE_PIN_NAMES), EngineLog() as log:
+        scan_body.reset_counts()
+        record = cli.main(argv)
+        launches = dict(scan_body.launch_counts)
+    wall = time.perf_counter() - t0
+    for cell, rec in zip(record["cells"], log.engines):
+        rates = "; ".join(
+            f"{k}: offered {v['offered_rps']} rps, completed "
+            f"{v.get('completed_rps')} rps, p50 {v.get('p50_ms')} ms, p95 "
+            f"{v.get('p95_ms')} ms, shed {v['shed']}"
+            for k, v in cell["rates"].items())
+        print(f"[tune] cell buckets {cell['buckets']} deadline "
+              f"{cell['deadline_ms']:g} ms: throughput_at_slo "
+              f"{cell['throughput_at_slo']} rps, p50 {cell['p50_ms']} ms, "
+              f"p95 {cell['p95_ms']} ms, capacity {cell['capacity_rps']} "
+              f"rps ({rates}); Launch A {rec['launches']} = "
+              f"{len(rec['buckets'])} warmed + "
+              f"{len(rec['shapes']) - len(rec['buckets'])} batches, builds "
+              f"{rec['warm_builds']} at warmup")
+    totals = log.check("tune")
+    if len(record["cells"]) != 4 or launches != totals:
+        raise AssertionError(f"tune: {len(record['cells'])} cells, "
+                             f"launches {launches} vs {totals}")
+    if record["key"]["backend"] != pins.resolve_device(None).type:
+        raise AssertionError(f"tune key {record['key']}")
+    print(f"[tune] {' '.join(argv[:1] + argv[3:])}: {wall:.2f} s (host "
+          f"clock); winner pins {record['pins']}, score {record['score']} "
+          f"(SLO {record['key']['slo_ms']:g} ms); launches {launches}")
+    return {"record": record, "launches": launches, "cells": log.engines}
+
+
+def phase_serve_tuned(root, run_dir, record: dict) -> dict:
+    """``[serve-tuned]``: ``serve --tuned`` replays the sidecar's pins;
+    the served buckets are the winner's and the logits are within
+    LOGIT_ATOL of the CPU port."""
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run import cli
+
+    x = np.random.default_rng(23).uniform(0, 1, (N_SERVE_REQUESTS, N_QUBITS))
+    x = x.astype(np.float32)
+    req = root / "tuned-requests.jsonl"
+    req.write_text("".join(json.dumps({"id": i, "features": v.tolist()})
+                           + "\n" for i, v in enumerate(x)))
+    out = root / "tuned-responses.jsonl"
+    with env_pins(*_SERVE_PIN_NAMES), EngineLog() as log:
+        scan_body.reset_counts()
+        summary = cli.main(["serve", "--run-dir", str(run_dir), "--tuned",
+                            "--input", str(req), "--output", str(out)])
+        launches = dict(scan_body.launch_counts)
+    totals = log.check("serve-tuned")
+    got = np.array([json.loads(line)["logits"]
+                    for line in out.read_text().splitlines()])
+    err = float(np.abs(got - _cpu_logits(run_dir, x)).max())
+    want = tuple(int(b) for b in
+                 record["pins"]["QFEDX_SERVE_BUCKETS"].split(","))
+    (eng,) = log.engines
+    print(f"[serve-tuned] {summary['served']} served in "
+          f"{summary['batches']} batches at the sidecar's buckets "
+          f"{eng['buckets']} and deadline {eng['deadline_ms']:g} ms; p50 "
+          f"{summary['p50_ms']} ms p95 {summary['p95_ms']} ms (a smoke "
+          f"reading of {N_SERVE_REQUESTS} requests, not a latency "
+          "measurement); logits "
+          f"max|card-cpu| {err:.3e} (atol {LOGIT_ATOL:g}); launches "
+          f"{launches}")
+    if eng["buckets"] != want or eng["deadline_ms"] != float(
+            record["pins"]["QFEDX_SERVE_DEADLINE_MS"]):
+        raise AssertionError(f"serve --tuned ran {eng}")
+    if launches != totals or summary["served"] != N_SERVE_REQUESTS:
+        raise AssertionError(f"serve-tuned: {summary}, {launches}")
+    _require(err, LOGIT_ATOL, "serve --tuned logits vs cpu")
+    return {"launches": launches, "logit_err": err}
+
+
+def _tune_surfaces(run, tag: str, totals: dict) -> dict:
+    """Decisions reconciled across the controller's totals, the
+    ``tune.decisions`` counter, the run's event rows and the flight
+    ring; returns the rows."""
+    from qfedx_tpu_torch import obs
+    from qfedx_tpu_torch.obs import flight
+
+    rows = [r for r in _rows(run.dir) if r.get("event") == "tune"]
+    counter = obs.registry().counters.get("tune.decisions", 0.0)
+    ring = [e for e in flight.events() if e["kind"] == "tune"]
+    print(f"[{tag}] decisions {totals['decisions']} (reverts "
+          f"{totals['reverts']}) = tune.decisions {counter:g} = "
+          f"{len(rows)} event rows = {len(ring)} flight entries: "
+          + ", ".join(f"{r['decision']} {r['field']} {r['from']} -> "
+                      f"{r['to']} ({r['value']:.3f} vs {r['threshold']:g})"
+                      for r in rows))
+    if not totals["decisions"] == counter == len(rows) == len(ring):
+        raise AssertionError(f"{tag}: the surfaces disagree")
+    return rows
+
+
+def phase_tune_controller(obs_root, run_dir) -> dict:
+    """``[tune-controller]``: the reference's drifting-load script on the
+    n = 12 engine (QFEDX_TUNE=60, ticks by hand), its rows into the
+    traced run's metrics.jsonl; then a live stream under
+    QFEDX_TUNE=TUNE_LIVE_PERIOD (see the module docstring)."""
+    import threading
+
+    from qfedx_tpu_torch import obs, tune
+    from qfedx_tpu_torch.obs import flight, watch
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run.metrics import ExperimentRun
+    from qfedx_tpu_torch.serve import MicroBatcher, ServeConfig, ServeEngine
+    from qfedx_tpu_torch.serve.engine import engine_from_run_dir
+
+    restored, _ = engine_from_run_dir(run_dir, device="cpu")
+    model = _card_model(run_dir)
+    rng = np.random.default_rng(29)
+
+    def engine():
+        return ServeEngine(model, restored.params, (N_QUBITS,),
+                           config=ServeConfig(**TUNE_CFG))
+
+    # The scripted run.
+    scripted = {}
+    with env_pins(QFEDX_TUNE="60", QFEDX_FLIGHT="on", QFEDX_TRACE="0",
+                  QFEDX_SERVE_SLO_MS="100000"), EngineLog() as log:
+        obs.reset()
+        flight.reset()
+        scan_body.reset_counts()
+        with ExperimentRun(obs_root, run_dir.name, resume=True) as run:
+            eng = engine()
+            eng.warmup()
+            ctl = eng.tuner
+            ticks = [ctl.decide_once()]
+            with MicroBatcher(eng) as b:
+                for r in rng.uniform(0, 1, (8, N_QUBITS)).astype(np.float32):
+                    b.submit(r).result(timeout=60)
+            ticks.append(ctl.decide_once())
+            for _ in range(tune.MIN_WINDOW_COUNT + 4):
+                obs.histogram("serve.latency_ms", 100.0)
+            ticks.append(ctl.decide_once())
+            with env_pins(QFEDX_WATCH="1"):
+                obs.gauge("fed.loss", float("nan"))
+                watch.evaluate_once()
+                ticks.append(ctl.decide_once())
+                ticks.append(ctl.decide_once())
+                obs.gauge("fed.loss", 0.4)
+                watch.evaluate_once()
+                ticks.append(ctl.decide_once())
+            ctl.stop()
+            scripted["totals"] = dict(ctl.totals)
+            flight.dump(run_dir / "flight.json", reason="tune-controller")
+        rows = _tune_surfaces(run, "tune-controller", scripted["totals"])
+        scripted["launches"] = dict(scan_body.launch_counts)
+        watch.reset()
+    per_tick = [[d["decision"] for d in t] for t in ticks]
+    print(f"[tune-controller] scripted (QFEDX_TUNE=60, ticks by hand): "
+          f"{per_tick}; launches {scripted['launches']}")
+    if per_tick != [[], ["buckets.shrink"], ["deadline.tighten"],
+                    ["revert.alert"], [], []]:
+        raise AssertionError(f"tune-controller decided {per_tick}")
+    scripted["rows"] = rows
+    if log.check("tune-controller") != scripted["launches"]:
+        raise AssertionError(f"tune-controller launches "
+                             f"{scripted['launches']}")
+
+    # The live stream: singles, then bursts of 32, the ticker deciding.
+    x = rng.uniform(0, 1, (40 + 12 * 32, N_QUBITS)).astype(np.float32)
+    # A ring that holds the whole stream's events (every counter bump is
+    # one), so that no tune entry is evicted before it is counted.
+    with env_pins(QFEDX_TUNE=TUNE_LIVE_PERIOD, QFEDX_FLIGHT="65536",
+                  QFEDX_TRACE="0"), EngineLog() as log:
+        obs.reset()
+        flight.reset()
+        scan_body.reset_counts()
+        with ExperimentRun(obs_root, "tune-live") as run:
+            eng = engine()
+            eng.warmup()
+            threads = [t.name for t in threading.enumerate()]
+            t0 = time.perf_counter()
+            futs = []
+            with MicroBatcher(eng) as b:
+                for i in range(40):  # ~1.2 s of singles
+                    futs.append(b.submit(x[i]))
+                    futs[-1].result(timeout=60)
+                    time.sleep(0.02)
+                for k in range(12):  # bursts of 32
+                    burst = [b.submit(x[40 + 32 * k + j]) for j in range(32)]
+                    futs.extend(burst)
+                    for f in burst:
+                        f.result(timeout=60)
+                    time.sleep(0.1)
+            live_s = time.perf_counter() - t0
+            eng.tuner.stop()
+            live = {"totals": dict(eng.tuner.totals),
+                    "active": (eng.tuner.deadline_ms, eng.tuner.max_bucket)}
+        live["rows"] = _tune_surfaces(run, "tune-controller", live["totals"])
+        live["launches"] = dict(scan_body.launch_counts)
+    got = np.stack([f.result()["logits"] for f in futs])
+    err = float(np.abs(got - _cpu_logits(run_dir, x)).max())
+    lat = sorted((f.done_t - f.submit_t) * 1e3 for f in futs)
+    print(f"[tune-controller] live stream (QFEDX_TUNE={TUNE_LIVE_PERIOD}): "
+          f"{len(futs)} requests in {live_s:.2f} s (host clock), "
+          f"{len(log.engines[0]['shapes']) - len(BUCKETS)} batches of "
+          f"{sorted(set(log.engines[0]['shapes']))}, latency p50 "
+          f"{obs.percentile(lat, 0.5):.4f} ms p95 "
+          f"{obs.percentile(lat, 0.95):.4f} ms (exact; SLO "
+          f"{TUNE_CFG['slo_ms']:g} ms); active deadline "
+          f"and cap at the end {live['active']}; ticker thread "
+          f"{'qfedx-tune-controller' in threads}; logits max|card-cpu| "
+          f"{err:.3e} (atol {LOGIT_ATOL:g}); launches {live['launches']}")
+    if log.check("tune-controller live") != live["launches"]:
+        raise AssertionError(f"tune-controller launches {live['launches']}")
+    if not live["totals"]["decisions"]:
+        raise AssertionError("tune-controller: the live ticker decided "
+                             "nothing")
+    if "qfedx-tune-controller" not in threads:
+        raise AssertionError("tune-controller: no ticker thread")
+    _require(err, LOGIT_ATOL, "tune-controller live logits vs cpu")
+    flight.reset()
+    return {"scripted": scripted, "live": live, "logit_err": err}
+
+
+def _card_model(run_dir):
+    """The run's model built on the card (for an engine made here)."""
+    from qfedx_tpu_torch.run.config import (
+        build_model,
+        experiment_config_from_dict,
+    )
+    from qfedx_tpu_torch.serve.engine import infer_num_classes
+
+    cfg = experiment_config_from_dict(
+        json.loads((run_dir / "config.json").read_text()))
+    return build_model(cfg, infer_num_classes(cfg))
+
+
+def phase_tune_cli(root, record: dict) -> dict:
+    """``[tune-cli]``: one round of [cli-train]'s argv untuned, then
+    with ``--tuned`` (serving pins only): θ equal to 0, ``tuned_from``
+    recorded."""
+    from qfedx_tpu_torch.ops import scan_body
+
+    side = record["path"]
+    builds0 = scan_body.build_count
+    runs = {}
+    for name, extra in (("tcli-untuned", []),
+                        ("tcli-tuned", ["--tuned", side])):
+        argv = CLI_ARGV + ["--rounds", "1", "--run-root", str(root),
+                           "--name", name, *extra]
+        with env_pins(*_SERVE_PIN_NAMES):
+            t0 = time.perf_counter()
+            _, launches, _, _ = cli_train(argv, None)
+            runs[name] = {"launches": launches,
+                          "wall": time.perf_counter() - t0,
+                          "theta": _run_theta(root / name, 1)}
+    cfg = json.loads((root / "tcli-tuned" / "config.json").read_text())
+    diff = _max_err(runs["tcli-tuned"]["theta"], runs["tcli-untuned"]["theta"])
+    print(f"[tune-cli] train --tuned {side}: config.json tuned_from "
+          f"{cfg['tuned_from']!r}; theta max|tuned-untuned| {diff:.3e} "
+          f"(required 0); launches {runs['tcli-tuned']['launches']} vs "
+          f"{runs['tcli-untuned']['launches']}; walls "
+          + ", ".join(f"{k} {v['wall']:.2f} s" for k, v in runs.items()))
+    if cfg["tuned_from"] != side or diff != 0.0:
+        raise AssertionError(f"tune-cli: tuned_from {cfg['tuned_from']}, "
+                             f"theta {diff}")
+    if runs["tcli-tuned"]["launches"] != runs["tcli-untuned"]["launches"] \
+            or not runs["tcli-tuned"]["launches"]["fwd_bnd"]:
+        raise AssertionError(f"tune-cli launches {runs}")
+    if scan_body.build_count != builds0:
+        raise AssertionError("tune-cli: a kernel build")
+    return {"launches": runs["tcli-tuned"]["launches"], "theta_err": diff}
+
+
+def _matplotlib() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def phase_sweep(root) -> dict:
+    """``[sweep]``: the quick preset, one seed, each cell on the card and
+    on the CPU (accuracy within SWEEP_ACC_ATOL, ε equal), the aggregates
+    and the table; the whole ``run_sweep`` where matplotlib imports."""
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run import sweep
+
+    cells = sweep.preset_cells("quick")
+    runs = {}
+    scan_body.reset_counts()
+    for cell in cells:
+        card = sweep._run_cell(cell, 42, device="cuda")
+        launches = dict(scan_body.launch_counts)
+        cpu = sweep._run_cell(cell, 42, device="cpu")
+        runs[cell["name"]] = [card]
+        eps = (card["epsilon"], cpu["epsilon"])
+        print(f"[sweep] {cell['name']} (n={cell['qubits']}, "
+              f"{cell['clients']} clients, {cell['rounds']} rounds): "
+              f"accuracy {card['accuracy']:.4f} card vs {cpu['accuracy']:.4f}"
+              f" cpu (atol {SWEEP_ACC_ATOL:g}), epsilon {eps[0]!r} vs "
+              f"{eps[1]!r}, round_s {card['round_s']:.4f} vs "
+              f"{cpu['round_s']:.4f} (host clock), MB/round "
+              f"{card['comm_mb_per_round']}")
+        _require(abs(card["accuracy"] - cpu["accuracy"]), SWEEP_ACC_ATOL,
+                 f"sweep {cell['name']} accuracy vs cpu")
+        if eps[0] != eps[1]:
+            raise AssertionError(f"sweep {cell['name']}: epsilon {eps}")
+    aggs = {k: sweep._aggregate(v) for k, v in runs.items()}
+    for line in sweep._markdown_table(cells, aggs, "cuda").splitlines():
+        print(f"[sweep] {line}")
+    if _matplotlib():
+        result = sweep.run_sweep("quick", seeds=1, root=str(root),
+                                 device="cuda")
+        print(f"[sweep] ran run_sweep (matplotlib present): {result['dir']}")
+    else:
+        print("[sweep] ran _run_cell, _aggregate and _markdown_table; "
+              "run_sweep's plots need matplotlib, absent here")
+    if any(launches.values()):
+        raise AssertionError(f"the n=4 sweep cells launched {launches}")
+    return {"launches": launches, "aggs": aggs}
+
+
+def phase_demo(root) -> dict:
+    """``[demo]``: the encoder walkthrough's numbers on the card against
+    the CPU (within DEMO_ATOL); the PNG where matplotlib imports."""
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run import demo
+
+    scan_body.reset_counts()
+    card = demo.demo_numbers(device="cuda")
+    launches = dict(scan_body.launch_counts)
+    cpu = demo.demo_numbers(device="cpu")
+    err = max(float(np.abs(card[k] - cpu[k]).max()) for k in ("probs", "z"))
+    png = _matplotlib()
+    out = demo.run_demo(str(root / "demo"), device="cuda", png=png)
+    print(f"[demo] label {card['label']}, |a|^2 sum "
+          f"{float(card['probs'].sum()):.6f}, <Z> {np.round(card['z'], 5)};"
+          f" max|card-cpu| {err:.3e} (atol {DEMO_ATOL:g}); "
+          + (f"PNG {out['png']}" if png else
+             "no PNG (matplotlib absent: run_demo(png=False))"))
+    _require(err, DEMO_ATOL, "demo numbers vs cpu")
+    return {"launches": launches, "err": err}
+
+
+def phase_inspect(run_dir, controller: dict | None) -> dict:
+    """``[inspect]``: ``inspect`` on the traced run: its rounds, the
+    scripted controller's tune rows and alert, the flight recorder, the
+    sidecar and the profile's floor row."""
+    from qfedx_tpu_torch.run import cli
+
+    out = cli.main(["inspect", str(run_dir)])
+    print(f"[inspect] rounds {out['rounds_completed']}, event rows "
+          f"{out['event_rows']}, alerts {out['alerts_fired']}, tune "
+          f"decisions {out['tune_decisions']} (reverts "
+          f"{out['tune_reverts']}), flight {out.get('flight')}, sidecar "
+          f"{(out.get('tune') or {}).get('pins')}, floor "
+          f"{out.get('floor_attribution')}, route {out['route']}")
+    if out["rounds_completed"] != CLI_ROUNDS or out["invalid_rows"]:
+        raise AssertionError(f"inspect: {out}")
+    if "floor_attribution" not in out:
+        raise AssertionError(f"inspect read {sorted(out)}")
+    if controller is not None:
+        if out.get("flight", {}).get("reason") != "tune-controller":
+            raise AssertionError(f"inspect flight {out.get('flight')}")
+        want = {}
+        for r in controller["scripted"]["rows"]:
+            want[r["decision"]] = want.get(r["decision"], 0) + 1
+        if out["tune_decisions"] != want or "trainer.loss" not in \
+                out["alerts_fired"]:
+            raise AssertionError(f"inspect tune rows {out}")
+    return out
+
+
+def phase_bench_history() -> dict:
+    """``[bench-history]``: ``bench history`` over the checkout's
+    BENCH_r*.json (the reference's trajectory), then over a regressed
+    and an empty directory: exit codes 0/1/2 as the reference's."""
+    from qfedx_tpu_torch.run import cli
+
+    here = Path(__file__).resolve().parent
+    codes = {}
+
+    def run(d, *extra):
+        try:
+            cli.main(["bench", "history", "--dir", str(d), *extra])
+        except SystemExit as exc:
+            return exc.code
+        raise AssertionError("bench history did not exit")
+
+    codes["checkout"] = run(here, "--no-gate")
+    rows = cli._bench_history_rows(here)
+    tmp = Path(tempfile.mkdtemp(prefix="qfedx-bench-"))
+    try:
+        for n, v in ((4, 100.0), (5, 90.0)):
+            (tmp / f"BENCH_r{n:02d}.json").write_text(json.dumps(
+                {"rc": 0, "parsed": {"metric": "m", "value": v}}))
+        codes["regressed"] = run(tmp)
+        empty = tmp / "empty"
+        empty.mkdir()
+        codes["empty"] = run(empty)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[bench-history] {len(rows)} BENCH_r*.json rows in the checkout "
+          f"(latest r{rows[-1]['round'] if rows else None}); exit codes "
+          f"{codes}")
+    if codes != {"checkout": 0, "regressed": 1, "empty": 2}:
+        raise AssertionError(f"bench history exit codes {codes}")
+    return codes
+
+
+def phase_tools(obs_root, run_dir, only=TOOL_PHASES) -> dict:
+    """The tool phases in order, each selected by ``only``; the launch
+    counts of each are read just after it, from 0 just before."""
+    out = {}
+    record = None
+    if "tune" in only:
+        out["tune"] = phase_tune(run_dir)
+        record = out["tune"]["record"]
+    if "serve-tuned" in only:
+        out["serve-tuned"] = phase_serve_tuned(obs_root, run_dir, record)
+    if "tune-controller" in only:
+        out["tune-controller"] = phase_tune_controller(obs_root, run_dir)
+    if "tune-cli" in only:
+        out["tune-cli"] = phase_tune_cli(obs_root, record)
+    if "sweep" in only:
+        out["sweep"] = phase_sweep(obs_root)
+    if "demo" in only:
+        out["demo"] = phase_demo(obs_root)
+    if "inspect" in only:
+        out["inspect"] = phase_inspect(run_dir, out.get("tune-controller"))
+    if "bench-history" in only:
+        out["bench-history"] = phase_bench_history()
+    return out
+
+
+def tool_paths(tools: dict) -> dict:
+    """The tool phases' launches for the ``kernels`` line's by_path."""
+    ctl = tools["tune-controller"]
+    return {
+        "tune (2 bucket sets x 2 deadlines)": tools["tune"]["launches"],
+        "serve-tuned": tools["serve-tuned"]["launches"],
+        "tune-controller (scripted)": ctl["scripted"]["launches"],
+        "tune-controller (live stream)": ctl["live"]["launches"],
+        "tune-cli (train --tuned, 1 round)": tools["tune-cli"]["launches"],
+        "sweep (quick, n=4)": tools["sweep"]["launches"],
+        "demo (n=4)": tools["demo"]["launches"],
+    }
+
+
+def parse_only(argv) -> tuple | None:
+    """``--only a,b``: the tool phases to run (with what they read from),
+    or None for the whole script."""
+    if not argv:
+        return None
+    if argv[0] != "--only" or len(argv) != 2:
+        raise SystemExit("usage: python3 chip_smoke.py [--only "
+                         + ",".join(TOOL_PHASES) + "]")
+    picked = [p for p in argv[1].split(",") if p]
+    bad = [p for p in picked if p not in TOOL_PHASES]
+    if bad or not picked:
+        raise SystemExit(f"chip_smoke --only: unknown phases {bad}; choose "
+                         f"from {','.join(TOOL_PHASES)}")
+    for p in list(picked):
+        picked.extend(TOOL_NEEDS.get(p, ()))
+    return tuple(p for p in TOOL_PHASES if p in picked)
+
+
+def main_only(only: tuple) -> int:
+    """A rehearsal of the selected tool phases: the build, a traced and
+    profiled [cli-train] run on the card to read from (no CPU twin), the
+    phases. Prints no ``kernels`` line and no final line."""
+    print(card_line())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import qfedx_tpu_torch  # noqa: F401 — fails alone, outside the checkout
+
+    phase_build()
+    obs_root = Path(tempfile.mkdtemp(prefix="qfedx-obs-"))
+    try:
+        with env_pins(QFEDX_TRACE="0"):
+            cli_train(CLI_ARGV + ["--trace", "--profile", "--run-root",
+                                  str(obs_root), "--name", "obs"], None)
+        phase_tools(obs_root, obs_root / "obs", only)
+    finally:
+        shutil.rmtree(obs_root, ignore_errors=True)
+    print(f"[only] ran {','.join(only)} in "
+          f"{time.perf_counter() - T_START:.1f} s; no kernels line and no "
+          "final line in a selected run")
+    return 0
+
+
 def trees_first(tree):
     """Every leaf's first entry (one client of a (C, …) stream)."""
     from qfedx_tpu_torch.utils import trees
@@ -5392,11 +6021,14 @@ def trees_first(tree):
 T_START = time.perf_counter()
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    only = parse_only(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if only is not None:
+        return main_only(only)
     print(card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5502,6 +6134,7 @@ def main() -> int:
     try:
         obs_train = phase_obs_train(obs_root, cli_run)
         obs_serve = phase_obs_serve(obs_root, obs_train["run"], cli_served)
+        tools = phase_tools(obs_root, obs_train["run"])
     finally:
         shutil.rmtree(obs_root, ignore_errors=True)
     obs_streamed = phase_obs_streamed(device)
@@ -5554,6 +6187,7 @@ def main() -> int:
         "obs-train (traced, profiled)": obs_train["launches"],
         "obs-serve (traced, /metrics, watchdog)": obs_serve["launches"],
         "obs-streamed (traced, one round)": obs_streamed["launches"],
+        **tool_paths(tools),
     }
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -5758,7 +6392,19 @@ def main() -> int:
           f"{obs_serve['exact'][0.5]:.4f} / {obs_serve['exact'][0.95]:.4f} "
           f"ms exact, the profiler's serving census {obs_serve['census']}; "
           f"traced streamed round theta "
-          f"{obs_streamed['theta_err']:.3e}; whole script "
+          f"{obs_streamed['theta_err']:.3e}")
+    ctl = tools["tune-controller"]
+    best = tools["tune"]["record"]
+    print(f"[summary] tuning and the tools: tune winner {best['pins']} "
+          f"(throughput_at_slo {best['score']['throughput_at_slo']} rps, p95 "
+          f"{best['score']['p95_ms']} ms, SLO {best['key']['slo_ms']:g} ms); "
+          f"serve --tuned logits max|card-cpu| "
+          f"{tools['serve-tuned']['logit_err']:.3e}; controller scripted "
+          f"{ctl['scripted']['totals']}, live {ctl['live']['totals']} "
+          f"(logits {ctl['logit_err']:.3e}); train --tuned theta vs untuned "
+          f"{tools['tune-cli']['theta_err']:.3e}; demo max|card-cpu| "
+          f"{tools['demo']['err']:.3e}; bench history exit codes "
+          f"{tools['bench-history']}; whole script "
           f"{time.perf_counter() - T_START:.1f} s")
     print(card_line())
     print(json.dumps(kernels))
@@ -5771,4 +6417,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -34,8 +34,10 @@ Counterpart of ``qfedx_tpu/obs/profile.py`` over ``torch.profiler``:
   and the kernel event is matched to its range through the launch's
   correlation id (or the device-lane annotation holding it).
 
-The reference's ``floor_attribution`` (the XLA op-floor model) has no
-counterpart.
+- ``floor_attribution`` — the compact floor-evidence row (static
+  census beside the measured ops, gaps and busy fraction) that
+  ``inspect`` prints for a profiled run directory; a copy of the
+  reference's plain dict builder, tolerant of partial summaries.
 
 ``QFEDX_PROFILE`` (the pin twin of ``--profile``): unset / ``0`` /
 ``off`` → no capture; ``1`` / ``on`` → the caller's default dir (the CLI
@@ -629,6 +631,23 @@ def attach_span_device(summary: dict) -> None:
         reg.set_span_device(
             name, row["device_busy_s"], row["utilization"]
         )
+
+
+def floor_attribution(static_state_ops: int | None, summary: dict) -> dict:
+    """The floor-evidence row: the static census next to the measured
+    per-op gap and busy fraction. Tolerant of partial summaries
+    (``inspect`` reads whatever a run directory holds): absent fields
+    are None."""
+    return {
+        "static_state_ops": static_state_ops,
+        "ops_executed": summary.get("ops_executed"),
+        "ops_per_step": summary.get("ops_per_step"),
+        "measured_vs_static": summary.get("measured_vs_static"),
+        "gap_us_per_op": summary.get("gap_p50_us"),
+        "gap_p95_us": summary.get("gap_p95_us"),
+        "device_busy_fraction": summary.get("device_busy_fraction"),
+        "device_lanes": summary.get("device_lanes"),
+    }
 
 
 def align_offset_us(parsed: dict) -> float | None:

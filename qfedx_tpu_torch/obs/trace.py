@@ -28,7 +28,8 @@ or to ``compile.unattributed_s`` when no span is open.
 Cost model: spans gate on the ``QFEDX_TRACE`` pin (default off), read
 per call, so the disabled path is one env read and one branch and
 returns one shared null span. The bounded instruments also record while
-a live /metrics endpoint or the watchdog is up (``metrics_enabled``).
+a live /metrics endpoint, the watchdog or the tune controller is up
+(``metrics_enabled``).
 ``QFEDX_TRACE_XLA=1`` (the reference's pin name) additionally opens a
 ``torch.profiler.record_function`` range per span, so a profile
 attributes device time to the span (obs/profile.py).
@@ -68,13 +69,18 @@ def set_live_metrics(on: bool) -> None:
 
 def metrics_enabled() -> bool:
     """Should counters/gauges/histograms record? True when QFEDX_TRACE
-    is on, a live /metrics endpoint is serving, or the watchdog is
-    enabled (a watchdog over an empty registry would be blind)."""
+    is on, a live /metrics endpoint is serving, the watchdog is enabled
+    or the tune controller is (a watchdog or a controller over an empty
+    registry would be blind)."""
     if _live_metrics or enabled():
         return True
     from qfedx_tpu_torch.obs import watch
 
-    return watch.enabled()
+    if watch.enabled():
+        return True
+    from qfedx_tpu_torch.tune import controller as _tune
+
+    return _tune.enabled()
 
 
 def xla_annotations_enabled() -> bool:

@@ -1,2 +1,3 @@
 """The runner of the PyTorch/CUDA port (counterpart of ``qfedx_tpu/run``):
-experiment config, metrics, checkpoints, the trainer and the CLI."""
+experiment config, metrics, checkpoints, the trainer, the CLI, the sweep
+harness and the encoder demo."""

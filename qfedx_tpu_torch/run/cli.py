@@ -1,37 +1,39 @@
-"""Command-line entry point: ``python -m qfedx_tpu_torch train|serve ...``.
+"""Command-line entry point: ``python -m qfedx_tpu_torch <subcommand> ...``.
 
 Counterpart of ``qfedx_tpu/run/cli.py``: ``build_parser`` takes the
 reference's subcommands and flags, so the same argv parses the same way
-and ``config_from_args`` gives the same ``ExperimentConfig``. ``train``
-builds the data and the model, trains in a tracked run directory
-(``config.json``, ``metrics.jsonl``, ``summary.json``, checkpoints) and
-prints the summary; ``serve --run-dir`` restores a run's checkpoint and
-answers a JSONL request stream. ``main(argv, device=None)`` runs on the
-card unless a caller passes ``device="cpu"`` (the tests do).
+and ``config_from_args`` gives the same ``ExperimentConfig``.
+``main(argv, device=None)`` runs on the card unless a caller passes
+``device="cpu"`` (the tests do).
 
-Every ``--model`` (vqc, cnn, qkernel, mps, with ``--bond-dim`` and
-``--landmarks``), every ``--encoding`` (angle, amplitude, reupload),
-every federation option of the resident round — ``--algorithm
-fedprox`` with ``--prox-mu``, ``--secure-agg[-mode|-neighbors]``,
-``--dp-clip/--dp-sigma/--dp-mode client|example`` (the summary's
-``final_epsilon``), ``--aggregator``, ``--clip-bound``,
-``--trim-fraction``, ``--client-fraction`` and ``--optimizer spsa`` —
-and the VQC's noise flags (``--depolarizing``, ``--damping``,
-``--readout-flip``, ``--shots``, ``--noise-placement readout|circuit``)
-run. The staleness settings (``--staleness-mode``, ``--staleness-alpha``,
-``--staleness-max-age``) go into ``FedConfig`` as in the reference; the
-resident trainer ignores them, as the reference's does (the streamed
-trainer, ``run/trainer.train_federated_streamed``, is a library entry
-in both packages). ``train --trace`` writes the run's ``trace.json`` and
-the summary's ``phase_breakdown``; ``--profile`` (or ``QFEDX_PROFILE``)
-captures a ``torch.profiler`` timeline into ``<run-dir>/profile`` and
-parses it into ``profile_summary.json``, and with ``--trace`` the
-``trace.json`` gets the device lane. ``serve --trace`` writes
-``serve_trace.json`` beside the served run. Not ported yet, each raising
-NotImplementedError: ``--plots``, ``--tuned`` and ``serve --tuned``
-(ROADMAP Queue 1 item 14b); sharding (``run/config.build_model``, item
-12); and the ``tune``, ``inspect``, ``demo``, ``sweep`` and ``bench``
-subcommands (item 14b) and ``lint`` (item 15).
+- ``train`` builds the data and the model, trains in a tracked run
+  directory (``config.json``, ``metrics.jsonl``, ``summary.json``,
+  checkpoints) and prints the summary. Every ``--model``, ``--encoding``,
+  federation option of the resident round and noise flag runs; the
+  staleness settings go into ``FedConfig`` as in the reference (the
+  resident trainer ignores them; the streamed trainer,
+  ``run/trainer.train_federated_streamed``, is a library entry).
+  ``--trace`` writes ``trace.json`` and the summary's
+  ``phase_breakdown``; ``--profile`` (or ``QFEDX_PROFILE``) captures a
+  ``torch.profiler`` timeline into ``profile_summary.json``; ``--plots``
+  saves the client-sample and class-distribution PNGs (``data/viz``,
+  matplotlib needed); ``--tuned PATH`` replays a ``best_config.json``'s
+  pins before the config is built (``config.json`` records
+  ``tuned_from``).
+- ``serve --run-dir`` restores a run's checkpoint and answers a JSONL
+  request stream; ``--trace`` writes ``serve_trace.json``; ``--tuned
+  [PATH]`` replays the sidecar's pins first (bare: the run directory's
+  ``best_config.json``; explicit ``--buckets``/``--deadline-ms`` win).
+- ``tune`` sweeps the serving lattice of a run (``tune/offline.py``) and
+  writes ``best_config.json``.
+- ``inspect <run-dir>`` summarizes a run directory; ``bench history``
+  reads the ``BENCH_r*.json`` trajectory (exit 1 on a regression, 2 with
+  no files); ``demo`` is the encoder walkthrough (``run/demo.py``);
+  ``sweep`` the config grid × seeds harness (``run/sweep.py``).
+
+Not ported yet, each raising NotImplementedError: sharding
+(``--sv-size > 1``, ``run/config.build_model``, ROADMAP Queue 1 item
+12) and the ``lint`` subcommand (item 15).
 """
 
 from __future__ import annotations
@@ -51,10 +53,9 @@ from qfedx_tpu_torch.run.config import (
 )
 
 
-# The reference's other subcommands, with the ROADMAP Queue 1 item that
-# ports each.
-_UNPORTED = {"tune": "14b", "inspect": "14b", "demo": "14b", "sweep": "14b",
-             "bench": "14b", "lint": "15"}
+# The reference's subcommands the port does not have yet, with the
+# ROADMAP Queue 1 item that ports each.
+_UNPORTED = {"lint": "15"}
 
 
 def _parse_classes(s: str | None):
@@ -182,7 +183,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--resume", action="store_true",
                    help="reuse the --name run dir and resume from its latest checkpoint")
     t.add_argument("--plots", action="store_true",
-                   help="not ported yet: raises (ROADMAP Queue 1 item 14b)")
+                   help="save client-sample and class-distribution PNGs to "
+                        "the run dir (needs matplotlib)")
     t.add_argument("--profile", action="store_true",
                    help="capture a torch.profiler device timeline into "
                         "<run-dir>/profile and parse it into "
@@ -192,7 +194,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "phases in metrics.jsonl, phase_breakdown in "
                         "summary.json, trace.json for Perfetto")
     t.add_argument("--tuned", default=None, metavar="PATH",
-                   help="not ported yet: raises (ROADMAP Queue 1 item 14b)")
+                   help="restore the pin set from a `tune` best_config.json "
+                        "sidecar before building the run config; pins the "
+                        "operator already set win")
 
     v = sub.add_parser(
         "serve",
@@ -224,7 +228,82 @@ def build_parser() -> argparse.ArgumentParser:
                         "serve_trace.json into the run dir")
     v.add_argument("--tuned", nargs="?", const="", default=None,
                    metavar="PATH",
-                   help="not ported yet: raises (ROADMAP Queue 1 item 14b)")
+                   help="restore the tuned pin set from a `tune` "
+                        "best_config.json sidecar before resolving the "
+                        "serve config (bare --tuned reads <run-dir>/"
+                        "best_config.json); pins the operator already set "
+                        "win, explicit --buckets/--deadline-ms flags "
+                        "always win")
+
+    tn = sub.add_parser(
+        "tune",
+        help="offline auto-tuner: sweep the serve bucket/deadline lattice "
+             "against a trained run's checkpoint and write the winner as a "
+             "best_config.json sidecar that `serve --tuned` / `train "
+             "--tuned` restore through pins",
+    )
+    tn.add_argument("--run-dir", required=True,
+                    help="a tracked run directory (config.json + "
+                         "checkpoints/)")
+    tn.add_argument("--round", type=int, default=None,
+                    help="restore this checkpointed round (default: newest "
+                         "last-good checkpoint)")
+    tn.add_argument("--slo-ms", type=float, default=None,
+                    help="latency SLO the score holds cells to (default: "
+                         "the resolved serve SLO)")
+    tn.add_argument("--buckets", default=None,
+                    help="semicolon-separated bucket SETS, each a comma-"
+                         "separated ascending list (e.g. '1,8;1,8,32'); "
+                         "default: the resolved serve bucket set only")
+    tn.add_argument("--deadlines", default=None,
+                    help="comma-separated micro-batcher flush deadlines in "
+                         "ms to sweep (e.g. '2.5,5,10'); default: the "
+                         "resolved deadline only")
+    tn.add_argument("--requests", type=int, default=96,
+                    help="offered-load requests per (cell, rate) point")
+    tn.add_argument("--out", default=None,
+                    help="sidecar path (default <run-dir>/best_config.json)")
+
+    i = sub.add_parser(
+        "inspect",
+        help="summarize a tracked run directory: metrics.jsonl trajectory "
+             "+ ledger totals, alert and tune rows, summary.json, "
+             "profile_summary.json, flight.json and best_config.json",
+    )
+    i.add_argument("run_dir",
+                   help="a tracked run directory (metrics.jsonl inside)")
+
+    d = sub.add_parser("demo", help="encoder walkthrough")
+    d.add_argument("--dataset", default="mnist",
+                   choices=["mnist", "fashion_mnist", "cifar10"])
+    d.add_argument("--out", default="runs/demo")
+
+    s = sub.add_parser("sweep",
+                       help="config-grid × seeds benchmark harness "
+                            "(mean±std table + plots)")
+    s.add_argument("--preset", default="roadmap",
+                   choices=["quick", "roadmap", "baseline"])
+    s.add_argument("--seeds", type=int, default=3)
+    s.add_argument("--run-root", default="runs")
+
+    b = sub.add_parser(
+        "bench",
+        help="bench-trajectory tools over the committed BENCH_r*.json "
+             "ledger",
+    )
+    bsub = b.add_subparsers(dest="bench_cmd", required=True)
+    bh = bsub.add_parser(
+        "history",
+        help="parse the BENCH_r*.json trajectory (numeric sort, "
+             "methodology-era tagging, provenance) into per-metric trend "
+             "verdicts; exit 1 on a regression",
+    )
+    bh.add_argument("--dir", default=".",
+                    help="directory holding BENCH_r*.json (default: cwd)")
+    bh.add_argument("--json", action="store_true", dest="as_json",
+                    help="machine-readable report only (one JSON object)")
+    bh.add_argument("--no-gate", action="store_true",
+                    help="report but always exit 0 (advisory mode)")
 
     # Not ported yet: main() raises for each, whatever its arguments.
     for name, item in _UNPORTED.items():
@@ -309,31 +388,18 @@ def config_from_args(a: argparse.Namespace) -> ExperimentConfig:
     )
 
 
-
-
-def _refuse_unported_train_flags(a: argparse.Namespace) -> None:
-    """Flags whose paths the port does not have yet raise; they never
-    silently run something else. (Sharding raises in
-    ``run/config.build_model``.)"""
-    for flag, on, item in (
-        ("--plots", a.plots, "14b"), ("--tuned", a.tuned is not None, "14b"),
-    ):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP Queue 1 item {item})"
-            )
-
-
 def run_train(cfg: ExperimentConfig, resume: bool = False,
               device=None, data: dict | None = None, profile: bool = False,
-              trace: bool = False) -> dict:
+              trace: bool = False, plots: bool = False) -> dict:
     """Train ``cfg`` in a tracked run directory on ``device`` (None = the
     card); returns the summary ``summary.json`` holds. ``data`` is what
     ``build_data(cfg)`` returns, for a caller that has built it already.
     ``trace`` sets QFEDX_TRACE for the run (the pin is the contract, the
     flag sugar); ``profile`` captures the training under
     ``torch.profiler`` into ``<run-dir>/profile`` (``QFEDX_PROFILE`` can
-    redirect or enable it) and parses it, even when training fails."""
+    redirect or enable it) and parses it, even when training fails;
+    ``plots`` saves ``client_samples.png`` and ``class_distribution.png``
+    into the run directory."""
     import contextlib
 
     from qfedx_tpu_torch import obs
@@ -359,6 +425,17 @@ def run_train(cfg: ExperimentConfig, resume: bool = False,
     with ExperimentRun(cfg.run_root, cfg.run_name(), config=cfg,
                        resume=resume) as run:
         print(f"[qfedx_tpu_torch] run dir: {run.dir}")
+        if plots:
+            from qfedx_tpu_torch.data.viz import (
+                save_class_distribution,
+                save_client_samples,
+            )
+
+            tr_x, _ = data["train"]
+            save_client_samples(tr_x, data["parts"],
+                                run.dir / "client_samples.png")
+            save_class_distribution(data["stats"],
+                                    run.dir / "class_distribution.png")
         print(
             f"[qfedx_tpu_torch] model={model.name} "
             f"clients={data['cx'].shape[0]} "
@@ -489,13 +566,20 @@ def run_serve(args, device=None) -> dict:
         restore_sigterm,
     )
 
-    if args.tuned is not None:
-        raise NotImplementedError(
-            "serve --tuned is not ported yet (ROADMAP Queue 1 item 14b)"
-        )
     if args.trace:
         pins.set_pin("QFEDX_TRACE", "1")
         obs.reset()
+    if getattr(args, "tuned", None) is not None:
+        # Replay the `tune` winner as pins before the config resolves;
+        # operator-set pins are skipped inside apply_best_config, and
+        # explicit --buckets/--deadline-ms flags below still win.
+        from qfedx_tpu_torch.tune import offline as tune_offline
+
+        applied = tune_offline.apply_best_config(args.tuned or args.run_dir)
+        print("[qfedx_tpu_torch] tuned pins applied: "
+              + json.dumps(applied["applied"])
+              + (f" (operator kept: {sorted(applied['skipped'])})"
+                 if applied["skipped"] else ""), file=sys.stderr)
     buckets = (
         tuple(int(b) for b in args.buckets.split(",")) if args.buckets
         else None
@@ -622,9 +706,477 @@ def run_serve(args, device=None) -> dict:
     return summary
 
 
+def run_tune(args, device=None) -> dict:
+    """``tune``: the offline half of the closed loop. Restores the run's
+    checkpoint once on ``device``, sweeps the (bucket set × deadline)
+    lattice through the real serving stack, and writes the winning cell
+    as a ``best_config.json`` pin sidecar (tune/offline.py)."""
+    from qfedx_tpu_torch.tune import offline as tune_offline
+
+    bucket_sets = (
+        tuple(
+            tuple(int(b) for b in grp.split(","))
+            for grp in args.buckets.split(";") if grp.strip()
+        )
+        if args.buckets else None
+    )
+    deadlines = (
+        tuple(float(d) for d in args.deadlines.split(","))
+        if args.deadlines else None
+    )
+    record = tune_offline.tune_run_dir(
+        args.run_dir,
+        round_idx=args.round,
+        slo_ms=args.slo_ms,
+        bucket_sets=bucket_sets,
+        deadlines_ms=deadlines,
+        requests=args.requests,
+        out_path=args.out,
+        device=device,
+    )
+    print(f"[qfedx_tpu_torch] tuned {args.run_dir}: {len(record['cells'])} "
+          f"cells swept, winner pins {json.dumps(record['pins'])} "
+          f"(throughput_at_slo={record['score']['throughput_at_slo']}, "
+          f"p95={record['score']['p95_ms']}ms)")
+    print(f"[qfedx_tpu_torch] sidecar: {record['path']} — restore with "
+          "`serve --tuned`")
+    print("[qfedx_tpu_torch] " + json.dumps(
+        {k: record[k] for k in ("schema", "key", "pins", "score", "path")}
+    ))
+    return record
+
+
+# -- the bench-trajectory regression ledger ------------------------------------
+#
+# ``bench history`` parses the committed BENCH_r*.json trajectory (the
+# reference's bench.py snapshots) into per-metric trend verdicts with a
+# gate-able exit code: pure stdlib file parsing, no device, the same
+# rules as the reference's tool.
+
+# The first round whose timing methodology is comparable: earlier rounds
+# are tagged and excluded from trend verdicts rather than compared.
+_FIRST_COMPARABLE_BENCH_ROUND = 4
+# Provenance watermark: rounds up to this one ran on the TPU; later ones
+# in CPU containers, never trend-compared against chip numbers. A row's
+# explicit "backend" field wins over this inference.
+_LAST_ONCHIP_BENCH_ROUND = 5
+
+# (dotted path into the parsed compact row, higher_is_better)
+_BENCH_TREND_METRICS = (
+    ("value", True),
+    ("per_dispatch_value", True),
+    ("fed16q_client_rounds_per_s.bf16", True),
+    ("engine_fwd_grad_ms.n18", False),
+    ("time_to_target.seconds", False),
+)
+
+
+def _dig(obj, dotted):
+    for part in dotted.split("."):
+        if not isinstance(obj, dict) or part not in obj:
+            return None
+        obj = obj[part]
+    return obj
+
+
+def _bench_history_rows(bench_dir) -> list[dict]:
+    """Parse every BENCH_r*.json in ``bench_dir``, numerically sorted,
+    each row tagged with methodology era and on-chip-vs-CPU provenance.
+    A null ``parsed`` is recovered from the captured ``tail`` (the same
+    recovery rule as the writer's)."""
+    import re
+
+    rows = []
+    for path in Path(bench_dir).glob("BENCH_r*.json"):
+        m = re.search(r"BENCH_r(\d+)\.json$", path.name)
+        if not m:
+            continue
+        n = int(m.group(1))
+        row = {"round": n, "file": path.name}
+        try:
+            rec = json.loads(path.read_text())
+        except ValueError:
+            row.update(parseable=False, error="bad JSON")
+            rows.append(row)
+            continue
+        parsed = rec.get("parsed")
+        recovered = False
+        if not isinstance(parsed, dict):
+            tail = rec.get("tail") or ""
+            at = tail.find('{"metric"')
+            if at >= 0:
+                try:
+                    parsed, _end = json.JSONDecoder().raw_decode(tail[at:])
+                    recovered = isinstance(parsed, dict)
+                except ValueError:
+                    parsed = None
+            if not isinstance(parsed, dict):
+                parsed = None
+        backend = parsed.get("backend") if parsed else None
+        row.update(
+            rc=rec.get("rc"),
+            parseable=parsed is not None,
+            recovered_from_tail=recovered,
+            methodology=(
+                "pre-r04" if n < _FIRST_COMPARABLE_BENCH_ROUND else "r04+"
+            ),
+            provenance=backend or (
+                "tpu" if n <= _LAST_ONCHIP_BENCH_ROUND else "cpu"
+            ),
+            parsed=parsed,
+        )
+        rows.append(row)
+    rows.sort(key=lambda r: r["round"])
+    return rows
+
+
+def _bench_trends(rows) -> tuple[dict, list[str]]:
+    """Per-metric trend verdicts over the comparable rows ("r04+"
+    methodology), comparing the latest point against the most recent
+    EARLIER point of the SAME provenance — a CPU-container number must
+    never read as a regression against an on-chip one. Thresholds:
+    ±5%."""
+    verdicts: dict = {}
+    regressed: list[str] = []
+    comparable = [
+        r for r in rows if r.get("parseable") and r["methodology"] == "r04+"
+    ]
+    for key, higher_better in _BENCH_TREND_METRICS:
+        series = []
+        for r in comparable:
+            v = _dig(r["parsed"], key)
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                series.append((r["round"], r["provenance"], float(v)))
+        if len(series) < 2:
+            verdicts[key] = {"verdict": "n/a", "points": len(series)}
+            continue
+        last = series[-1]
+        prev = next(
+            (s for s in reversed(series[:-1]) if s[1] == last[1]), None
+        )
+        if prev is None:
+            verdicts[key] = {
+                "verdict": "no-prior-same-provenance",
+                "now_round": last[0],
+                "provenance": last[1],
+            }
+            continue
+        if prev[2] == 0:
+            verdicts[key] = {"verdict": "n/a", "points": len(series)}
+            continue
+        ratio = last[2] / prev[2]
+        if higher_better:
+            verdict = (
+                "regressed" if ratio < 0.95
+                else ("improved" if ratio > 1.05 else "flat")
+            )
+        else:
+            verdict = (
+                "regressed" if ratio > 1.05
+                else ("improved" if ratio < 0.95 else "flat")
+            )
+        verdicts[key] = {
+            "verdict": verdict,
+            "prev_round": prev[0],
+            "now_round": last[0],
+            "prev": prev[2],
+            "now": last[2],
+            "ratio": round(ratio, 4),
+            "provenance": last[1],
+        }
+        if verdict == "regressed":
+            regressed.append(key)
+    return verdicts, regressed
+
+
+def _bench_history_compact(bench_dir) -> dict | None:
+    """One-line ledger summary, or None when ``bench_dir`` holds no
+    BENCH files — what ``inspect`` attaches when a run dir sits next to
+    the committed trajectory."""
+    rows = _bench_history_rows(bench_dir)
+    if not rows:
+        return None
+    _verdicts, regressed = _bench_trends(rows)
+    return {
+        "dir": str(bench_dir),
+        "rounds": len(rows),
+        "latest": rows[-1]["round"],
+        "latest_on_chip": max(
+            (r["round"] for r in rows if r.get("provenance") == "tpu"),
+            default=None,
+        ),
+        "regressed": regressed,
+    }
+
+
+def run_bench_history(args) -> int:
+    """``bench history``: the regression ledger. Exit 0 = no trend
+    regression, 1 = regression (gate-able; ``--no-gate`` keeps it
+    advisory), 2 = no BENCH files found."""
+    say = print
+    bench_dir = Path(args.dir)
+    rows = _bench_history_rows(bench_dir)
+    if not rows:
+        say(f"[qfedx_tpu_torch] no BENCH_r*.json files under {bench_dir}")
+        return 2
+    verdicts, regressed = _bench_trends(rows)
+    report = {
+        "dir": str(bench_dir),
+        "rows": [
+            {k: v for k, v in r.items() if k != "parsed"} for r in rows
+        ],
+        "verdicts": verdicts,
+        "regressed": regressed,
+        "latest_on_chip": max(
+            (r["round"] for r in rows if r.get("provenance") == "tpu"),
+            default=None,
+        ),
+    }
+    if args.as_json:
+        say(json.dumps(report))
+    else:
+        for r in rows:
+            tags = [r.get("methodology", "?"), r.get("provenance", "?")]
+            if not r.get("parseable"):
+                tags.append("unparseable")
+            elif r.get("recovered_from_tail"):
+                tags.append("tail-recovered")
+            val = _dig(r.get("parsed") or {}, "value")
+            say(f"[qfedx_tpu_torch] r{r['round']:02d} {r['file']}: "
+                f"value={val} [{', '.join(tags)}]")
+        for key, v in verdicts.items():
+            say(f"[qfedx_tpu_torch] {key}: {json.dumps(v)}")
+        say("[qfedx_tpu_torch] " + json.dumps(report))
+        if regressed and not args.no_gate:
+            say("[qfedx_tpu_torch] REGRESSED: " + ", ".join(regressed))
+    if regressed and not args.no_gate:
+        return 1
+    return 0
+
+
+def run_inspect(run_dir) -> dict:
+    """``inspect <run-dir>``: the read side of the run directory.
+
+    Summarizes ``metrics.jsonl`` (rounds completed, loss/accuracy
+    trajectory, the casualty/byzantine/staleness ledger totals, the
+    alert and tune event rows, schema validation of every row via
+    ``validate_metrics_record``), ``summary.json``,
+    ``profile_summary.json`` (with ``floor_attribution``),
+    ``config.json``, ``flight.json``, ``best_config.json`` and the
+    adjacent ``BENCH_r*.json`` compact row. Prints a compact report plus
+    one final JSON line; returns the dict (the reference's, key for
+    key)."""
+    from qfedx_tpu_torch.run.metrics import validate_metrics_record
+
+    say = print
+    run_dir = Path(run_dir)
+    metrics_path = run_dir / "metrics.jsonl"
+    if not metrics_path.exists():
+        raise FileNotFoundError(
+            f"{metrics_path} not found — not a tracked run directory"
+        )
+
+    rows, invalid = [], []
+    for i, line in enumerate(metrics_path.read_text().splitlines()):
+        if not line.strip():
+            continue
+        try:
+            rec = json.loads(line)
+        except json.JSONDecodeError as exc:
+            invalid.append(f"line {i + 1}: bad JSON: {exc}")
+            continue
+        try:
+            rows.append(validate_metrics_record(rec))
+        except ValueError as exc:
+            invalid.append(f"line {i + 1}: {exc}")
+            # Schema violations are REPORTED, not fatal: a pre-schema
+            # run still summarizes from whatever rounds it recorded.
+            if isinstance(rec.get("round"), int):
+                rows.append(rec)
+
+    # Event rows (watchdog alerts, tune decisions) interleave with round rows in
+    # the same file, keyed by "event" instead of "round" — every
+    # round-shaped aggregate below must see round rows ONLY.
+    event_rows = [r for r in rows if "event" in r]
+    rows = [r for r in rows if "event" not in r]
+    accs = [r["accuracy"] for r in rows if r.get("accuracy") is not None]
+    losses = [r["loss"] for r in rows if r.get("loss") is not None]
+    # The permanent robustness record (the round ledgers) — summed only
+    # over rows that carry the field, so pre-guard runs report nothing.
+    ledger = {
+        field: int(sum(r[field] for r in rows if field in r))
+        for field in (
+            "rejected_updates", "dropped_clients", "clipped_clients",
+            "late_waves", "stale_partials_applied", "stale_discarded_waves",
+        )
+        if any(field in r for r in rows)
+    }
+    # The detection record: firing transitions per rule ID, from the
+    # structured alert events the watchdog sank into this file.
+    alerts_fired: dict[str, int] = {}
+    for r in event_rows:
+        if r.get("event") == "alert" and r.get("state") == "firing":
+            rid = str(r.get("rule", "?"))
+            alerts_fired[rid] = alerts_fired.get(rid, 0) + 1
+    # The adaptation record: tune-controller decisions per
+    # decision ID, reverts counted apart — shown next to the alert
+    # totals so one inspect answers "what fired AND what adapted".
+    # Tolerant of no-tuner runs (both stay empty/zero).
+    tune_decisions: dict[str, int] = {}
+    tune_reverts = 0
+    for r in event_rows:
+        if r.get("event") == "tune":
+            did = str(r.get("decision", "?"))
+            tune_decisions[did] = tune_decisions.get(did, 0) + 1
+            if r.get("revert"):
+                tune_reverts += 1
+    out = {
+        "run_dir": str(run_dir),
+        "rounds_completed": max((r["round"] for r in rows), default=0),
+        "metrics_rows": len(rows),
+        "event_rows": len(event_rows),
+        "alerts_fired": alerts_fired,
+        "tune_decisions": tune_decisions,
+        "tune_reverts": tune_reverts,
+        "invalid_rows": len(invalid),
+        "first_accuracy": accs[0] if accs else None,
+        "best_accuracy": max(accs) if accs else None,
+        "last_accuracy": accs[-1] if accs else None,
+        "last_loss": losses[-1] if losses else None,
+        "last_epsilon": next(
+            (r["epsilon"] for r in reversed(rows) if r.get("epsilon")
+             is not None),
+            None,
+        ),
+        "rounds_skipped": sum(1 for r in rows if r.get("skipped")),
+        "ledger": ledger,
+    }
+    # The fuse/scan/kernel chain as THIS process resolves it (the run's
+    # own raw pins live in config.json).
+    from qfedx_tpu_torch.ops.scan_body import resolved_route
+
+    out["route"] = resolved_route()
+    # Artifact problems are tracked apart from metrics-row validation:
+    # invalid_rows (already in `out`) counts metrics.jsonl records only,
+    # and a truncated summary.json must still show up in the JSON line.
+    bad_artifacts = []
+    for name in ("summary.json", "profile_summary.json", "config.json"):
+        path = run_dir / name
+        if path.exists():
+            try:
+                obj = json.loads(path.read_text())
+            except ValueError:
+                bad_artifacts.append(name)
+                continue
+            if name == "summary.json":
+                out["summary"] = {
+                    k: obj.get(k)
+                    for k in ("final_accuracy", "final_epsilon",
+                              "wall_time_s", "partial", "crashed")
+                    if k in obj
+                }
+            elif name == "profile_summary.json":
+                out["profile"] = {
+                    k: obj.get(k)
+                    for k in ("ops_executed", "gap_p50_us",
+                              "device_busy_fraction", "device_busy_s")
+                }
+                # The floor_attribution compact row (obs/profile.py).
+                from qfedx_tpu_torch.obs import profile as obs_profile
+
+                out["floor_attribution"] = obs_profile.floor_attribution(
+                    obj.get("static_state_ops"), obj
+                )
+            else:
+                model = (obj.get("model") or {})
+                out["model"] = (
+                    f"{model.get('model', '?')} "
+                    f"n={model.get('n_qubits', '?')} "
+                    f"layers={model.get('n_layers', '?')}"
+                )
+    # The black box: a flight.json left by a SIGTERM'd/crashed or
+    # alert-firing process. Summarized, never re-dumped — inspect is the
+    # read side.
+    flight_path = run_dir / "flight.json"
+    if flight_path.exists():
+        try:
+            fl = json.loads(flight_path.read_text())
+        except ValueError:
+            bad_artifacts.append("flight.json")
+        else:
+            out["flight"] = {
+                "path": str(flight_path),
+                "bytes": flight_path.stat().st_size,
+                "reason": fl.get("reason"),
+                "events": len(fl.get("events", [])),
+                "dropped": fl.get("dropped"),
+            }
+    # The tuned sidecar: a best_config.json left by `tune` — chosen
+    # cell, score, provenance. Absent for untuned runs.
+    tuned_path = run_dir / "best_config.json"
+    if tuned_path.exists():
+        try:
+            tuned = json.loads(tuned_path.read_text())
+        except ValueError:
+            bad_artifacts.append("best_config.json")
+        else:
+            out["tune"] = {
+                "path": str(tuned_path),
+                "pins": tuned.get("pins"),
+                "score": tuned.get("score"),
+                "cells": len(tuned.get("cells") or []),
+                "source": (tuned.get("provenance") or {}).get("source"),
+            }
+    # Bench-trajectory adjacency: when this run dir sits inside (or
+    # next to) a checkout carrying the committed BENCH_r*.json ledger,
+    # attach the compact history row so one inspect answers both "how
+    # did this run do" and "where is the trajectory".
+    for cand in (run_dir, run_dir.parent, run_dir.parent.parent):
+        compact = _bench_history_compact(cand)
+        if compact is not None:
+            out["bench_history"] = compact
+            break
+    if bad_artifacts:
+        out["unreadable_artifacts"] = bad_artifacts
+    say(f"[qfedx_tpu_torch] {run_dir}: {out['rounds_completed']} rounds, "
+        f"accuracy {out['first_accuracy']} -> {out['last_accuracy']} "
+        f"(best {out['best_accuracy']})")
+    if ledger:
+        say("[qfedx_tpu_torch] ledger: " + json.dumps(ledger))
+    if alerts_fired:
+        say("[qfedx_tpu_torch] alerts fired: " + json.dumps(alerts_fired))
+    if tune_decisions:
+        say("[qfedx_tpu_torch] tune decisions: " + json.dumps(tune_decisions)
+            + f" (reverts: {tune_reverts})")
+    if "tune" in out:
+        say(f"[qfedx_tpu_torch] tuned sidecar: {out['tune']['path']} "
+            f"(pins {json.dumps(out['tune']['pins'])}, "
+            f"score {json.dumps(out['tune']['score'])}, "
+            f"{out['tune']['cells']} cells)")
+    if "flight" in out:
+        say(f"[qfedx_tpu_torch] flight recorder: {out['flight']['path']} "
+            f"({out['flight']['bytes']} bytes, "
+            f"reason={out['flight']['reason']}, "
+            f"{out['flight']['events']} events)")
+    if "bench_history" in out:
+        say("[qfedx_tpu_torch] bench history: "
+            + json.dumps(out["bench_history"]))
+    say("[qfedx_tpu_torch] route: " + json.dumps(out["route"]))
+    if "floor_attribution" in out:
+        say("[qfedx_tpu_torch] floor: " + json.dumps(out["floor_attribution"]))
+    for problem in invalid[:5]:
+        say(f"[qfedx_tpu_torch] invalid metrics record: {problem}")
+    for name in bad_artifacts:
+        say(f"[qfedx_tpu_torch] unreadable artifact: {name}")
+    say("[qfedx_tpu_torch] " + json.dumps(out))
+    return out
+
+
+
 def main(argv=None, device=None):
     """Parse ``argv`` and run the subcommand on ``device`` (None = the
-    card; the tests pass ``"cpu"``). Returns the subcommand's summary."""
+    card; the tests pass ``"cpu"``). Returns the subcommand's summary;
+    ``bench history`` exits with its code, as the reference's does."""
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
     if args.cmd in _UNPORTED:
@@ -634,9 +1186,34 @@ def main(argv=None, device=None):
         )
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    if args.cmd == "bench":
+        # Pure file parsing over committed BENCH_r*.json snapshots.
+        raise SystemExit(run_bench_history(args))
     if args.cmd == "train":
-        _refuse_unported_train_flags(args)
+        if args.tuned:
+            # Replay tuned pins before the config is built, so route
+            # choices land in config.json with the run. Operator-set pins
+            # win inside apply.
+            from qfedx_tpu_torch.tune import offline as tune_offline
+
+            applied = tune_offline.apply_best_config(args.tuned)
+            print("[qfedx_tpu_torch] tuned pins applied: "
+                  + json.dumps(applied["applied"]))
         return run_train(config_from_args(args), resume=args.resume,
                          device=device, profile=args.profile,
-                         trace=args.trace)
-    return run_serve(args, device=device)
+                         trace=args.trace, plots=args.plots)
+    if args.cmd == "serve":
+        return run_serve(args, device=device)
+    if args.cmd == "tune":
+        return run_tune(args, device=device)
+    if args.cmd == "inspect":
+        return run_inspect(args.run_dir)
+    if args.cmd == "demo":
+        from qfedx_tpu_torch.run.demo import run_demo
+
+        return run_demo(out_dir=args.out, dataset=args.dataset,
+                        device=device)
+    from qfedx_tpu_torch.run.sweep import run_sweep
+
+    return run_sweep(preset=args.preset, seeds=args.seeds,
+                     root=args.run_root, device=device)

@@ -16,9 +16,9 @@ the flight recorder dumps ``flight.json`` into the run directory
 ``metrics.jsonl`` as ``{"event": "alert"}`` rows (``QFEDX_WATCH``), and
 with ``QFEDX_TRACE`` the summary carries ``phase_breakdown`` and
 ``obs_counters`` — and a crash still leaves ``trace.json`` and a partial
-summary (``flush_partial_observability``). The tune controller
-(``QFEDX_TUNE``) is not ported yet (ROADMAP Queue 1 item 14b): with its
-pin on a run raises.
+summary (``flush_partial_observability``). The tune controller's
+decisions (``QFEDX_TUNE``) land in the same ``metrics.jsonl`` as
+``{"event": "tune"}`` rows, through the same identity-matched sink.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ import time
 from pathlib import Path
 from typing import Any, Mapping
 
-from qfedx_tpu_torch.utils import pins
 from qfedx_tpu_torch.utils.host import (
     install_sigterm_interrupt,
     restore_sigterm,
@@ -54,10 +53,6 @@ _EVENT_REQUIRED_FIELDS: dict[str, Any] = {
     "event": lambda v: isinstance(v, str) and bool(v),
     "ts": lambda v: isinstance(v, (int, float)),
 }
-
-# The reference's run-level pin of a path the port does not have yet
-# (ROADMAP Queue 1 item 14b).
-UNPORTED_PINS = ("QFEDX_TUNE",)
 
 
 def validate_metrics_record(rec: Mapping[str, Any]) -> dict:
@@ -152,7 +147,6 @@ class ExperimentRun:
     def __init__(
         self, root: str | Path, name: str, config: Any = None, resume: bool = False
     ):
-        pins.refuse_unported("Queue 1 item 14b", *UNPORTED_PINS)
         self.dir = Path(root) / _agreed_run_dir_name(Path(root), name, resume)
         self.dir.mkdir(parents=True, exist_ok=True)
         if config is not None:
@@ -164,11 +158,14 @@ class ExperimentRun:
         # The black box lands in THIS run's directory and the watchdog's
         # alerts in THIS run's metrics.jsonl (both no-ops with their pins
         # off); the sink is identity-matched on __exit__.
+        from qfedx_tpu_torch import tune
         from qfedx_tpu_torch.obs import flight, watch
 
         flight.set_dump_path(self.dir / "flight.json")
         self._alert_sink = self.metrics.log
         watch.set_event_sink(self._alert_sink)
+        # The tune controller's decision rows ride the same sink.
+        tune.set_event_sink(self._alert_sink)
 
     def on_round_end(self, round_idx: int, metrics: Mapping[str, Any]) -> None:
         self.metrics.log({"round": round_idx + 1, **metrics})
@@ -239,10 +236,12 @@ class ExperimentRun:
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        from qfedx_tpu_torch import tune
         from qfedx_tpu_torch.obs import flight, watch
 
         restore_sigterm(getattr(self, "_sigterm_token", None))
         watch.clear_event_sink(only_if=self._alert_sink)
+        tune.clear_event_sink(only_if=self._alert_sink)
         if exc_type is not None:
             # The black box dumps on ANY unwinding exception, SIGTERM's
             # KeyboardInterrupt included, and needs no QFEDX_TRACE.

@@ -28,8 +28,10 @@ counters ``serve.requests_rejected`` and ``serve.requests_shed``, the
 gauge ``serve.queue_depth``, a ``serve.queue`` span per flush (its size,
 trigger and, when tracing, the request ids), a ``trace_context(reqs=)``
 around the engine call so its spans carry those ids, and the
-``serve.latency_ms`` histogram (submit → answer). The tune controller's
-seam (``QFEDX_TUNE``) is ROADMAP Queue 1 item 14b.
+``serve.latency_ms`` histogram (submit → answer). When the engine has a
+tune controller (``QFEDX_TUNE``), each flush reads the active deadline
+and bucket cap from it, one attribute read each; without one the
+batcher reads its static config.
 """
 
 from __future__ import annotations
@@ -235,8 +237,17 @@ class MicroBatcher:
     def _take_locked(self) -> tuple[list, str] | None:
         """Under the lock: wait for a flush trigger; pop up to one
         max-bucket of requests. None = closed and empty."""
-        deadline_s = self.config.deadline_ms / 1e3
-        cap = self.engine.max_bucket
+        # The adaptation seam: with a tune controller attached, the
+        # ACTIVE deadline and cap come from it, read once per flush, so a
+        # decision takes effect on the next batch (the cap only names a
+        # warmed bucket). tuner=None reads the static config.
+        tuner = getattr(self.engine, "tuner", None)
+        if tuner is not None:
+            deadline_s = tuner.deadline_ms / 1e3
+            cap = tuner.max_bucket
+        else:
+            deadline_s = self.config.deadline_ms / 1e3
+            cap = self.engine.max_bucket
         while True:
             if self._pending and (self._closed or len(self._pending) >= cap):
                 # Bucket-full flush (or the drain's final sweeps).

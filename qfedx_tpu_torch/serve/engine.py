@@ -31,8 +31,11 @@ Telemetry (``obs``, the reference's names): ``warmup`` brings up the
 (nested in ``serve.compute``: the device→host copy, the one place a
 batch waits for the card) and the counters ``serve.warmup_buckets``,
 ``serve.compute_retries``, ``serve.batches`` and
-``serve.requests_served``. Not ported yet: the tune controller
-(``QFEDX_TUNE``, ROADMAP Queue 1 item 14b).
+``serve.requests_served``. With ``QFEDX_TUNE`` on, ``warmup`` attaches
+the tune controller (``tune/controller.py``) as ``ServeEngine.tuner``
+and starts its ticker once every bucket is warm; the batcher reads the
+active deadline and bucket cap from it. With the pin off ``tuner`` stays
+None: no controller object, no thread, no ``tune.*`` instrument.
 """
 
 from __future__ import annotations
@@ -142,6 +145,10 @@ class ServeEngine:
         self._fwd = persistent_forward(model.apply)
         self._warm = False
         self._fetch = threading.local()  # serve.fetch meta while in infer
+        # The adaptive controller seam (tune/controller.py): attached by
+        # warmup() iff QFEDX_TUNE is on, read by the batcher per flush.
+        # None (the default): the batcher reads the static config.
+        self.tuner = None
 
     # -- buckets -------------------------------------------------------------
 
@@ -203,6 +210,15 @@ class ServeEngine:
                 )
         self._warm = True
         obs.counter("serve.warmup_buckets", len(per_bucket))
+        # The tune controller attaches once every bucket it may pick is
+        # warm, so a decision can never name a cold bucket. Default off:
+        # maybe_controller returns None and nothing changes.
+        from qfedx_tpu_torch import tune
+
+        if self.tuner is None:
+            self.tuner = tune.maybe_controller(self)
+        if self.tuner is not None:
+            self.tuner.maybe_start()
         return {
             "buckets": per_bucket,
             "num_classes": int(out.shape[-1]),
@@ -317,7 +333,6 @@ def engine_from_run_dir(
         experiment_config_from_dict,
     )
 
-    pins.refuse_unported("Queue 1 item 14b", "QFEDX_TUNE")
     run_dir = Path(run_dir)
     cfg_path = run_dir / "config.json"
     if not cfg_path.exists():

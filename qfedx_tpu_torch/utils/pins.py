@@ -190,16 +190,3 @@ def interval_pin(name: str, on_value: float, default: float = 0.0) -> float:
         raise ValueError(f"{name}={env!r}: period must be >= 0")
     return period
 
-
-def refuse_unported(item: str, *names: str) -> None:
-    """Raise NotImplementedError naming ROADMAP ``item`` when any of the
-    pins ``names`` is set to anything but empty, ``0`` or ``off``: the
-    reference reads them to switch on a path the port does not have yet,
-    and the port must not silently run without it."""
-    on = [n for n in names
-          if os.environ.get(n, "") and parse_onoff(os.environ[n]) is not False]
-    if on:
-        raise NotImplementedError(
-            f"{', '.join(on)} switch on a path that is not ported yet "
-            f"(ROADMAP {item})"
-        )

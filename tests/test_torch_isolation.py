@@ -1,5 +1,7 @@
 """The port stands alone: importing every module of ``qfedx_tpu_torch``
-loads neither ``jax`` nor any module of the ``qfedx_tpu`` reference.
+loads neither ``jax`` nor any module of the ``qfedx_tpu`` reference, nor
+``matplotlib`` (the plotting modules import it inside their functions;
+the card's machine has none).
 
 Runs in a fresh subprocess (this test process has both loaded already).
 """
@@ -24,7 +26,8 @@ for name in names:
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "qfedx_tpu"
-    or m.startswith("qfedx_tpu.")
+    or m.startswith("qfedx_tpu.") or m == "matplotlib"
+    or m.startswith("matplotlib.")
 )
 print(json.dumps({"modules": names, "leaked": leaked}))
 """
@@ -50,5 +53,6 @@ def test_port_imports_no_jax_and_no_reference():
                 "run.metrics", "run.checkpoint", "run.trainer", "run.cli",
                 "obs.histo", "obs.trace", "obs.export", "obs.flight",
                 "obs.server", "obs.watch", "obs.merge", "obs.profile",
-                "obs.census", "__main__"):
+                "obs.census", "tune", "tune.controller", "tune.offline",
+                "data.viz", "run.demo", "run.sweep", "__main__"):
         assert f"qfedx_tpu_torch.{mod}" in report["modules"]

@@ -16,7 +16,6 @@
 - A SIGTERM inside a tracked run with ``QFEDX_FLIGHT=on`` leaves
   ``flight.json`` (and, traced, ``trace.json`` and a partial summary)
   in the run directory.
-- ``QFEDX_TUNE`` still raises, naming item 14b.
 """
 
 import functools
@@ -355,12 +354,3 @@ def test_sigterm_leaves_flight_and_partial_trace(tmp_path, monkeypatch):
     assert "round.dispatch" in partial["phase_breakdown"]
     assert "round.dispatch" in _span_names(run.dir / "trace.json")
 
-
-def test_tune_pin_still_raises(tmp_path, monkeypatch):
-    monkeypatch.setenv("QFEDX_TUNE", "on")
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        ExperimentRun(tmp_path, "tuned")
-    from qfedx_tpu_torch.serve.engine import engine_from_run_dir
-
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        engine_from_run_dir(tmp_path, device="cpu")

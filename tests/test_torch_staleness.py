@@ -447,4 +447,3 @@ def test_cli_staleness_flags_reach_fed_config():
             got.staleness_max_age) == (want.staleness_mode,
                                        want.staleness_alpha,
                                        want.staleness_max_age)
-    pcli._refuse_unported_train_flags(pcli.build_parser().parse_args(argv))
