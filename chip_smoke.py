@@ -8,7 +8,9 @@ For a rehearsal of the tuning and tool phases alone (item 21 below),
 ``python3 chip_smoke.py --only tune,sweep`` (any of ``TOOL_PHASES``; a
 phase that reads another's output brings it along) builds the kernel,
 trains one traced and profiled [cli-train] run on the card to read from,
-and runs those phases; it prints no ``kernels`` line and no final line.
+and runs those phases; ``--only mesh-round,sv-sharded`` (any of
+``MESH_PHASES``, item 22) builds the kernel and runs those. A selected
+run prints no ``kernels`` line and no final line.
 
 Phases (any failure raises and exits non-zero):
 
@@ -303,13 +305,34 @@ Phases (any failure raises and exits non-zero):
    tune and alert rows, flight recorder, sidecar, floor row);
    ``[bench-history]`` reads the checkout's BENCH_r*.json and a regressed
    and an empty fixture (exit codes 0, 1, 2);
-22. print one JSON line describing each launch of the kernel, f32 and
+22. the device mesh and the sharded statevector (``qfedx_tpu_torch/
+   parallel``): ``[mesh-round]`` runs 2 rounds at n = 12, L = 3, 4
+   clients × 16 samples, batch 16 over a 2 × 1 client mesh with both
+   slots on the card (SGD: θ and loss against the one-slot round on the
+   card within MESH_SLOT_ATOL and the CPU's 2-slot round within
+   MESH_CPU_ATOL; one B and one C per local step per slot, no A, no
+   build after round 0; an Adam twin gated on logits); ``[sv-sharded]``
+   holds the n = 22 one-layer forward on 8 sv slots against the dense
+   engine on the card (SV_WIDE_ATOL), prints both forwards' times, and
+   one SGD round of 2 clients × 2 samples on the (1, 8) mesh against the
+   dense model's round (SV_ROUND_ATOL; no launch); ``[sv-noise]`` holds
+   n = 10 trajectories on 4 sv slots against the dense noisy model on
+   the same draws (no branch choice differs, logits within
+   SV_NOISE_ATOL); ``[sv-cli]`` trains SV_CLI_ARGV (c5-svqc's widths:
+   n = 8, sv 4, 32 clients) over 8 slots on the card, and the same 2
+   rounds over 8 on the CPU (rows and θ of both rounds within
+   SV_CLI_ATOL; each side's round cost its window over its rounds); ``[distributed]`` joins a one-rank
+   NCCL process group and reruns [mesh-round]'s SGD rounds through
+   ``torch.distributed.all_reduce`` (θ equal exactly; no two-GPU path
+   is measured on the one card). ``--only`` takes these names too;
+23. print one JSON line describing each launch of the kernel, f32 and
    bf16 instances (launches on the CLI run, and per path, the dense,
    reupload, amplitude, config-4, federation-option, model-family,
-   noise, streamed, fault-plan, observability and tool paths included;
+   noise, streamed, fault-plan, observability, tool and mesh paths
+   included;
    max error; kernel-alone, plain and bound at the CLI run's shape, and
    at the earlier slices', the reupload, SPSA and per-example shapes);
-23. print the final ``{"ok": true, "device": {...}}`` line.
+24. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -5969,40 +5992,480 @@ def tool_paths(tools: dict) -> dict:
     }
 
 
+# --- the device mesh, the sharded statevector, the multi-device round -------
+
+MESH_PHASES = ("mesh-round", "sv-sharded", "sv-noise", "sv-cli",
+               "distributed")
+# [mesh-round]: the CLI run's widths (n = 12, L = 3, 4 clients) in a
+# library round of 16 samples a client, batch 16: one local step a round.
+MESH_N, MESH_LAYERS, MESH_CLIENTS, MESH_SAMPLES, MESH_BATCH = 12, 3, 4, 16, 16
+MESH_ROUNDS = 2
+MESH_SLOT_ATOL = 1e-5  # 2 client slots vs 1 slot, both on the card
+MESH_CPU_ATOL = 1e-4  # the card's 2-slot round vs the CPU's
+SV_WIDE_N = 22  # the reference's test_sharded_beyond_dense_22q shape
+SV_WIDE_ATOL = 2e-3  # its bound (tests/test_sharded.py:232-242)
+SV_ROUND_ATOL = 1e-4  # the 22-qubit SGD round, sharded vs dense
+SV_NOISE_ATOL = 2e-5
+# c5-svqc's widths (n = 8, sv 4, 32 clients, classes 0,1, lr 0.2) for 2
+# rounds of one local epoch (the cell's two epochs double a round of
+# launch-bound sharded steps, PERF.md §6), under SGD so that θ is
+# gated (one Adam step is a sign step on the zero-gradient angles).
+SV_CLI_ARGV = ["train", "--model", "vqc", "--qubits", "8", "--sv-size", "4",
+               "--clients", "32", "--classes", "0,1", "--local-epochs", "1",
+               "--lr", "0.2", "--rounds", "2", "--optimizer", "sgd",
+               "--checkpoint-every", "1"]
+SV_CLI_ATOL = 1e-4
+
+
+def _mesh_data():
+    rng = np.random.default_rng(1216)
+    c, s, n = MESH_CLIENTS, MESH_SAMPLES, MESH_N
+    return (rng.uniform(0, 1, (c, s, n)).astype(np.float32),
+            rng.integers(0, 2, (c, s)).astype(np.int64),
+            np.ones((c, s), np.float32))
+
+
+def _mesh_rounds(device, optimizer: str, mesh) -> dict:
+    """MESH_ROUNDS rounds of the [mesh-round] shape on ``device`` over
+    ``mesh`` (None: one slot), the counters set to 0 just before each
+    round: θ, the losses, each round's launches and the build count after
+    it."""
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.fed.round import (
+        RoundDraws,
+        make_fed_round,
+        shard_client_data,
+    )
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.ops import scan_body
+
+    cfg = FedConfig(local_epochs=1, batch_size=MESH_BATCH,
+                    learning_rate=0.1, optimizer=optimizer)
+    model = make_vqc_classifier(MESH_N, MESH_LAYERS, 2, device=device)
+    params = model.init(16)
+    cx, cy, cm = _mesh_data()
+    rf = make_fed_round(model, cfg, MESH_CLIENTS, mesh=mesh)
+    data = (shard_client_data(mesh, cx, cy, cm) if mesh is not None else
+            [torch.as_tensor(a, device=device) for a in (cx, cy, cm)])
+    out = {"losses": [], "launches": [], "walls": []}
+    for r in range(MESH_ROUNDS):
+        perms = torch.stack([torch.randperm(
+            MESH_SAMPLES, generator=torch.Generator().manual_seed(
+                100 * r + c))[None] for c in range(MESH_CLIENTS)])
+        scan_body.reset_counts()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, stats = rf(params, *data, perms=perms,
+                           draws=RoundDraws(16, r))
+        loss = float(stats.mean_loss)
+        out["walls"].append(time.perf_counter() - t0)
+        out["launches"].append((dict(scan_body.launch_counts),
+                                scan_body.build_count))
+        out["losses"].append(loss)
+    held = np.random.default_rng(17).uniform(
+        0, 1, (32, MESH_N)).astype(np.float32)
+    with torch.no_grad():
+        out["logits"] = model.apply(params, held).cpu()
+    out["theta"] = [t.detach().cpu() for t in trees_leaves(params)]
+    return out
+
+
+def phase_mesh_round(device) -> dict:
+    """``[mesh-round]``: the [mesh-round] shape over a 2 × 1 client mesh
+    with both slots on the card, under SGD: θ and loss against the
+    one-slot round on the card (MESH_SLOT_ATOL) and the CPU's 2-slot
+    round (MESH_CPU_ATOL), one Launch B and one C per local step per
+    slot, no A, no build after round 0; an Adam twin gated on the
+    held-out logits (one Adam step is a sign step on the zero-gradient
+    angles, so its θ is printed)."""
+    from qfedx_tpu_torch.fed.round import client_mesh
+
+    steps = MESH_SAMPLES // MESH_BATCH
+    want = {"fwd": 0, "fwd_bnd": 2 * steps, "adj": 2 * steps}
+    out = {"launches": dict(NO_LAUNCH)}
+    for opt in ("sgd", "adam"):
+        two = _mesh_rounds(device, opt, client_mesh(devices=[device] * 2))
+        one = _mesh_rounds(device, opt, None)
+        # The CPU twin runs the SGD rounds (the plain sweep at n = 12
+        # takes seconds a round on the host).
+        cpu = (_mesh_rounds(torch.device("cpu"), opt,
+                            client_mesh(devices=["cpu"] * 2))
+               if opt == "sgd" else one)
+        slot_err = _max_err(two["theta"], one["theta"])
+        cpu_err = _max_err(two["theta"], cpu["theta"])
+        loss_err = max(max(abs(a - b) for a, b in zip(two["losses"],
+                                                      one["losses"])),
+                       max(abs(a - b) for a, b in zip(two["losses"],
+                                                      cpu["losses"])))
+        logit_err = max(_max_err([two["logits"]], [one["logits"]]),
+                        _max_err([two["logits"]], [cpu["logits"]]))
+        print(f"[mesh-round] {opt}: 2 slots on {device} vs 1 slot theta "
+              f"max|err| {slot_err:.3e}, vs the CPU's 2 slots {cpu_err:.3e};"
+              f" losses {two['losses']} (1 slot {one['losses']}, cpu "
+              f"{cpu['losses']}), max|loss err| {loss_err:.3e}; held-out "
+              f"logits {logit_err:.3e}; launches per round "
+              f"{[c for c, _ in two['launches']]} (1 slot "
+              f"{[c for c, _ in one['launches']]}); round walls "
+              f"{[w * 1e3 for w in two['walls']]} ms (1 slot "
+              f"{[w * 1e3 for w in one['walls']]} ms; host clock)")
+        if opt == "sgd":
+            _require(slot_err, MESH_SLOT_ATOL, "mesh-round theta, 2 vs 1 slot")
+            _require(cpu_err, MESH_CPU_ATOL, "mesh-round theta, card vs cpu")
+            _require(loss_err, MESH_SLOT_ATOL, "mesh-round losses")
+            out.update(theta=two["theta"], theta_err=max(slot_err, cpu_err))
+        else:
+            _require(logit_err, TRAINED_LOGIT_ATOL,
+                     "mesh-round adam logits")
+            out["adam_logit_err"] = logit_err
+        for r, (counts, builds) in enumerate(two["launches"]):
+            if counts != want:
+                raise AssertionError(f"[mesh-round] {opt} round {r} "
+                                     f"launched {counts}, expected {want}")
+            if r and builds != two["launches"][0][1]:
+                raise AssertionError("[mesh-round] a build after round 0")
+            out["launches"] = {k: out["launches"][k] + counts[k]
+                               for k in counts}
+    return out
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _fwd_ms(fn, device, iters: int = 5) -> float:
+    fn()
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync(device)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def phase_sv_sharded(device) -> dict:
+    """``[sv-sharded]``: the n = 22, one-layer HEA forward on 8 sv slots
+    (all on ``device``) against the dense engine there (SV_WIDE_ATOL),
+    both timed; then one SGD round of 2 clients × 2 samples of the
+    sharded model on a (1, 8) mesh against the same round of the dense
+    model (SV_ROUND_ATOL): θ moved, no launch."""
+    from qfedx_tpu_torch.circuits.ansatz import (
+        hardware_efficient,
+        init_ansatz_params,
+    )
+    from qfedx_tpu_torch.circuits.encoders import angle_encode
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.fed.round import (
+        RoundDraws,
+        make_fed_round,
+        shard_client_data,
+    )
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.models.vqc_sharded import (
+        make_sharded_vqc_classifier,
+    )
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.ops import statevector as sv
+    from qfedx_tpu_torch.parallel import fed_mesh, make_sharded_forward
+
+    n = SV_WIDE_N
+    mesh = fed_mesh(sv_size=8, devices=[device] * 8)
+    fwd, ctx = make_sharded_forward(n, mesh)
+    p = init_ansatz_params(5, n, 1, 0.2, device)
+    x = torch.linspace(0.05, 0.95, n, device=device)
+    scan_body.reset_counts()
+    with torch.no_grad():
+        z = fwd(p, x)
+        zd = sv.expect_z_all(hardware_efficient(angle_encode(x), n, p), n)
+        sharded_ms = _fwd_ms(lambda: fwd(p, x), device)
+        dense_ms = _fwd_ms(lambda: sv.expect_z_all(hardware_efficient(
+            angle_encode(x), n, p), n), device)
+    z_err = _max_err([z.cpu()], [zd.cpu()])
+    print(f"[sv-sharded] n={n} L=1 on 8 slots of {device} ({ctx.n_local} "
+          f"local qubits): <Z> max|sharded-dense| {z_err:.3e} (atol "
+          f"{SV_WIDE_ATOL:g}); forward {sharded_ms:.4f} ms sharded, "
+          f"{dense_ms:.4f} ms dense (one sample, host clock, synchronised)")
+    _require(z_err, SV_WIDE_ATOL, "sv-sharded <Z>, sharded vs dense")
+    if not torch.isfinite(z).all():
+        raise AssertionError("[sv-sharded] non-finite <Z>")
+    forward_launches = dict(scan_body.launch_counts)
+
+    clients, samples = 2, 2
+    rng = np.random.default_rng(3)
+    cx = rng.uniform(0, 1, (clients, samples, n)).astype(np.float32)
+    cy = (cx[..., 0] > 0.5).astype(np.int64)
+    cm = np.ones((clients, samples), np.float32)
+    cfg = FedConfig(local_epochs=1, batch_size=2, learning_rate=0.1,
+                    optimizer="sgd")
+    sharded = make_sharded_vqc_classifier(n, 8, 1, 2, device=device)
+    dense = make_vqc_classifier(n, 1, 2, device=device)
+    params = dense.init(0)
+    mesh2d = fed_mesh(sv_size=8, num_client_devices=1,
+                      devices=[device] * 8)
+    perms = torch.stack([torch.randperm(samples, generator=torch.Generator()
+                                        .manual_seed(c))[None]
+                         for c in range(clients)])
+    scan_body.reset_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    got, gstats = make_fed_round(sharded, cfg, clients, mesh=mesh2d)(
+        params, *shard_client_data(mesh2d, cx, cy, cm), perms=perms,
+        draws=RoundDraws(22, 0))
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(scan_body.launch_counts)
+    want, wstats = make_fed_round(dense, cfg, clients)(
+        params, *(torch.as_tensor(a, device=device) for a in (cx, cy, cm)),
+        perms=perms, draws=RoundDraws(22, 0))
+    err = _max_err([t.cpu() for t in trees_leaves(got)],
+                   [t.cpu() for t in trees_leaves(want)])
+    moved = _max_err([t.cpu() for t in trees_leaves(got)],
+                     [t.cpu() for t in trees_leaves(params)])
+    print(f"[sv-sharded] one SGD round, {clients} clients x {samples} "
+          f"samples on the (1, 8) mesh: theta max|sharded-dense| {err:.3e} "
+          f"(atol {SV_ROUND_ATOL:g}), moved {moved:.3e}, loss "
+          f"{float(gstats.mean_loss)!r} (dense {float(wstats.mean_loss)!r});"
+          f" launches {launches}, forward's {forward_launches}; round wall "
+          f"{wall * 1e3:.4f} ms (host clock)")
+    _require(err, SV_ROUND_ATOL, "sv-sharded round theta, sharded vs dense")
+    if not moved > 0 or not math.isfinite(float(gstats.mean_loss)):
+        raise AssertionError("[sv-sharded] the round did not train")
+    if launches != NO_LAUNCH or forward_launches != NO_LAUNCH:
+        raise AssertionError(f"[sv-sharded] launched {launches}")
+    return {"launches": launches, "z_err": z_err, "theta_err": err,
+            "sharded_ms": sharded_ms, "dense_ms": dense_ms}
+
+
+def phase_sv_noise(device) -> dict:
+    """``[sv-noise]``: the trajectory forward at n = 10, L = 2 over 4 sv
+    slots against the dense noisy model on the same ``branch_gumbel``
+    draws: no branch choice differs, logits within SV_NOISE_ATOL."""
+    from qfedx_tpu_torch.fed.round import RoundDraws
+    from qfedx_tpu_torch.models.vqc import make_vqc_classifier
+    from qfedx_tpu_torch.models.vqc_sharded import (
+        make_sharded_vqc_classifier,
+    )
+    from qfedx_tpu_torch.noise.channels import NoiseModel
+    from qfedx_tpu_torch.noise.trajectory import record_branches
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.parallel.sharded import sv_group
+
+    n, layers, batch = 10, 2, 64
+    nm = NoiseModel(depolarizing_p=0.05, amp_damping_gamma=0.05,
+                    circuit_level=True)
+    dense = make_vqc_classifier(n, layers, 2, device=device, noise_model=nm)
+    sharded = make_sharded_vqc_classifier(n, 4, layers, 2, device=device,
+                                          noise_model=nm)
+    params = dense.init(3)
+    x = torch.as_tensor(np.random.default_rng(10).uniform(
+        0, 1, (batch, n)).astype(np.float32), device=device)
+    draws = {k: v[0, 0] for k, v in RoundDraws(1610, 0).train_draws(
+        dense.train_draws, 1, 1, batch, device).items()}
+    scan_body.reset_counts()
+    with torch.no_grad(), record_branches() as shard_log, sv_group(
+            [device] * 4):
+        got = sharded.apply_train(params, x, draws)
+    launches = dict(scan_body.launch_counts)
+    with torch.no_grad(), record_branches() as dense_log:
+        want = dense.apply_train(params, x, draws)
+    differ = sum(int((a != b).sum()) for a, b in zip(shard_log, dense_log))
+    choices = sum(int(a.numel()) for a in dense_log)
+    err = _max_err([got.cpu()], [want.cpu()])
+    print(f"[sv-noise] n={n} L={layers} trajectories of {batch} samples on "
+          f"4 slots of {device}: {differ} of {choices} branch choices differ"
+          f" from the dense model's, logits max|sharded-dense| {err:.3e} "
+          f"(atol {SV_NOISE_ATOL:g}); launches {launches}")
+    if differ or len(shard_log) != len(dense_log):
+        raise AssertionError(f"[sv-noise] {differ} branch choices differ")
+    _require(err, SV_NOISE_ATOL, "sv-noise logits, sharded vs dense")
+    return {"launches": launches, "logit_err": err, "choices": choices}
+
+
+def phase_sv_cli(root, device) -> dict:
+    """``[sv-cli]``: ``run.cli.run_train`` with c5-svqc's widths
+    (SV_CLI_ARGV: n = 8, sv 4, 32 clients) over eight slots on
+    ``device`` (a (2, 4) mesh), 2 rounds under SGD, and its CPU twin's
+    same 2 rounds over eight CPU slots: every round's row (loss,
+    accuracy) and θ within SV_CLI_ATOL, no launch. A round's cost is
+    the run's ``mean_round_time_s``: the trainer's window from the first
+    dispatch to the last fetch over its rounds (a row's ``time_s`` is a
+    drain-to-drain share, and the pipelined first row holds round 2's
+    eager compute too)."""
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.run import cli
+
+    data = cli_data(SV_CLI_ARGV)
+    twin = SV_CLI_ARGV
+    twin_rounds = int(SV_CLI_ARGV[SV_CLI_ARGV.index("--rounds") + 1])
+    runs = {}
+    for name, dev, slots, argv in (
+            ("sv-cli", device, [device] * 8, SV_CLI_ARGV),
+            ("sv-cli-cpu", torch.device("cpu"), ["cpu"] * 8, twin)):
+        argv = argv + ["--run-root", str(root), "--name", name]
+        cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        scan_body.reset_counts()
+        t0 = time.perf_counter()
+        summary = cli.run_train(cfg, device=dev, data=data, devices=slots)
+        runs[name] = (summary, dict(scan_body.launch_counts),
+                      time.perf_counter() - t0)
+    card, cpu = root / "sv-cli", root / "sv-cli-cpu"
+    rows, cpu_rows = _rows(card), _rows(cpu)
+    loss_err = max(abs(a["loss"] - b["loss"]) for a, b in zip(rows,
+                                                             cpu_rows))
+    acc_diff = max(abs(a["accuracy"] - b["accuracy"])
+                   for a, b in zip(rows, cpu_rows))
+    theta_err = max(_max_err(_run_theta(card, r), _run_theta(cpu, r))
+                    for r in range(1, twin_rounds + 1))
+    summary, launches, wall = runs["sv-cli"]
+    cpu_summary, _, cpu_wall = runs["sv-cli-cpu"]
+    if len(rows) != len(cpu_rows) or len(rows) != twin_rounds:
+        raise AssertionError(f"[sv-cli] {len(rows)} card rows, "
+                             f"{len(cpu_rows)} CPU rows")
+    print(f"[sv-cli] c5-svqc widths over 8 slots of {device}: rounds "
+          f"{[r['round'] for r in rows]}, losses {[r['loss'] for r in rows]}"
+          f" (cpu {[r['loss'] for r in cpu_rows]}), max|loss err| "
+          f"{loss_err:.3e}, accuracy diff {acc_diff:.3e}, rounds 1-"
+          f"{twin_rounds} theta max|card-cpu| {theta_err:.3e} (atol "
+          f"{SV_CLI_ATOL:g}); "
+          f"final_accuracy {summary['final_accuracy']!r} (cpu "
+          f"{cpu_summary['final_accuracy']!r}); launches {launches}; a "
+          f"round (window over {twin_rounds} rounds, host clock) "
+          f"{summary['mean_round_time_s']:.4f} s on the card, "
+          f"{cpu_summary['mean_round_time_s']:.4f} s on the CPU (rows' "
+          f"time_s {[r['time_s'] for r in rows]} / cpu "
+          f"{[r['time_s'] for r in cpu_rows]}); whole run {wall:.2f} s, "
+          f"CPU twin {cpu_wall:.2f} s, each {twin_rounds} rounds")
+    _require(loss_err, SV_CLI_ATOL, "sv-cli losses, card vs cpu")
+    _require(theta_err, SV_CLI_ATOL, "sv-cli theta, card vs cpu")
+    n_val = len(data["val"][1]) or len(data["test"][1])
+    if acc_diff > 1.0 / n_val + 1e-9:
+        raise AssertionError(f"[sv-cli] accuracy differs by {acc_diff}")
+    if launches != NO_LAUNCH:
+        raise AssertionError(f"[sv-cli] launched {launches}")
+    return {"launches": launches, "theta_err": theta_err,
+            "round_s": summary["mean_round_time_s"],
+            "cpu_round_s": cpu_summary["mean_round_time_s"]}
+
+
+def phase_distributed(device, mesh_round: dict) -> dict:
+    """``[distributed]``: ``parallel.mesh.distributed_init`` with world
+    size 1 on NCCL (a second call a no-op), then [mesh-round]'s SGD
+    rounds with the process group up, so every round's partial sums go
+    through ``torch.distributed.all_reduce``: θ equal to [mesh-round]'s
+    exactly. One card: no two-GPU path is measured here."""
+    import torch.distributed as dist
+
+    from qfedx_tpu_torch.fed.round import client_mesh
+    from qfedx_tpu_torch.parallel.mesh import distributed_init
+
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    distributed_init(f"localhost:{port}", 1, 0, devices=[device])
+    distributed_init(f"localhost:{port}", 1, 0)  # a repeat: a no-op
+    calls = []
+    orig = dist.all_reduce
+
+    def counted(t, *a, **k):
+        calls.append(tuple(t.shape))
+        return orig(t, *a, **k)
+
+    dist.all_reduce = counted
+    try:
+        run = _mesh_rounds(device, "sgd", client_mesh(devices=[device] * 2))
+    finally:
+        dist.all_reduce = orig
+        got_backend = dist.get_backend()
+        dist.destroy_process_group()
+    diff = _max_err(run["theta"], mesh_round["theta"])
+    print(f"[distributed] {got_backend} process group of 1 rank at "
+          f"localhost:{port}: {len(calls)} all_reduce calls over "
+          f"{MESH_ROUNDS} rounds (shapes {calls}); theta max|err| vs "
+          f"[mesh-round] {diff!r} (must be 0); launches per round "
+          f"{[c for c, _ in run['launches']]}. No two-GPU path was "
+          "measured: the machine has one card and NCCL takes one rank per "
+          "GPU; the cross-process round is held on the CPU with gloo.")
+    if diff != 0.0:
+        raise AssertionError(f"[distributed] theta differs by {diff}")
+    if len(calls) != MESH_ROUNDS:
+        raise AssertionError(f"[distributed] {len(calls)} all_reduce calls")
+    return {"launches": {k: sum(c[k] for c, _ in run["launches"])
+                         for k in NO_LAUNCH}, "backend": got_backend}
+
+
+def phase_mesh(root, device) -> dict:
+    """The mesh phases in order, each with the counters of its own run."""
+    t0 = time.perf_counter()
+    out = {"mesh-round": phase_mesh_round(device)}
+    out["sv-sharded"] = phase_sv_sharded(device)
+    out["sv-noise"] = phase_sv_noise(device)
+    out["sv-cli"] = phase_sv_cli(root, device)
+    out["distributed"] = phase_distributed(device, out["mesh-round"])
+    print(f"[mesh] the five mesh phases took "
+          f"{time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def parse_only(argv) -> tuple | None:
-    """``--only a,b``: the tool phases to run (with what they read from),
-    or None for the whole script."""
+    """``--only a,b``: the tool or mesh phases to run (with what they
+    read from), or None for the whole script."""
     if not argv:
         return None
+    choices = TOOL_PHASES + MESH_PHASES
     if argv[0] != "--only" or len(argv) != 2:
         raise SystemExit("usage: python3 chip_smoke.py [--only "
-                         + ",".join(TOOL_PHASES) + "]")
+                         + ",".join(choices) + "]")
     picked = [p for p in argv[1].split(",") if p]
-    bad = [p for p in picked if p not in TOOL_PHASES]
+    bad = [p for p in picked if p not in choices]
     if bad or not picked:
         raise SystemExit(f"chip_smoke --only: unknown phases {bad}; choose "
-                         f"from {','.join(TOOL_PHASES)}")
+                         f"from {','.join(choices)}")
     for p in list(picked):
         picked.extend(TOOL_NEEDS.get(p, ()))
-    return tuple(p for p in TOOL_PHASES if p in picked)
+    if "distributed" in picked:
+        picked.append("mesh-round")  # it holds θ against [mesh-round]'s
+    return tuple(p for p in choices if p in picked)
 
 
 def main_only(only: tuple) -> int:
-    """A rehearsal of the selected tool phases: the build, a traced and
-    profiled [cli-train] run on the card to read from (no CPU twin), the
-    phases. Prints no ``kernels`` line and no final line."""
+    """A rehearsal of the selected phases: the build; for tool phases a
+    traced and profiled [cli-train] run on the card to read from (no CPU
+    twin); the phases. Prints no ``kernels`` line and no final line."""
     print(card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import qfedx_tpu_torch  # noqa: F401 — fails alone, outside the checkout
 
     phase_build()
+    device = torch.device("cuda")
+    mesh = [p for p in only if p in MESH_PHASES]
+    root = Path(tempfile.mkdtemp(prefix="qfedx-mesh-"))
+    try:
+        done = {}
+        for p in mesh:
+            if p == "mesh-round":
+                done[p] = phase_mesh_round(device)
+            elif p == "sv-sharded":
+                phase_sv_sharded(device)
+            elif p == "sv-noise":
+                phase_sv_noise(device)
+            elif p == "sv-cli":
+                phase_sv_cli(root, device)
+            else:
+                phase_distributed(device, done["mesh-round"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    tools = tuple(p for p in only if p in TOOL_PHASES)
     obs_root = Path(tempfile.mkdtemp(prefix="qfedx-obs-"))
     try:
-        with env_pins(QFEDX_TRACE="0"):
-            cli_train(CLI_ARGV + ["--trace", "--profile", "--run-root",
-                                  str(obs_root), "--name", "obs"], None)
-        phase_tools(obs_root, obs_root / "obs", only)
+        if tools:
+            with env_pins(QFEDX_TRACE="0"):
+                cli_train(CLI_ARGV + ["--trace", "--profile", "--run-root",
+                                      str(obs_root), "--name", "obs"], None)
+            phase_tools(obs_root, obs_root / "obs", tools)
     finally:
         shutil.rmtree(obs_root, ignore_errors=True)
     print(f"[only] ran {','.join(only)} in "
@@ -6138,6 +6601,11 @@ def main(argv=()) -> int:
     finally:
         shutil.rmtree(obs_root, ignore_errors=True)
     obs_streamed = phase_obs_streamed(device)
+    mesh_root = Path(tempfile.mkdtemp(prefix="qfedx-mesh-"))
+    try:
+        mesh = phase_mesh(mesh_root, device)
+    finally:
+        shutil.rmtree(mesh_root, ignore_errors=True)
     source = "qfedx_tpu_torch/ops/csrc/scan_body.cu"
     kernel = "qfedx_tpu/ops/pallas_body.py:401"
     by_path = {
@@ -6188,6 +6656,16 @@ def main(argv=()) -> int:
         "obs-serve (traced, /metrics, watchdog)": obs_serve["launches"],
         "obs-streamed (traced, one round)": obs_streamed["launches"],
         **tool_paths(tools),
+        "mesh-round (2 x 1 client mesh, 2 rounds SGD + 2 Adam)":
+            mesh["mesh-round"]["launches"],
+        "sv-sharded (n=22 forward and round on 8 sv slots)":
+            mesh["sv-sharded"]["launches"],
+        "sv-noise (n=10 trajectories on 4 sv slots)":
+            mesh["sv-noise"]["launches"],
+        "sv-cli (c5-svqc widths, (2, 4) mesh, 2 rounds)":
+            mesh["sv-cli"]["launches"],
+        "distributed (NCCL, 1 rank, 2 rounds)":
+            mesh["distributed"]["launches"],
     }
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -6404,8 +6882,18 @@ def main(argv=()) -> int:
           f"(logits {ctl['logit_err']:.3e}); train --tuned theta vs untuned "
           f"{tools['tune-cli']['theta_err']:.3e}; demo max|card-cpu| "
           f"{tools['demo']['err']:.3e}; bench history exit codes "
-          f"{tools['bench-history']}; whole script "
-          f"{time.perf_counter() - T_START:.1f} s")
+          f"{tools['bench-history']}")
+    print(f"[summary] mesh: 2-slot round theta max|err| "
+          f"{mesh['mesh-round']['theta_err']:.3e} (Adam logits "
+          f"{mesh['mesh-round']['adam_logit_err']:.3e}); n=22 on 8 sv "
+          f"slots <Z> vs dense {mesh['sv-sharded']['z_err']:.3e}, forward "
+          f"{mesh['sv-sharded']['sharded_ms']:.4f} ms sharded vs "
+          f"{mesh['sv-sharded']['dense_ms']:.4f} ms dense, round theta "
+          f"{mesh['sv-sharded']['theta_err']:.3e}; sv trajectories logits "
+          f"{mesh['sv-noise']['logit_err']:.3e}; sv-cli theta card vs cpu "
+          f"{mesh['sv-cli']['theta_err']:.3e}; {mesh['distributed']['backend']}"
+          " group of one rank: theta equal; no two-GPU path measured; whole "
+          f"script {time.perf_counter() - T_START:.1f} s")
     print(card_line())
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -17,14 +17,24 @@ from qfedx_tpu_torch.models.api import Model
 from qfedx_tpu_torch.serve.forward import persistent_forward
 
 
-def make_evaluator(model: Model, batch_size: int = 256,
+def make_evaluator(model: Model, batch_size: int = 256, apply_fn=None,
                    max_batches: int | None = None):
-    """Return ``evaluate(params, x, y) -> dict``. ``max_batches`` caps
-    per-call work: metrics come from the first ``max_batches·batch_size``
+    """Return ``evaluate(params, x, y) -> dict``. ``apply_fn`` overrides
+    ``model.apply`` — required for sv-sharded models (``model.sv_size >
+    1``), whose bare apply runs only inside an sv group
+    (``models.vqc_sharded.host_apply``). ``max_batches`` caps per-call
+    work: metrics come from the first ``max_batches·batch_size``
     examples and ``n`` reports the subset."""
+    if apply_fn is None and model.sv_size > 1:
+        raise ValueError(
+            f"model {model.name} is sv-sharded; pass apply_fn="
+            "host_apply(model, mesh) (its bare apply has sv collectives "
+            "that cannot be jitted outside a shard_map)"
+        )
     # One shared forward per model, with the serving engine's
     # (serve/forward.py).
-    batch_logits = persistent_forward(model.apply)
+    batch_logits = persistent_forward(
+        apply_fn if apply_fn is not None else model.apply)
 
     def evaluate(params, x, y):
         x = np.asarray(x, dtype=np.float32)

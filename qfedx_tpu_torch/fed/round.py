@@ -1,7 +1,7 @@
-"""The federated round on one device.
+"""The federated round, on one device or over a mesh of slots.
 
-Counterpart of ``qfedx_tpu/fed/round.py``'s ``make_fed_round`` with one
-client block and no mesh. The cohort's C clients train FOLDED into one
+Counterpart of ``qfedx_tpu/fed/round.py``'s ``make_fed_round``. The
+cohort's (or a client slot's) C clients train FOLDED into one
 engine batch (``fed/client.make_local_update_clients``; with
 ``QFEDX_FOLD_CLIENTS=0``, a model without ``apply_clients`` (the MPS
 classifier) or one with ``apply_train`` (the TinyCNN's dropout, the
@@ -50,6 +50,7 @@ than one device (the mesh) is not ported yet.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -321,14 +322,18 @@ def _make_wave_block(model: Model, cfg: FedConfig, cohort_clients: int,
                      wave_graph: bool = False):
     """The round's per-client code, shared by the flat round and the
     partial: ``block(params, cx, cy, cmask, base, generator, perms,
-    survivors, byzantine, sa_seed, draws) -> RoundPartial`` for the W
+    survivors, byzantine, sa_seed, draws, wave) -> _SlotOut`` for the W
     clients at cohort positions ``[base, base + W)`` (``cx`` holds their
-    data). Participation, survivors and the byzantine input span the
-    cohort, and client c's draws are its own whatever wave it lands in,
-    so the flat round is the one-wave case. Under a robust rule with
-    secure aggregation, or ``wave_graph`` (``QFEDX_STALE``), the pair
-    graph is restricted to the wave, so the wave's masks cancel inside
-    its own partial."""
+    data): each client's weighted, masked contribution before the
+    aggregate (``_aggregate``). Participation, survivors and the
+    byzantine input span the cohort, and client c's draws are its own
+    whatever wave or client slot it lands in, so the flat round is the
+    one-wave case and a client slot of a mesh computes its clients as
+    the one-slot round does. Under a robust rule with secure
+    aggregation, or ``wave_graph`` (``QFEDX_STALE``), the pair graph is
+    restricted to the wave (``wave`` = (first, width) of the wave the
+    block belongs to; default the block itself), so the wave's masks
+    cancel inside its own partial."""
     agg = resolve_aggregator(cfg)
     do_clip = agg == "clip_mean" and math.isfinite(cfg.clip_bound)
     robust = agg in ROBUST_AGGREGATORS
@@ -364,7 +369,8 @@ def _make_wave_block(model: Model, cfg: FedConfig, cohort_clients: int,
                 torch.stack([o[2] for o in outs]))
 
     def block(params, cx, cy, cmask, base, generator=None, perms=None,
-              survivors=None, byzantine=None, sa_seed=None, draws=None):
+              survivors=None, byzantine=None, sa_seed=None, draws=None,
+              wave=None):
         if survivors is not None and not guards:
             raise ValueError(
                 "survivors requires the guarded round program "
@@ -379,6 +385,9 @@ def _make_wave_block(model: Model, cfg: FedConfig, cohort_clients: int,
         if cfg.secure_agg and sa_seed is None:
             raise ValueError("secure_agg needs the round's sa_seed")
         ids = slice(base, base + width)
+        # The wave this block belongs to: the block itself, or on a mesh
+        # the whole wave its client slot is a part of.
+        in_wave = ids if wave is None else slice(wave[0], wave[0] + wave[1])
         if byzantine is not None:
             byzantine = torch.as_tensor(np.asarray(byzantine, np.float32))
             if tuple(byzantine.shape) != (cohort_clients, 2):
@@ -484,7 +493,7 @@ def _make_wave_block(model: Model, cfg: FedConfig, cohort_clients: int,
                 sa_part = eff_h
                 if per_wave_graph:
                     sa_part = np.zeros_like(eff_h)
-                    sa_part[ids] = eff_h[ids]
+                    sa_part[in_wave] = eff_h[in_wave]
                 masks = wave_masks(
                     sa_seed, contrib, sa_part, base, cfg.secure_agg_scale,
                     cfg.secure_agg_mode, cfg.secure_agg_neighbors,
@@ -505,54 +514,235 @@ def _make_wave_block(model: Model, cfg: FedConfig, cohort_clients: int,
         if folded:
             with obs.span("fed.trace.postprocess"):
                 post = postprocess(deltas, ns, losses)
-        contrib, weight, losses, n_part, rejected, dropped, clipped = post
-        with torch.no_grad(), obs.span("fed.trace.aggregate"):
-            if robust_per_client:
-                # update_sum = combine · m keeps Σ wΔ / Σ w intact.
-                combined, m, _ = robust_combine(
-                    contrib, (weight > 0).float(), agg, cfg.trim_fraction)
-                update_sum = trees.tree_map(lambda t: t * m, combined)
-                weight_sum = m
-            else:
-                update_sum = trees.tree_map(
-                    lambda c: torch.sum(c, dim=0), contrib)
-                weight_sum = torch.sum(weight)
-            return RoundPartial(
-                update_sum=update_sum,
-                weight_sum=weight_sum,
-                loss_sum=torch.sum(weight * losses),
-                num_participants=n_part,
-                rejected_updates=rejected,
-                dropped_clients=dropped,
-                clipped_clients=clipped,
-            )
+        return _SlotOut(*post)
 
     return block
 
 
+class _SlotOut(NamedTuple):
+    """One client slot's per-client results, before the aggregate."""
+
+    contrib: dict  # (W, …) weighted (and masked) deltas
+    weight: torch.Tensor  # (W,)
+    losses: torch.Tensor  # (W,)
+    num_participants: torch.Tensor
+    rejected_updates: torch.Tensor
+    dropped_clients: torch.Tensor
+    clipped_clients: torch.Tensor
+
+
+def _slot_sum(vals: list, home) -> torch.Tensor:
+    """Σ of per-slot tensors in slot order, on ``home``."""
+    total = vals[0].to(home)
+    for v in vals[1:]:
+        total = total + v.to(home)
+    return total
+
+
+def _cross_process(groups: list) -> bool:
+    """Do the wave's sums meet across processes? Whenever a process group
+    is up and the mesh's slots span all of its ranks (a group of one
+    rank included: its all-reduce is the identity)."""
+    import torch.distributed as dist
+
+    from qfedx_tpu_torch.parallel.mesh import process_count
+
+    return (dist.is_available() and dist.is_initialized()
+            and {s.rank for g in groups for s in g}
+            == set(range(process_count())))
+
+
+def _collective_ok(t: torch.Tensor) -> None:
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    if t.is_cuda and backend == "gloo":
+        raise RuntimeError(
+            "a CUDA tensor never goes through gloo: join the process "
+            "group with the NCCL backend (parallel.mesh.distributed_init "
+            "picks it for CUDA slots)")
+    if not t.is_cuda and backend == "nccl":
+        raise RuntimeError(
+            "a CPU tensor never goes through NCCL: a mesh of CPU slots "
+            "joins the process group with gloo (parallel.mesh."
+            "distributed_init(devices=...) picks it for CPU slots)")
+
+
+def _all_reduce(tensors: list) -> list:
+    """Σ over processes of each tensor, as ONE flat all-reduce."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    _collective_ok(flat)
+    dist.all_reduce(flat)
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].reshape(t.shape).to(t.dtype))
+        i += t.numel()
+    return out
+
+
+def _all_gather_clients(contrib: dict, weight: torch.Tensor):
+    """Every process's (W, …) client rows, rank-major (the order of the
+    mesh's client slots): the reference's ``all_gather(tiled=True)``."""
+    import torch.distributed as dist
+
+    leaves = trees.tree_leaves(contrib)
+    width = weight.shape[0]
+    rows = torch.cat([weight.reshape(width, 1).float()]
+                     + [x.reshape(width, -1).float() for x in leaves], dim=1)
+    _collective_ok(rows)
+    sizes = [torch.zeros(1, dtype=torch.int64, device=rows.device)
+             for _ in range(dist.get_world_size())]
+    dist.all_gather(sizes, torch.tensor([width], device=rows.device))
+    if len({int(x) for x in sizes}) != 1:
+        raise ValueError("every process must hold the same number of "
+                         "client slots for a cross-process robust combine")
+    parts = [torch.empty_like(rows) for _ in sizes]
+    dist.all_gather(parts, rows)
+    full = torch.cat(parts)
+    weight_all = full[:, 0].to(weight.dtype)
+    out, i = [], 1
+    for x in leaves:
+        k = int(np.prod(x.shape[1:]))
+        out.append(full[:, i:i + k].reshape((-1,) + tuple(x.shape[1:]))
+                   .to(x.dtype))
+        i += k
+    it = iter(out)
+    return trees.tree_map(lambda _: next(it), contrib), weight_all
+
+
+def _aggregate(outs: list, cfg: FedConfig, home,
+               cross: bool) -> RoundPartial:
+    """The wave's ``RoundPartial`` from its client slots' outputs: the
+    weighted sums and counts summed over the slots (in slot order), then
+    over processes; under a robust rule without masks the coordinate-wise
+    combine over every slot's clients, gathered across processes first."""
+    agg = resolve_aggregator(cfg)
+    robust_per_client = agg in ROBUST_AGGREGATORS and not cfg.secure_agg
+    with torch.no_grad(), obs.span("fed.trace.aggregate"):
+        if robust_per_client:
+            contrib = trees.tree_map(
+                lambda *cs: torch.cat([c.to(home) for c in cs]),
+                *(o.contrib for o in outs))
+            weight = torch.cat([o.weight.to(home) for o in outs])
+            if cross:
+                contrib, weight = _all_gather_clients(contrib, weight)
+            # update_sum = combine · m keeps Σ wΔ / Σ w intact.
+            combined, m, _ = robust_combine(
+                contrib, (weight > 0).float(), agg, cfg.trim_fraction)
+            update_sum = trees.tree_map(lambda t: t * m, combined)
+            weight_sum = m
+        else:
+            update_sum = trees.tree_map(
+                lambda *cs: _slot_sum([torch.sum(c, dim=0) for c in cs],
+                                      home),
+                *(o.contrib for o in outs))
+            weight_sum = _slot_sum([torch.sum(o.weight) for o in outs], home)
+        counts = [
+            _slot_sum([torch.sum(o.weight * o.losses) for o in outs], home),
+            *(_slot_sum([getattr(o, f) for o in outs], home)
+              for f in ("num_participants", "rejected_updates",
+                        "dropped_clients", "clipped_clients"))]
+        if cross:
+            leaves = trees.tree_leaves(update_sum)
+            if robust_per_client:
+                counts = _all_reduce(counts)
+            else:
+                reduced = _all_reduce(leaves + [weight_sum] + counts)
+                it = iter(reduced[:len(leaves)])
+                update_sum = trees.tree_map(lambda _: next(it), update_sum)
+                weight_sum, counts = reduced[len(leaves)], reduced[
+                    len(leaves) + 1:]
+        return RoundPartial(update_sum, weight_sum, *counts)
+
+
+def _client_slots(mesh, axis: str, num_clients: int):
+    """The mesh's client groups (one per position on ``axis``, each the
+    sv group there) and the clients each runs; the reference's
+    divisibility ValueError, and NotImplementedError for an sv group
+    across processes. No mesh: (None, all the clients)."""
+    if mesh is None:
+        return None, num_clients
+    groups = mesh.client_groups(axis)
+    for g in groups:
+        mesh.group_rank(g)
+    d = len(groups)
+    if num_clients % d != 0:
+        raise ValueError(
+            f"num_clients={num_clients} not divisible by mesh axis {axis}={d}"
+        )
+    return groups, num_clients // d
+
+
+def _run_slots(model: Model, cfg: FedConfig, block, groups, width: int,
+               params, cx, cy, cmask, base: int, wave_clients: int,
+               generator, perms, survivors, byzantine, sa_seed,
+               draws) -> RoundPartial:
+    """One wave over a mesh's client slots: client slot d runs ``block``
+    on its ``width`` clients at cohort positions ``base + d·width``, with
+    data, θ and draws on its slot's device (a sharded model on its sv
+    group), then ``_aggregate``. ``groups`` None: one slot, the
+    parameters' device in this process alone (no collective)."""
+    from qfedx_tpu_torch.fed.client import resolve_perms
+    from qfedx_tpu_torch.parallel.mesh import Slot, process_index
+    from qfedx_tpu_torch.parallel.sharded import sv_group
+
+    home = trees.tree_leaves(params)[0].device
+    kw = dict(survivors=survivors, byzantine=byzantine, sa_seed=sa_seed,
+              draws=draws)
+    me = process_index()
+    own = groups is None
+    if own:
+        groups = [(Slot(home, me),)]
+    # The wave's shuffles, drawn once over the wave and sliced, so a
+    # client's shuffle does not depend on the slot count.
+    samples = (next(x for x in cx if x is not None).shape[1]
+               if isinstance(cx, list) else cx.shape[1])
+    perms = resolve_perms(cfg, wave_clients, samples, generator, perms, "cpu")
+    outs = []
+    for d, group in enumerate(groups):
+        if group[0].rank != me:
+            continue
+        dev = group[0].device
+        lo = d * width
+        if isinstance(cx, list):
+            sx, sy, sm = cx[d], cy[d], cmask[d]
+        else:
+            sx, sy, sm = (t[lo:lo + width].to(dev) for t in (cx, cy, cmask))
+        sp = trees.tree_map(lambda p: p.to(dev), params)
+        ctx = (sv_group(group) if model.sv_size > 1
+               else contextlib.nullcontext())
+        with ctx:
+            outs.append(block(sp, sx, sy, sm, base + lo, None,
+                              perms[lo:lo + width].to(dev),
+                              wave=(base, wave_clients), **kw))
+    return _aggregate(outs, cfg, home, not own and _cross_process(groups))
+
+
 def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
-                   num_devices: int = 1):
+                   mesh=None, axis: str = "clients"):
     """Build ``round_fn(params, cx, cy, cmask, generator=None,
     perms=None, survivors=None, byzantine=None, sa_seed=None,
     draws=None) -> (params, stats)``.
 
-    ``cx/cy/cmask``: packed client data [C, S, ...] on the parameters'
-    device; ``generator``/``perms`` give the local shuffles
-    (``fed/client``). With guards on, ``survivors`` [C] 0/1 excludes
-    mid-round casualties from the aggregate and from the secure-agg pair
-    graph (the round then equals the survivor-only round); with guards
-    off it must be None. ``byzantine`` [C, 2]: each client's (delta
-    multiplier, noise σ), honest clients (1, 0). ``sa_seed``: the round's
-    secure-agg seed, required with ``cfg.secure_agg``. ``draws``: the
-    round's ``RoundDraws``, required when the config samples below
-    fraction 1, runs DP or SPSA, an attacker's σ > 0, or the model trains
-    through ``apply_train``. A round returns new tensors: θ is never
-    updated in place."""
-    if num_devices != 1:
-        raise NotImplementedError(
-            "the port's round runs on one device; the multi-device mesh is "
-            "not ported yet"
-        )
+    ``cx/cy/cmask``: packed client data [C, S, ...] (or, on a mesh, the
+    per-slot lists ``shard_client_data`` returns); ``generator``/``perms``
+    give the local shuffles (``fed/client``). ``mesh`` (default: one
+    slot, the parameters' device) splits the C clients over its ``axis``
+    (C/D per client slot; C must divide, as in the reference); the
+    slots' partial sums meet on the parameters' device and, across
+    processes, in one all-reduce, and θ comes back there. With guards
+    on, ``survivors`` [C] 0/1 excludes mid-round casualties from the
+    aggregate and from the secure-agg pair graph (the round then equals
+    the survivor-only round); with guards off it must be None.
+    ``byzantine`` [C, 2]: each client's (delta multiplier, noise σ),
+    honest clients (1, 0). ``sa_seed``: the round's secure-agg seed,
+    required with ``cfg.secure_agg``. ``draws``: the round's
+    ``RoundDraws``, required when the config samples below fraction 1,
+    runs DP or SPSA, an attacker's σ > 0, or the model trains through
+    ``apply_train``. A round returns new tensors: θ is never updated in
+    place."""
     agg = resolve_aggregator(cfg)
     if agg in ROBUST_AGGREGATORS and cfg.secure_agg:
         raise ValueError(
@@ -563,16 +753,22 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
             "graphs) or secure_agg=False; clip_mean composes with "
             "masking on any path."
         )
+    groups, width = _client_slots(mesh, axis, num_clients)
     min_count = cfg.min_participation * num_clients
     block = _make_wave_block(model, cfg, num_clients)
 
     def round_fn(params, cx, cy, cmask, generator=None, perms=None,
                  survivors=None, byzantine=None, sa_seed=None, draws=None):
-        if cx.shape[0] != num_clients:
+        if isinstance(cx, list):
+            if groups is None or len(cx) != len(groups):
+                raise ValueError("per-slot client data needs the mesh it "
+                                 "was sharded over")
+        elif cx.shape[0] != num_clients:
             raise ValueError(f"cx holds {cx.shape[0]} clients, the round "
                              f"was built for {num_clients}")
-        partial = block(params, cx, cy, cmask, 0, generator, perms,
-                        survivors, byzantine, sa_seed, draws)
+        partial = _run_slots(model, cfg, block, groups, width, params, cx,
+                             cy, cmask, 0, num_clients, generator, perms,
+                             survivors, byzantine, sa_seed, draws)
         with torch.no_grad():
             tf = (trimmed_fraction_stat(agg, cfg.trim_fraction,
                                         partial.weight_sum)
@@ -583,13 +779,15 @@ def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
 
 
 def make_fed_round_partial(model: Model, cfg: FedConfig, wave_clients: int,
-                           cohort_clients: int | None = None):
+                           cohort_clients: int | None = None, mesh=None,
+                           axis: str = "clients"):
     """Build ``partial_fn(params, cx, cy, cmask, wave_base,
     generator=None, perms=None, survivors=None, byzantine=None,
     sa_seed=None, draws=None) -> RoundPartial``: one WAVE of the
     hierarchical round, its ``wave_clients`` clients at cohort positions
     ``[wave_base, wave_base + wave_clients)`` of a cohort of
-    ``cohort_clients`` (default: one wave is the whole cohort).
+    ``cohort_clients`` (default: one wave is the whole cohort), split
+    over ``mesh``'s client slots as ``make_fed_round`` splits a round.
 
     Sampling, survivors, the byzantine input (all cohort-wide), each
     client's draws and the secure-agg pair graph run over the COHORT, so
@@ -608,16 +806,18 @@ def make_fed_round_partial(model: Model, cfg: FedConfig, wave_clients: int,
             f"cohort_clients (got wave={wave_clients}, cohort={cohort}) "
             "— split the cohort or use clip_mean"
         )
+    groups, width = _client_slots(mesh, axis, wave_clients)
     block = _make_wave_block(model, cfg, cohort, wave_graph=stale_enabled())
 
     def partial_fn(params, cx, cy, cmask, wave_base, generator=None,
                    perms=None, survivors=None, byzantine=None, sa_seed=None,
                    draws=None):
-        if cx.shape[0] != wave_clients:
+        if not isinstance(cx, list) and cx.shape[0] != wave_clients:
             raise ValueError(f"cx holds {cx.shape[0]} clients, the wave "
                              f"was built for {wave_clients}")
-        return block(params, cx, cy, cmask, wave_base, generator, perms,
-                     survivors, byzantine, sa_seed, draws)
+        return _run_slots(model, cfg, block, groups, width, params, cx, cy,
+                          cmask, int(wave_base), wave_clients, generator,
+                          perms, survivors, byzantine, sa_seed, draws)
 
     return partial_fn
 
@@ -739,7 +939,7 @@ def stack_partials(parts) -> RoundPartial:
 
 def make_fed_rounds(model: Model, cfg: FedConfig, num_clients: int,
                     rounds_per_call: int, with_eval: bool = False,
-                    seed: int = 0):
+                    seed: int = 0, mesh=None, axis: str = "clients"):
     """K federated rounds in one call: ``rounds_fn(params, cx, cy, cmask,
     start_round[, eval_x, eval_y]) -> (params, stats)`` (with
     ``with_eval``, ``(params, (stats, accuracies))``), each a list over
@@ -748,8 +948,12 @@ def make_fed_rounds(model: Model, cfg: FedConfig, num_clients: int,
     ``RoundDraws(seed, r)``, the secure-agg seed from ``round_seed(seed,
     r, SA_SEED_SALT)``, so K calls of ``make_fed_round`` give the same
     θ. ``with_eval`` takes each round's accuracy on the evaluation set
-    (one ``model.apply``) after it."""
-    one_round = make_fed_round(model, cfg, num_clients)
+    (one ``model.apply``) after it; as in the reference it needs a model
+    callable outside an sv group (``sv_size == 1``)."""
+    if with_eval and model.sv_size != 1:
+        raise ValueError("with_eval=True needs a host-callable model "
+                         "(sv_size == 1)")
+    one_round = make_fed_round(model, cfg, num_clients, mesh=mesh, axis=axis)
 
     def rounds_fn(params, cx, cy, cmask, start_round, eval_x=None,
                   eval_y=None):
@@ -772,6 +976,42 @@ def make_fed_rounds(model: Model, cfg: FedConfig, num_clients: int,
         return params, ((stats, accs) if with_eval else stats)
 
     return rounds_fn
+
+
+def shard_client_data(mesh, cx, cy, cmask, axis: str = "clients"):
+    """Packed client arrays [C, …] → three lists over ``mesh``'s client
+    slots: slot d's C/D clients on its (first) device, None for another
+    process's slots. The mesh rounds take these in place of whole
+    arrays."""
+    from qfedx_tpu_torch.parallel.mesh import process_index
+
+    groups, width = _client_slots(mesh, axis, int(np.shape(cx)[0]))
+    me = process_index()
+    out = ([], [], [])
+    for d, group in enumerate(groups):
+        for lst, arr, dt in zip(out, (cx, cy, cmask),
+                                (torch.float32, None, torch.float32)):
+            if group[0].rank != me:
+                lst.append(None)
+                continue
+            t = torch.as_tensor(np.asarray(arr[d * width:(d + 1) * width])
+                                if not torch.is_tensor(arr)
+                                else arr[d * width:(d + 1) * width])
+            lst.append(t.to(device=group[0].device, dtype=dt))
+    return out
+
+
+def client_mesh(num_devices: int | None = None, axis: str = "clients",
+                devices=None):
+    """1-D mesh over every process's slots (``devices`` lists this
+    process's; default ``parallel.mesh.local_devices()``), or the first
+    ``num_devices``."""
+    from qfedx_tpu_torch.parallel.mesh import Mesh, _slot_array, global_slots
+
+    devs = global_slots(devices)
+    if num_devices is not None:
+        devs = devs[:num_devices]
+    return Mesh(_slot_array(devs, (len(devs),)), (axis,))
 
 
 def round_generator(seed: int, round_idx: int) -> torch.Generator:

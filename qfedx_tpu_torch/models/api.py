@@ -59,7 +59,11 @@ class Model:
       folds per-client parameters into the engine batch through it.
     - ``engine`` — optional ``() -> str``: the engine ``apply`` runs now
       (the VQC's "batched" or "vmap"; the reference's ``engine.trace``
-      span names it)."""
+      span names it).
+    - ``sv_size`` — slots per statevector: > 1 for a model whose forward
+      runs on a sharded state (``models/vqc_sharded.py``), whose
+      ``apply`` then runs inside an sv group of that many slots
+      (``parallel.sharded.sv_group``); ``sv_axis`` names the mesh axis."""
 
     init: Callable[[Any], Params]
     apply: Callable[[Params, Any], Any]
@@ -69,6 +73,8 @@ class Model:
     train_draws: tuple[StepDraw, ...] = ()
     apply_clients: Callable[[Params, Any], Any] | None = None
     engine: Callable[[], str] | None = None
+    sv_size: int = 1
+    sv_axis: str = "sv"
 
 
 def params_from_jax(tree, device=None) -> dict:

@@ -7,8 +7,8 @@ plus a ``qfedx_shard`` stanza with the process index and
 ``origin_unix``, the wall-clock instant of the registry origin), and
 ``merge_trace_shards`` aligns the shards into one Chrome/Perfetto file,
 each process in its own lane. The process index is
-``torch.distributed.get_rank()`` while a process group is up, else 0:
-the port runs in one process until ROADMAP Queue 1 item 12.
+``torch.distributed.get_rank()`` while a process group is up, else 0
+(a multi-process round, ``fed/round.py``, writes one shard per rank).
 ``add_device_lane`` appends a parsed profile's device-op intervals as a
 lane of their own (obs/profile.py).
 

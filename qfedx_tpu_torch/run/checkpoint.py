@@ -20,7 +20,11 @@ queued; a third call blocks), which retries under the shared policy
 (``utils/retry``) before a typed ``CheckpointWriteError``; ``wait()``
 drains it and re-raises the first writer error.
 
-The port runs in one process, so no decision is broadcast. The fault
+Under a process group only the primary process writes
+(``utils/host.is_primary``: rank 0), at the reference's sites — the
+directory, ``save``, ``save_async`` and the scan that picks the round
+to restore, whose choice is broadcast so every process restores the
+same round. The fault
 harness's ``checkpoint.write`` site (``utils/faults``, the plan
 ``QFEDX_FAULTS`` pins) is consulted inside each retried attempt of the
 background writer, so a transient injected failure recovers in place
@@ -46,6 +50,7 @@ import torch
 
 from qfedx_tpu_torch import obs
 from qfedx_tpu_torch.utils import faults, trees
+from qfedx_tpu_torch.utils.host import is_primary
 from qfedx_tpu_torch.utils.retry import RetryExhausted, retry_with_deadline
 
 
@@ -99,7 +104,8 @@ class Checkpointer:
         if every < 1:
             raise ValueError("every must be ≥ 1")
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        if is_primary():  # non-primary processes never write (see save())
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.every = every
         self.keep = keep
         self.fault_plan = fault_plan
@@ -111,6 +117,10 @@ class Checkpointer:
 
     def save(self, round_idx: int, params: Any) -> Path:
         path = self.dir / f"ckpt_{round_idx:06d}.npz"
+        if not is_primary():
+            # θ is the same on every process; only rank 0 writes (all of
+            # them saving to shared storage would race).
+            return path
         host_leaves = [_host_leaf(x) for x in trees.tree_leaves(params)]
         # Serialised in memory, so the sha256 is of the very bytes
         # written (np.savez seeks back to patch zip headers).
@@ -183,6 +193,8 @@ class Checkpointer:
         writer error is raised here. The caller must not modify
         ``params`` in place afterwards (the trainer's rounds make new
         tensors)."""
+        if not is_primary():
+            return
         self._raise_pending()
         if self._queue is None:
             self._queue = queue_mod.Queue(maxsize=1)
@@ -351,9 +363,12 @@ class Checkpointer:
         a checkpoint that fails its sha256 or does not parse is warned
         about and skipped (``keep`` ≥ 2 keeps the fallback)."""
         leaves = trees.tree_leaves(template)
-        for cand in sorted(self._rounds(), reverse=True):
+        found = None
+        # The primary scans; a process group agrees on its choice.
+        for cand in sorted(self._rounds() if is_primary() else [],
+                           reverse=True):
             try:
-                loaded = self._load_leaves(cand, leaves)
+                found = (self._load_leaves(cand, leaves), cand)
             except CheckpointIntegrityError as exc:
                 obs.counter("checkpoint.corrupt_skipped")
                 warnings.warn(
@@ -363,5 +378,22 @@ class Checkpointer:
                     stacklevel=2,
                 )
                 continue
-            return self._to_template(template, loaded), cand
-        return None
+            break
+        chosen = _broadcast_round(-1 if found is None else found[1])
+        if chosen < 0:
+            return None
+        if found is None or found[1] != chosen:
+            found = (self._load_leaves(chosen, leaves), chosen)
+        return self._to_template(template, found[0]), chosen
+
+
+def _broadcast_round(r: int) -> int:
+    """Rank 0's ``r`` on every process of a process group (as is
+    without one)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return r
+    box = [r]
+    dist.broadcast_object_list(box, src=0)
+    return int(box[0])

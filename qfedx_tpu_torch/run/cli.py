@@ -3,8 +3,13 @@
 Counterpart of ``qfedx_tpu/run/cli.py``: ``build_parser`` takes the
 reference's subcommands and flags, so the same argv parses the same way
 and ``config_from_args`` gives the same ``ExperimentConfig``.
-``main(argv, device=None)`` runs on the card unless a caller passes
-``device="cpu"`` (the tests do).
+``main(argv, device=None, devices=None)`` runs on the card unless a
+caller passes ``device="cpu"`` (the tests do); ``devices`` lists the
+slots ``train``'s mesh takes (``run/trainer.default_mesh``; default
+``parallel.mesh.local_devices()``: every visible GPU, or the one CPU
+device), so ``--sv-size 4`` needs four of them — eight slots on one
+device (``devices=["cpu"] * 8``) give the reference's virtual 8-device
+mesh.
 
 - ``train`` builds the data and the model, trains in a tracked run
   directory (``config.json``, ``metrics.jsonl``, ``summary.json``,
@@ -31,9 +36,8 @@ and ``config_from_args`` gives the same ``ExperimentConfig``.
   no files); ``demo`` is the encoder walkthrough (``run/demo.py``);
   ``sweep`` the config grid × seeds harness (``run/sweep.py``).
 
-Not ported yet, each raising NotImplementedError: sharding
-(``--sv-size > 1``, ``run/config.build_model``, ROADMAP Queue 1 item
-12) and the ``lint`` subcommand (item 15).
+Not ported yet, raising NotImplementedError: the ``lint`` subcommand
+(ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -390,9 +394,12 @@ def config_from_args(a: argparse.Namespace) -> ExperimentConfig:
 
 def run_train(cfg: ExperimentConfig, resume: bool = False,
               device=None, data: dict | None = None, profile: bool = False,
-              trace: bool = False, plots: bool = False) -> dict:
+              trace: bool = False, plots: bool = False,
+              devices=None) -> dict:
     """Train ``cfg`` in a tracked run directory on ``device`` (None = the
-    card); returns the summary ``summary.json`` holds. ``data`` is what
+    card), over the trainer's default mesh on ``devices`` (None:
+    ``parallel.mesh.local_devices()``); returns the summary
+    ``summary.json`` holds. ``data`` is what
     ``build_data(cfg)`` returns, for a caller that has built it already.
     ``trace`` sets QFEDX_TRACE for the run (the pin is the contract, the
     flag sugar); ``profile`` captures the training under
@@ -404,7 +411,7 @@ def run_train(cfg: ExperimentConfig, resume: bool = False,
 
     from qfedx_tpu_torch import obs
     from qfedx_tpu_torch.run.metrics import ExperimentRun
-    from qfedx_tpu_torch.run.trainer import train_federated
+    from qfedx_tpu_torch.run.trainer import default_mesh, train_federated
     from qfedx_tpu_torch.utils import pins
 
     if trace:
@@ -415,6 +422,8 @@ def run_train(cfg: ExperimentConfig, resume: bool = False,
     if data is None:
         data = build_data(cfg)
     model = build_model(cfg, data["num_classes"], device=device)
+    mesh = default_mesh(model, data["cx"].shape[0], devices=devices,
+                        device=device)
     test_x, test_y = data["test"]
     val_x, val_y = data["val"]
     # Per-round evaluation on the validation split; the test set is
@@ -483,6 +492,7 @@ def run_train(cfg: ExperimentConfig, resume: bool = False,
                     pipeline_depth=cfg.pipeline_depth,
                     on_round_end=on_round_end,
                     checkpointer=run.checkpointer(every=cfg.checkpoint_every),
+                    mesh=mesh,
                 )
         finally:
             if bridge_set:
@@ -1173,10 +1183,12 @@ def run_inspect(run_dir) -> dict:
 
 
 
-def main(argv=None, device=None):
+def main(argv=None, device=None, devices=None):
     """Parse ``argv`` and run the subcommand on ``device`` (None = the
-    card; the tests pass ``"cpu"``). Returns the subcommand's summary;
-    ``bench history`` exits with its code, as the reference's does."""
+    card; the tests pass ``"cpu"``), ``train``'s and ``sweep``'s mesh on
+    ``devices`` (None: ``parallel.mesh.local_devices()``). Returns the
+    subcommand's summary; ``bench history`` exits with its code, as the
+    reference's does."""
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
     if args.cmd in _UNPORTED:
@@ -1201,7 +1213,8 @@ def main(argv=None, device=None):
                   + json.dumps(applied["applied"]))
         return run_train(config_from_args(args), resume=args.resume,
                          device=device, profile=args.profile,
-                         trace=args.trace, plots=args.plots)
+                         trace=args.trace, plots=args.plots,
+                         devices=devices)
     if args.cmd == "serve":
         return run_serve(args, device=device)
     if args.cmd == "tune":
@@ -1215,5 +1228,6 @@ def main(argv=None, device=None):
                         device=device)
     from qfedx_tpu_torch.run.sweep import run_sweep
 
+    kw = {} if devices is None else {"devices": devices}
     return run_sweep(preset=args.preset, seeds=args.seeds,
-                     root=args.run_root, device=device)
+                     root=args.run_root, device=device, **kw)

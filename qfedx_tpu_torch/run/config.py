@@ -13,8 +13,10 @@ encoding (the dense engine below n = 10, the batched one above;
 ``remat`` passes through) with its ``NoiseModel`` when any noise flag is
 on, the TinyCNN at the dataset's image shape, the MPS classifier and the
 quantum-kernel head, with the reference's ValueErrors (mps with a
-non-angle encoding, noise or ``sv_size > 1``; qkernel with noise). The
-sv-sharded engine (ROADMAP Queue 1 item 12) raises NotImplementedError.
+non-angle encoding, noise or ``sv_size > 1``; qkernel with noise). With
+``sv_size > 1`` the VQC is the sv-sharded classifier
+(``models/vqc_sharded.py``; angle or amplitude, no remat, as in the
+reference).
 """
 
 from __future__ import annotations
@@ -219,11 +221,6 @@ def build_model(cfg: ExperimentConfig, num_classes: int, device=None):
             device=device)
     if m.model != "vqc":
         raise ValueError(f"unknown model {m.model!r}")
-    if m.sv_size > 1:
-        raise NotImplementedError(
-            "sv_size > 1 (the sharded statevector) is not ported yet "
-            "(ROADMAP Queue 1 item 12)"
-        )
     noise_model = None
     if noisy:
         from qfedx_tpu_torch.noise.channels import NoiseModel
@@ -235,6 +232,31 @@ def build_model(cfg: ExperimentConfig, num_classes: int, device=None):
             readout_e10=m.readout_flip,
             shots=m.shots,
             circuit_level=(m.noise_placement == "circuit"),
+        )
+    if m.sv_size > 1:
+        from qfedx_tpu_torch.models.vqc_sharded import (
+            make_sharded_vqc_classifier,
+        )
+
+        if m.encoding == "reupload":
+            raise ValueError(
+                "sv_size > 1 supports angle/amplitude encodings "
+                "(data reuploading is a dense-engine feature)"
+            )
+        if m.remat:
+            raise ValueError(
+                "remat applies to the dense engine; the sv-sharded "
+                "path (sv_size > 1) does not support it"
+            )
+        return make_sharded_vqc_classifier(
+            n_qubits=m.n_qubits,
+            sv_size=m.sv_size,
+            n_layers=m.n_layers,
+            num_classes=num_classes,
+            encoding=m.encoding,
+            init_scale=m.init_scale,
+            noise_model=noise_model,
+            device=device,
         )
     from qfedx_tpu_torch.models.vqc import make_vqc_classifier
 

@@ -13,9 +13,10 @@ seed, the aggregates), ``results.md`` (the mean±std table) and the
 summary PNGs. matplotlib is imported only by ``_plots``, with Agg
 forced; where it is absent ``run_sweep`` raises ``ModuleNotFoundError``
 after writing the JSON and the table. A cell with ``sv_size > 1`` (the
-baseline preset's ``c5-svqc``) needs the sharded engine, ROADMAP Queue 1
-item 12: ``run_sweep`` raises NotImplementedError naming it before the
-first cell trains.
+baseline preset's ``c5-svqc``) trains the sv-sharded model over the
+trainer's default mesh on ``devices`` (``run/trainer.default_mesh``);
+with too few slots for one sv group ``run_sweep`` raises that mesh's
+ValueError before the first cell trains.
 """
 
 from __future__ import annotations
@@ -186,14 +187,16 @@ def _config_from_cell(cell: dict, seed: int) -> ExperimentConfig:
     )
 
 
-def _run_cell(cell: dict, seed: int, device=None) -> dict:
-    """One (cell, seed) training run on ``device`` → its summary
-    metrics."""
-    from qfedx_tpu_torch.run.trainer import train_federated
+def _run_cell(cell: dict, seed: int, device=None, devices=None) -> dict:
+    """One (cell, seed) training run on ``device``, over the default mesh
+    on ``devices`` → its summary metrics."""
+    from qfedx_tpu_torch.run.trainer import default_mesh, train_federated
 
     cfg = _config_from_cell(cell, seed)
     data = build_data(cfg)
     model = build_model(cfg, data["num_classes"], device=device)
+    mesh = default_mesh(model, data["cx"].shape[0], devices=devices,
+                        device=device)
     test_x, test_y = data["test"]
     t0 = time.perf_counter()
     res = train_federated(
@@ -209,6 +212,7 @@ def _run_cell(cell: dict, seed: int, device=None) -> dict:
         eval_every=cfg.eval_every,
         rounds_per_call=cfg.rounds_per_call,
         pipeline_depth=cfg.pipeline_depth,
+        mesh=mesh,
     )
     wall = time.perf_counter() - t0
     final = res.evaluate(res.params, test_x, test_y)
@@ -365,16 +369,22 @@ def _plots(out_dir: Path, cells: list[dict], aggs: dict) -> None:
         plt.close(fig)
 
 
-def check_cells(cells: list[dict]) -> None:
-    """Refuse a grid the port cannot run before any cell trains: a cell
-    with ``sv_size > 1`` needs the sharded engine (ROADMAP Queue 1 item
-    12)."""
-    sharded = [c["name"] for c in cells if c.get("sv_size", 1) > 1]
-    if sharded:
-        raise NotImplementedError(
-            f"sweep cells {sharded} shard the statevector (sv_size > 1), "
-            "which is not ported yet (ROADMAP Queue 1 item 12)"
-        )
+def check_cells(cells: list[dict], device=None, devices=None) -> None:
+    """Refuse a grid before any cell trains where a cell with ``sv_size >
+    1`` finds fewer slots than one sv group: the trainer's mesh
+    ValueError, raised up front."""
+    from qfedx_tpu_torch.parallel.mesh import local_devices
+
+    sharded = [c for c in cells if c.get("sv_size", 1) > 1]
+    if not sharded:
+        return
+    n = len(local_devices(device) if devices is None else list(devices))
+    for c in sharded:
+        if n < c["sv_size"]:
+            raise ValueError(
+                f"model needs sv groups of {c['sv_size']} devices; "
+                f"only {n} available (sweep cell {c['name']!r})"
+            )
 
 
 def run_sweep(
@@ -383,11 +393,14 @@ def run_sweep(
     root: str = "runs",
     cells: list[dict] | None = None,
     device=None,
+    devices=None,
 ) -> dict:
-    """Run the grid on ``device`` (None = the card); returns {"cells":
-    ..., "aggregates": ..., "dir": ...}."""
+    """Run the grid on ``device`` (None = the card), each cell over the
+    trainer's default mesh on ``devices`` (None:
+    ``parallel.mesh.local_devices(device)``); returns {"cells": ...,
+    "aggregates": ..., "dir": ...}."""
     cells = cells if cells is not None else preset_cells(preset)
-    check_cells(cells)
+    check_cells(cells, device, devices)
     out_dir = Path(root) / f"sweep-{preset}"
     out_dir.mkdir(parents=True, exist_ok=True)
 
@@ -402,7 +415,8 @@ def run_sweep(
         s, target = 0, seeds
         while s < target:
             t0 = time.perf_counter()
-            runs.append(_run_cell(cell, seed=42 + s, device=device))
+            runs.append(_run_cell(cell, seed=42 + s, device=device,
+                                  devices=devices))
             print(
                 f"[sweep {ci + 1}/{len(cells)}] {cell['name']} seed {s}: "
                 f"acc={runs[-1]['accuracy']:.3f} "

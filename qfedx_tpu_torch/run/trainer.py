@@ -44,8 +44,19 @@ reference).
 parity tests only: initial parameters in place of ``model.init(seed)``,
 a callable from the round index to the (C, E, S) shuffles the reference
 drew, and one from the round index to the streams of ``RoundDraws``
-the reference drew (a dict by stream name). Sv-sharded models (ROADMAP
-Queue 1 item 12) raise NotImplementedError.
+the reference drew (a dict by stream name).
+
+``mesh`` (``parallel/mesh.py``), as the reference's: the client data is
+split over its client slots and each slot's block runs on its device
+(``fed/round.py``). Without one the trainer builds the reference's
+default (``default_mesh``) over ``parallel.mesh.local_devices()`` of the
+parameters' kind — every visible GPU, or the one CPU device: the
+largest client-slot count dividing the client count, and for an
+sv-sharded model (``model.sv_size > 1``) sv groups of ``sv_size``
+slots, raising the reference's ValueError when there are too few. A
+sharded model evaluates through ``models.vqc_sharded.host_apply``,
+and its chunks stop at each evaluation, as the reference caps
+``rounds_per_call`` there.
 
 ``train_federated_streamed`` trains over a client registry in streamed
 waves: the cohort sampler, the wave uploader, the hierarchical partial
@@ -83,8 +94,10 @@ from qfedx_tpu_torch.fed.round import (
     SA_SEED_SALT,
     RoundDraws,
     guards_enabled,
+    client_mesh,
     make_fed_round,
     round_generator,
+    shard_client_data,
 )
 from qfedx_tpu_torch.fed.secure_agg import round_seed
 from qfedx_tpu_torch.models.api import Model
@@ -143,9 +156,10 @@ def train_federated(
     params=None,
     perms_for_round: Callable[[int], Any] | None = None,
     draws_for_round: Callable[[int], dict] | None = None,
+    mesh=None,
 ) -> TrainResult:
-    """Run federated training on the model's device; returns params +
-    metric history.
+    """Run federated training on the model's device (over ``mesh``'s
+    slots; default ``default_mesh``); returns params + metric history.
 
     ``cx, cy, cmask``: packed client data (``data.partition.pack_clients``).
     ``on_round_end(round_idx, metrics)``: the metrics hook.
@@ -155,10 +169,11 @@ def train_federated(
     num_clients = cx.shape[0]
     guards = guards_enabled()
     agg = resolve_aggregator(cfg)
-    round_fn = make_fed_round(model, cfg, num_clients=num_clients)
     requested_rpc = max(1, int(rounds_per_call))
-    # eval_every > num_rounds is the "evaluation off" convention.
-    in_chunk_eval = requested_rpc > 1 and eval_every <= num_rounds
+    # eval_every > num_rounds is the "evaluation off" convention; a
+    # sharded model evaluates on the host between chunks.
+    in_chunk_eval = (requested_rpc > 1 and model.sv_size == 1
+                     and eval_every <= num_rounds)
     rounds_per_call = min(
         requested_rpc,
         requested_rpc if in_chunk_eval else eval_every,
@@ -177,9 +192,6 @@ def train_federated(
             UserWarning,
             stacklevel=2,
         )
-    evaluate = make_evaluator(model, max_batches=eval_batches)
-    evaluate_full = make_evaluator(model)
-
     with obs.span("trainer.init"):
         if params is None:
             params = model.init(seed)
@@ -189,11 +201,21 @@ def train_federated(
             if restored is not None:
                 params, start_round = restored
     device = trees.tree_leaves(params)[0].device
+    if mesh is None:
+        mesh = default_mesh(model, num_clients, device=device)
+    round_fn = make_fed_round(model, cfg, num_clients=num_clients, mesh=mesh)
+    apply_fn = None
+    if model.sv_size > 1:
+        from qfedx_tpu_torch.models.vqc_sharded import host_apply
+
+        apply_fn = host_apply(model, mesh, sv_axis=model.sv_axis)
+    evaluate = make_evaluator(model, apply_fn=apply_fn,
+                              max_batches=eval_batches)
+    evaluate_full = make_evaluator(model, apply_fn=apply_fn)
     with obs.span("trainer.shard_data"):
-        dcx = torch.as_tensor(np.asarray(cx, dtype=np.float32), device=device)
-        dcy = torch.as_tensor(np.asarray(cy), device=device)
-        dcm = torch.as_tensor(np.asarray(cmask, dtype=np.float32),
-                              device=device)
+        dcx, dcy, dcm = shard_client_data(
+            mesh, np.asarray(cx, dtype=np.float32), np.asarray(cy),
+            np.asarray(cmask, dtype=np.float32))
 
     ex_dev = ey_dev = None
     if rounds_per_call > 1 and in_chunk_eval:
@@ -417,6 +439,42 @@ def train_federated(
     return result
 
 
+def default_mesh(model: Model, num_clients: int, devices=None,
+                 device=None):
+    """The reference trainer's mesh over every process's slots
+    (``devices`` lists this process's; default
+    ``parallel.mesh.local_devices(device)``), sized by the global slot
+    count as the reference sizes it by ``len(jax.devices())``: for an
+    sv-sharded model sv groups of ``model.sv_size`` slots and the largest
+    client-slot count that divides the client count (ValueError when not
+    one group fits); otherwise a client mesh of the largest slot count
+    dividing it."""
+    from qfedx_tpu_torch.parallel.mesh import (
+        fed_mesh,
+        global_slots,
+        local_devices,
+    )
+
+    devs = list(local_devices(device) if devices is None else devices)
+    n = len(global_slots(devs))
+    if model.sv_size > 1:
+        avail = n // model.sv_size
+        if avail < 1:
+            raise ValueError(
+                f"model needs sv groups of {model.sv_size} devices; "
+                f"only {n} available"
+            )
+        n_cli = min(avail, num_clients)
+        while num_clients % n_cli != 0:
+            n_cli -= 1
+        return fed_mesh(sv_size=model.sv_size, sv_axis=model.sv_axis,
+                        num_client_devices=n_cli, devices=devs)
+    n_dev = min(n, num_clients)
+    while num_clients % n_dev != 0:
+        n_dev -= 1
+    return client_mesh(num_devices=n_dev, devices=devs)
+
+
 def _phases(sp_dispatch, sp_fetch, chunk: int, sp_eval=None,
             sp_ckpt=None) -> dict:
     """A round's phase walls for its metrics row: the chunk's dispatch,
@@ -468,6 +526,7 @@ def train_federated_streamed(
     params=None,
     perms_for_round: Callable[[int], Any] | None = None,
     draws_for_round: Callable[[int], dict] | None = None,
+    mesh=None,
 ) -> TrainResult:
     """Federated training over a client REGISTRY in streamed waves.
 
@@ -481,7 +540,9 @@ def train_federated_streamed(
     (``fed.round.make_fed_round_partial``) and applies their sum once
     (``make_accumulate_partial``, ``make_apply_partial``; under the
     robust rules or ``QFEDX_STALE`` the stacked ``make_apply_partials``).
-    ``QFEDX_HIER=off`` runs the flat round and needs one wave.
+    ``QFEDX_HIER=off`` runs the flat round and needs one wave. ``mesh``
+    (a clients-only mesh) splits each wave over its client slots; an
+    sv-sharded model raises ValueError, as in the reference.
 
     The round's shuffles are drawn once over the cohort from the
     resident trainer's generator of (seed, round) and sliced per wave,
@@ -550,6 +611,11 @@ def train_federated_streamed(
         restore_sigterm,
     )
 
+    if getattr(model, "sv_size", 1) != 1:
+        raise ValueError(
+            "train_federated_streamed needs a host-callable model "
+            "(sv_size == 1); sv-sharded models keep the resident path"
+        )
     wave_size = cohort_size if wave_size is None else int(wave_size)
     if cohort_size % wave_size != 0:
         raise ValueError(
@@ -607,7 +673,8 @@ def train_federated_streamed(
     partial_fn = accum_fn = apply_fn = apply_stacked_fn = round_fn = None
     if hier:
         partial_fn = make_fed_round_partial(model, cfg, wave_size,
-                                            cohort_clients=cohort_size)
+                                            cohort_clients=cohort_size,
+                                            mesh=mesh)
         if robust or stale:
             apply_stacked_fn = make_apply_partials(cfg, cohort_size)
         if not robust:
@@ -617,7 +684,8 @@ def train_federated_streamed(
             accum_fn = make_accumulate_partial()
             apply_fn = make_apply_partial(cfg, cohort_size)
     else:
-        round_fn = make_fed_round(model, cfg, num_clients=cohort_size)
+        round_fn = make_fed_round(model, cfg, num_clients=cohort_size,
+                                  mesh=mesh)
 
     evaluate = make_evaluator(model, max_batches=eval_batches)
     evaluate_full = make_evaluator(model)

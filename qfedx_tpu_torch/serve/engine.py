@@ -124,7 +124,9 @@ class ServeEngine:
     e.g. ``(n_qubits,)``. ``device=None`` means the card and raises
     without one. ``fault_plan``: the plan consulted at
     ``serve.compute`` and, by the batcher, ``serve.request`` (None: the
-    one ``QFEDX_FAULTS`` pins).
+    one ``QFEDX_FAULTS`` pins). ``apply_fn`` overrides ``model.apply``
+    — required for an sv-sharded model
+    (``models.vqc_sharded.host_apply(model, mesh)``).
     """
 
     def __init__(
@@ -135,14 +137,22 @@ class ServeEngine:
         config: ServeConfig | None = None,
         device=None,
         fault_plan=None,
+        apply_fn=None,
     ):
+        if apply_fn is None and getattr(model, "sv_size", 1) > 1:
+            raise ValueError(
+                f"model {model.name} is sv-sharded; its bare apply has "
+                "collectives that cannot run outside a shard_map — pass "
+                "apply_fn=host_apply(model, mesh)"
+            )
         self.device = pins.resolve_device(device)
         self.fault_plan = fault_plan
         self.model = model
         self.params = trees.tree_map(lambda v: v.to(self.device), params)
         self.feature_shape = tuple(int(s) for s in feature_shape)
         self.config = config or ServeConfig.resolve()
-        self._fwd = persistent_forward(model.apply)
+        self._fwd = persistent_forward(
+            apply_fn if apply_fn is not None else model.apply)
         self._warm = False
         self._fetch = threading.local()  # serve.fetch meta while in infer
         # The adaptive controller seam (tune/controller.py): attached by
@@ -343,6 +353,11 @@ def engine_from_run_dir(
     exp = experiment_config_from_dict(json.loads(cfg_path.read_text()))
     num_classes = infer_num_classes(exp)
     model = build_model(exp, num_classes, device=device)
+    if model.sv_size > 1:
+        raise NotImplementedError(
+            "serving sv-sharded models needs a mesh-wrapped forward; "
+            "restore on a pod and pass apply_fn=host_apply(model, mesh)"
+        )
     template = model.init(exp.seed)
     ckpt = Checkpointer(run_dir / "checkpoints", every=1)
     if round_idx is not None:

@@ -22,8 +22,8 @@ reruns, processes and resumes (the same counter-based-determinism
 design as ``data.stream.SyntheticRegistry``).
 
 Registered sites (the real seams; each consulted by the port's code,
-except ``distributed.peer``, whose multi-process seam waits for ROADMAP
-Queue 1 item 12 — ``check`` accepts it):
+``distributed.peer`` by a multi-process round's worker through
+``dead_peers``):
 
 - ``client.compute`` — per-(round, client) casualties, ``kind``:
   ``drop`` (client dies: it joins the round's survivor mask as 0, its
@@ -61,9 +61,11 @@ Queue 1 item 12 — ``check`` accepts it):
 - ``checkpoint.write`` — transient error in the async checkpoint
   writer's save attempt (run/checkpoint retries).
 - ``distributed.peer`` — a peer process's in-flight client is declared
-  dead: a multi-process round calls ``check("distributed.peer",
-  round, wave=peer)`` per peer and folds firing peers into the round's
-  survivor mask (the reference's two-process harness; not ported yet).
+  dead: each process of a multi-process round calls
+  ``check("distributed.peer", round, wave=peer)`` per peer
+  (``dead_peers``; deterministic, so every process agrees with no
+  communication) and folds the firing peers into the round's survivor
+  mask (``tests/_torch_distributed_worker.py``'s dropout mode).
 - ``serve.request`` — per-request corruption at the serving front door:
   ``kind`` ``nan`` (features go non-finite) / ``malformed`` (wrong
   feature shape). The micro-batcher mutates request #seq (the
@@ -626,6 +628,19 @@ class FaultPlan:
 
                 obs.counter(f"faults.injected.{site}")
                 raise FaultInjected(site, round_idx, wave, attempt)
+
+
+    def dead_peers(self, round_idx: int, num_peers: int) -> list[int]:
+        """The peers whose ``distributed.peer`` check fires in round
+        ``round_idx``: ``check`` per peer (its ``wave`` coordinate), the
+        ``FaultInjected`` caught."""
+        dead = []
+        for peer in range(num_peers):
+            try:
+                self.check("distributed.peer", round_idx, wave=peer)
+            except FaultInjected:
+                dead.append(peer)
+        return dead
 
 
 @lru_cache(maxsize=8)

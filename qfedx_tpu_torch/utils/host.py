@@ -1,16 +1,27 @@
-"""Process-level helpers: the SIGTERM → KeyboardInterrupt translation.
+"""Process-level helpers: the primary process and the SIGTERM →
+KeyboardInterrupt translation.
 
-Counterpart of ``qfedx_tpu/utils/host.py``'s ``install_sigterm_interrupt``
-and ``restore_sigterm``, shared by the streamed trainer and ``serve``: an
-orchestrator's TERM drains exactly like a Ctrl-C. The reference's
-``is_primary`` has no counterpart: the port runs in one process (ROADMAP
-Queue 1 item 12).
+Counterpart of ``qfedx_tpu/utils/host.py``: ``is_primary`` (the process
+that owns host-side IO: rank 0 of the process group, or the only
+process), and ``install_sigterm_interrupt``/``restore_sigterm``, shared
+by the streamed trainer and ``serve``: an orchestrator's TERM drains
+exactly like a Ctrl-C.
 """
 
 from __future__ import annotations
 
 import signal
 import threading
+
+
+def is_primary() -> bool:
+    """True on the process that owns host-side IO: rank 0 while a
+    ``torch.distributed`` process group is up, else the only process."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank() == 0
+    return True
 
 
 def install_sigterm_interrupt():

@@ -326,19 +326,31 @@ def test_min_participation_makes_the_round_the_identity():
             assert torch.equal(new[g][k], params[g][k])
 
 
+def _two_process_sv_mesh():
+    """A (1, 2) mesh whose one sv group spans ranks 0 and 1."""
+    from qfedx_tpu_torch.parallel.mesh import Mesh, Slot
+
+    arr = np.empty((1, 2), dtype=object)
+    arr[0, 0] = Slot(torch.device("cpu"), 0, 0, 0)
+    arr[0, 1] = Slot(torch.device("cpu"), 1, 0, 1)
+    return Mesh(arr, ("clients", "sv"))
+
+
 @pytest.mark.parametrize(
-    "kwargs,num_devices,call,match",
+    "kwargs,mesh,call,match",
     [
-        ({}, 2, {}, "one device"),
+        ({}, _two_process_sv_mesh, {}, "spans processes"),
     ],
     ids=["devices"],
 )
-def test_unported_round_options_raise(kwargs, num_devices, call, match):
+def test_unported_round_options_raise(kwargs, mesh, call, match):
+    """The one round option still unported: a mesh whose sv group spans
+    processes (the round's client slots run over any slots of one
+    process: tests/test_torch_fed_mesh.py)."""
     model = make_vqc_classifier(N, L, 2, device="cpu")
     cfg = FedConfig(local_epochs=1, batch_size=BATCH, **kwargs)
     with pytest.raises(NotImplementedError, match=match):
-        rf = make_fed_round(model, cfg, num_clients=C,
-                            num_devices=num_devices)
+        rf = make_fed_round(model, cfg, num_clients=C, mesh=mesh())
         cx, cy, cm = (torch.as_tensor(a) for a in _data())
         rf(model.init(0), cx, cy, cm, perms=torch.zeros(
             (C, 1, S), dtype=torch.int64), **call)

@@ -54,5 +54,7 @@ def test_port_imports_no_jax_and_no_reference():
                 "obs.histo", "obs.trace", "obs.export", "obs.flight",
                 "obs.server", "obs.watch", "obs.merge", "obs.profile",
                 "obs.census", "tune", "tune.controller", "tune.offline",
-                "data.viz", "run.demo", "run.sweep", "__main__"):
+                "data.viz", "run.demo", "run.sweep", "__main__",
+                "parallel", "parallel.mesh", "parallel.sharded",
+                "parallel.circuit", "models.vqc_sharded"):
         assert f"qfedx_tpu_torch.{mod}" in report["modules"]

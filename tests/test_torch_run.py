@@ -482,11 +482,39 @@ def test_run_train_takes_prebuilt_data(monkeypatch, tmp_path, small_data):
     ["--sv-size", "2"],
 ])
 def test_cli_unported_paths_raise(tmp_path, small_data, extra):
-    """Every flag runs but sharding, which raises naming item 12
-    (``--plots`` and ``--tuned``: tests/test_torch_demo_viz.py and
-    tests/test_torch_tune_offline.py)."""
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """Every flag runs (``--plots`` and ``--tuned``:
+    tests/test_torch_demo_viz.py and tests/test_torch_tune_offline.py);
+    sharding on the CPU's one slot raises the reference trainer's mesh
+    ValueError, never a quietly smaller mesh (with enough slots it
+    trains: ``test_cli_sv_size_trains_given_slots``)."""
+    k = extra[1]
+    with pytest.raises(ValueError, match=f"model needs sv groups of {k} "
+                       "devices; only 1 available"):
         pcli.main(_train_argv(tmp_path, *extra), device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    ["--sv-size", "4"],
+    ["--sv-size", "2"],
+])
+def test_cli_sv_size_trains_given_slots(tmp_path, small_data, extra):
+    """The same argv over eight CPU slots (``devices=``) trains the
+    sv-sharded model on a (2, k) mesh; from the dense model's init,
+    data and shuffles its rows equal the dense run's (loss 1e-4,
+    accuracy within one validation sample)."""
+    dense = pcli.main(_train_argv(tmp_path), device="cpu")
+    sharded = pcli.main(_train_argv(tmp_path)[:-1] + ["sv", *extra],
+                        device="cpu", devices=["cpu"] * 8)
+    rows = {name: [json.loads(line) for line in (
+        tmp_path / name / "metrics.jsonl").read_text().splitlines()]
+        for name in ("cli", "sv")}
+    assert [r["round"] for r in rows["sv"]] == [1, 2]
+    for a, b in zip(rows["cli"], rows["sv"]):
+        assert abs(a["loss"] - b["loss"]) <= 1e-4
+        assert abs(a["accuracy"] - b["accuracy"]) <= 1.0 / a["n"] + 1e-9
+    assert abs(dense["final_accuracy"] - sharded["final_accuracy"]) <= 1 / 64
+    config = json.loads((tmp_path / "sv" / "config.json").read_text())
+    assert config["model"]["sv_size"] == int(extra[1])
 
 
 @pytest.mark.parametrize("argv", [

@@ -9,8 +9,10 @@
   injected (tests/_torch_ref_streams.py): the final accuracy within one
   evaluation sample, the same ``comm_mb_per_round``.
 - ``run_sweep(cells=[…], seeds=1)`` writes ``results.json``,
-  ``results.md`` and the plots; a cell with ``sv_size > 1`` raises,
-  naming ROADMAP Queue 1 item 12, before any cell trains.
+  ``results.md`` and the plots; a cell with ``sv_size > 1`` raises the
+  trainer's mesh ValueError before any cell trains when the slots are
+  too few for one sv group, and trains over enough slots
+  (``devices=``).
 """
 
 import dataclasses
@@ -158,15 +160,47 @@ def test_run_sweep_end_to_end(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("preset", ["baseline", None])
 def test_sharded_cells_raise_before_training(tmp_path, monkeypatch, preset):
+    """On the CPU's one slot a sharded cell (the baseline's c5-svqc, sv
+    4) raises the trainer's mesh ValueError before any cell trains."""
     trained = []
     monkeypatch.setattr(psweep, "_run_cell",
                         lambda *a, **k: trained.append(a))
     cells = None if preset else [psweep._cell("ok", qubits=4),
                                  psweep._cell("sv2", qubits=8, sv_size=2)]
-    with pytest.raises(NotImplementedError, match="item 12"):
+    k = 4 if preset else 2
+    with pytest.raises(ValueError, match=f"model needs sv groups of {k} "
+                       "devices; only 1 available"):
         psweep.run_sweep(preset=preset or "quick", seeds=1, root=tmp_path,
                          cells=cells, device="cpu")
     assert trained == []
+
+
+def test_baseline_preset_reaches_c5_svqc_given_slots(tmp_path, monkeypatch):
+    """Over eight slots the baseline grid passes its check, and every
+    cell, c5-svqc too, reaches ``_run_cell`` with the slots."""
+    seen = []
+    monkeypatch.setattr(psweep, "_run_cell", lambda cell, seed, **k: (
+        seen.append((cell["name"], k["devices"])) or {
+            "accuracy": 0.5, "auc": None, "epsilon": None, "wall_s": 1.0,
+            "round_s": 0.1, "comm_mb_per_round": 0.0}))
+    monkeypatch.setattr(psweep, "_plots", lambda *a: None)
+    psweep.run_sweep(preset="baseline", seeds=1, root=tmp_path,
+                     device="cpu", devices=["cpu"] * 8)
+    assert ("c5-svqc", ["cpu"] * 8) in seen
+    assert len(seen) == len(psweep.preset_cells("baseline"))
+
+
+def test_sharded_cell_trains_given_slots(tmp_path):
+    """A cut-down sharded cell (n = 4 over sv groups of 2, 2 clients, one
+    round) trains through ``_run_cell`` over four CPU slots, to the dense
+    twin's accuracy within 1/64 (same init, data and shuffles: the
+    sharded model is the dense one on another engine)."""
+    cell = psweep._cell("sv2", qubits=4, clients=2, sv_size=2, rounds=1,
+                        classes=(0, 1), optimizer="sgd")
+    got = psweep._run_cell(cell, 42, device="cpu", devices=["cpu"] * 4)
+    want = psweep._run_cell(dict(cell, sv_size=1), 42, device="cpu")
+    assert abs(got["accuracy"] - want["accuracy"]) <= 1 / 64
+    assert got["comm_mb_per_round"] == want["comm_mb_per_round"]
 
 
 def test_cli_sweep_reaches_run_sweep(monkeypatch):
