@@ -9,8 +9,9 @@ For a rehearsal of the tuning and tool phases alone (item 21 below),
 phase that reads another's output brings it along) builds the kernel,
 trains one traced and profiled [cli-train] run on the card to read from,
 and runs those phases; ``--only mesh-round,sv-sharded`` (any of
-``MESH_PHASES``, item 22) builds the kernel and runs those. A selected
-run prints no ``kernels`` line and no final line.
+``MESH_PHASES``, item 22) builds the kernel and runs those; ``--only
+lint`` runs item 23 alone (no build: lint launches no kernel). A
+selected run prints no ``kernels`` line and no final line.
 
 Phases (any failure raises and exits non-zero):
 
@@ -325,14 +326,20 @@ Phases (any failure raises and exits non-zero):
    NCCL process group and reruns [mesh-round]'s SGD rounds through
    ``torch.distributed.all_reduce`` (θ equal exactly; no two-GPU path
    is measured on the one card). ``--only`` takes these names too;
-23. print one JSON line describing each launch of the kernel, f32 and
+23. ``[lint]``: ``python3 -m qfedx_tpu_torch lint --json`` in a
+   subprocess from the checkout's root, within LINT_TIMEOUT_S: exit 0,
+   ``ok`` true and exactly the port's rule set (LINT_RULES) run — the
+   port's lint needs nothing of the reference on a machine with no JAX.
+   It launches no kernel; the line gives the report's delta and the
+   seconds;
+24. print one JSON line describing each launch of the kernel, f32 and
    bf16 instances (launches on the CLI run, and per path, the dense,
    reupload, amplitude, config-4, federation-option, model-family,
    noise, streamed, fault-plan, observability, tool and mesh paths
    included;
    max error; kernel-alone, plain and bound at the CLI run's shape, and
    at the earlier slices', the reupload, SPSA and per-example shapes);
-24. print the final ``{"ok": true, "device": {...}}`` line.
+25. print the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -6396,6 +6403,37 @@ def phase_distributed(device, mesh_round: dict) -> dict:
                          for k in NO_LAUNCH}, "backend": got_backend}
 
 
+# [lint]: the port's rule set (docs/TORCH_ANALYSIS.md) and the
+# subprocess's time limit (the engine answers in seconds).
+LINT_RULES = frozenset({
+    "QFX000", "QFX002", "QFX003", "QFX004", "QFX006", "QFX007", "QFX008",
+    "QFX100", "QFX101", "QFX102", "QFX103", "QFX104", "QFX105", "QFX106",
+    "QFX107"})
+LINT_TIMEOUT_S = 120
+
+
+def phase_lint() -> dict:
+    """``[lint]``: ``python3 -m qfedx_tpu_torch lint --json`` in a
+    subprocess from the checkout's root: exit 0, ``ok`` true and exactly
+    LINT_RULES run. No kernel is launched."""
+    here = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "qfedx_tpu_torch", "lint", "--json"],
+        cwd=here, capture_output=True, text=True, timeout=LINT_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"lint exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout)
+    if report["ok"] is not True or set(report["rules_run"]) != LINT_RULES:
+        raise AssertionError(f"lint report: ok {report['ok']}, rules "
+                             f"{sorted(report['rules_run'])}")
+    print(f"[lint] {report['delta']}; {len(report['rules_run'])} rules in "
+          f"{seconds:.2f} s (subprocess, no kernel launched)")
+    return {"seconds": seconds, "delta": report["delta"]}
+
+
 def phase_mesh(root, device) -> dict:
     """The mesh phases in order, each with the counters of its own run."""
     t0 = time.perf_counter()
@@ -6414,7 +6452,7 @@ def parse_only(argv) -> tuple | None:
     read from), or None for the whole script."""
     if not argv:
         return None
-    choices = TOOL_PHASES + MESH_PHASES
+    choices = TOOL_PHASES + MESH_PHASES + ("lint",)
     if argv[0] != "--only" or len(argv) != 2:
         raise SystemExit("usage: python3 chip_smoke.py [--only "
                          + ",".join(choices) + "]")
@@ -6439,7 +6477,10 @@ def main_only(only: tuple) -> int:
     torch.backends.cudnn.allow_tf32 = False
     import qfedx_tpu_torch  # noqa: F401 — fails alone, outside the checkout
 
-    phase_build()
+    if "lint" in only:
+        phase_lint()
+    if only != ("lint",):
+        phase_build()
     device = torch.device("cuda")
     mesh = [p for p in only if p in MESH_PHASES]
     root = Path(tempfile.mkdtemp(prefix="qfedx-mesh-"))
@@ -6606,6 +6647,7 @@ def main(argv=()) -> int:
         mesh = phase_mesh(mesh_root, device)
     finally:
         shutil.rmtree(mesh_root, ignore_errors=True)
+    lint = phase_lint()
     source = "qfedx_tpu_torch/ops/csrc/scan_body.cu"
     kernel = "qfedx_tpu/ops/pallas_body.py:401"
     by_path = {
@@ -6892,8 +6934,9 @@ def main(argv=()) -> int:
           f"{mesh['sv-sharded']['theta_err']:.3e}; sv trajectories logits "
           f"{mesh['sv-noise']['logit_err']:.3e}; sv-cli theta card vs cpu "
           f"{mesh['sv-cli']['theta_err']:.3e}; {mesh['distributed']['backend']}"
-          " group of one rank: theta equal; no two-GPU path measured; whole "
-          f"script {time.perf_counter() - T_START:.1f} s")
+          " group of one rank: theta equal; no two-GPU path measured")
+    print(f"[summary] lint: {lint['delta']} in {lint['seconds']:.2f} s; "
+          f"whole script {time.perf_counter() - T_START:.1f} s")
     print(card_line())
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

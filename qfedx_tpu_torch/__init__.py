@@ -2,7 +2,8 @@
 
 A package of its own beside the JAX reference, module for module
 (``ops/``, ``circuits/``, ``models/``, ``fed/``, ``data/``, ``run/``,
-``serve/``, ``noise/``, ``obs/``, ``tune/``, ``utils/``). It
+``serve/``, ``noise/``, ``obs/``, ``tune/``, ``parallel/``,
+``analysis/``, ``utils/``). It
 imports ``torch`` and numpy, never ``jax`` and nothing of ``qfedx_tpu``.
 The reference's one TPU kernel (the Pallas scan-body kernel) is a CUDA
 C++ kernel for Hopper here (``ops/csrc/scan_body.cu``, bound in

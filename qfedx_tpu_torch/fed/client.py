@@ -140,7 +140,7 @@ def draw_perms(generator: torch.Generator, clients: int, epochs: int,
     """(C, E, S) int64: client c's permutation for epoch e, drawn in
     (client, epoch) order from ``generator``."""
     return torch.stack([
-        torch.stack([torch.randperm(samples, generator=generator)
+        torch.stack([torch.randperm(samples, generator=generator)  # qfedx: ignore[QFX006] the shuffle stream: drawn from the caller's seeded round generator in (client, epoch) order, the reference's; RoundDraws covers every stream but the shuffles and the masks
                      for _ in range(epochs)])
         for _ in range(clients)
     ])

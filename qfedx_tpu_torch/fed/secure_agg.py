@@ -126,7 +126,7 @@ def _draw(edges: list, size: int, device) -> torch.Tensor:
     gen = torch.Generator(device=device)
     for e, edge in enumerate(edges):
         gen.manual_seed(edge[-1])
-        torch.randn(size, generator=gen, out=out[e])
+        torch.randn(size, generator=gen, out=out[e])  # qfedx: ignore[QFX006] the mask stream: seeded per pair edge so both ends draw the same mask; RoundDraws covers every stream but the shuffles and the masks
     return out
 
 

@@ -168,7 +168,7 @@ class capture:
                     else self.cuda)
             prof = profile(activities=[ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if cuda else []), **_all_threads())
-            prof.__enter__()
+            prof.__enter__()  # qfedx: ignore[QFX003] the paired exit is in capture.__exit__; a failed enter restores SIGTERM and re-raises below
         except BaseException:
             # __exit__ never runs after a failed __enter__.
             host.restore_sigterm(self._token)

@@ -303,7 +303,7 @@ class span:
                 from torch.profiler import record_function
 
                 self._annot = record_function(self._name)
-                self._annot.__enter__()
+                self._annot.__enter__()  # qfedx: ignore[QFX003] the paired exit is in span.__exit__ — the range brackets this span's own enter/exit by construction
             except Exception:  # noqa: BLE001 — the range is an optional bridge
                 self._annot = None
         stack.append(sp)

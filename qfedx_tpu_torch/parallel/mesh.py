@@ -138,17 +138,16 @@ def distributed_init(
     at ``coordinator_address`` (``host:port`` or ``tcp://host:port``;
     None: the ``env://`` variables) with ``num_processes`` ranks, this
     one ``process_id``. The backend follows the slots' devices
-    (``devices``, this process's slots; default ``local_devices()`` where
-    CUDA is available, the CPU otherwise): NCCL for CUDA slots, gloo for
-    CPU ones. A repeat call is a no-op, so library code may call it
-    defensively."""
+    (``devices``, this process's slots; default ``local_devices()``, the
+    card's, which raises without CUDA): NCCL for CUDA slots, gloo for
+    CPU ones (``devices=["cpu"]``). A repeat call is a no-op, so library
+    code may call it defensively."""
     import torch.distributed as dist
 
     if dist.is_initialized():
         return
     if devices is None:
-        devices = local_devices("cuda" if torch.cuda.is_available()
-                                else "cpu")
+        devices = local_devices()
     types = {torch.device(d).type for d in devices}
     if len(types) != 1 or not types <= {"cuda", "cpu"}:
         raise ValueError(f"slots of one kind, CUDA or CPU; got {types}")

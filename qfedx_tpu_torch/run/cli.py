@@ -35,9 +35,14 @@ mesh.
   reads the ``BENCH_r*.json`` trajectory (exit 1 on a regression, 2 with
   no files); ``demo`` is the encoder walkthrough (``run/demo.py``);
   ``sweep`` the config grid × seeds harness (``run/sweep.py``).
+- ``lint`` runs the static-analysis engine (``analysis/``,
+  docs/TORCH_ANALYSIS.md) over the port's tree; exit 1 on a finding the
+  baseline does not hold. It is dispatched before any other import and
+  touches no device.
 
-Not ported yet, raising NotImplementedError: the ``lint`` subcommand
-(ROADMAP Queue 1 item 15).
+Every reference subcommand is ported: ``_UNPORTED`` is empty. Under a
+process group only the primary process (``utils/host.is_primary``, rank
+0) prints and writes the plots, traces and sweep results.
 """
 
 from __future__ import annotations
@@ -58,8 +63,16 @@ from qfedx_tpu_torch.run.config import (
 
 
 # The reference's subcommands the port does not have yet, with the
-# ROADMAP Queue 1 item that ports each.
-_UNPORTED = {"lint": "15"}
+# ROADMAP Queue 1 item that ports each (none left).
+_UNPORTED: dict[str, str] = {}
+
+
+def _say():
+    """``print`` on the primary process (``utils/host.is_primary``: rank
+    0 of a process group, or the only process), a no-op on the others."""
+    from qfedx_tpu_torch.utils.host import is_primary
+
+    return print if is_primary() else (lambda *a, **k: None)
 
 
 def _parse_classes(s: str | None):
@@ -309,6 +322,26 @@ def build_parser() -> argparse.ArgumentParser:
     bh.add_argument("--no-gate", action="store_true",
                     help="report but always exit 0 (advisory mode)")
 
+    lnt = sub.add_parser(
+        "lint",
+        help="AST static analysis: pin discipline, span/lock hygiene, "
+             "seeded draws, port isolation, no device fall-back, "
+             "doc-taxonomy contracts (docs/TORCH_ANALYSIS.md); exit 1 on "
+             "non-baselined findings",
+    )
+    lnt.add_argument("--json", action="store_true", dest="as_json",
+                     help="machine-readable report on stdout (schema v1)")
+    lnt.add_argument("--rules", default=None,
+                     help="comma-separated rule IDs to run (default: all)")
+    lnt.add_argument("--baseline", default=None,
+                     help="override the [tool.qfedx_tpu_torch.lint] "
+                          "baseline path")
+    lnt.add_argument("--update-baseline", action="store_true",
+                     help="rewrite the baseline from current findings "
+                          "(grandfather them) instead of failing")
+    lnt.add_argument("--show-baselined", action="store_true",
+                     help="also print baselined findings in text mode")
+
     # Not ported yet: main() raises for each, whatever its arguments.
     for name, item in _UNPORTED.items():
         sub.add_parser(name, help=f"not ported yet: raises (ROADMAP Queue 1 "
@@ -413,12 +446,17 @@ def run_train(cfg: ExperimentConfig, resume: bool = False,
     from qfedx_tpu_torch.run.metrics import ExperimentRun
     from qfedx_tpu_torch.run.trainer import default_mesh, train_federated
     from qfedx_tpu_torch.utils import pins
+    from qfedx_tpu_torch.utils.host import is_primary
 
     if trace:
         # Read per call, so this covers the whole run; reset() makes the
         # trace.json window exactly this run.
         pins.set_pin("QFEDX_TRACE", "1")
         obs.reset()
+    # Under a process group only rank 0 speaks and writes the plots,
+    # the profile summary and the phase trace (the run directory's files
+    # are gated inside run/metrics and run/checkpoint).
+    say = _say()
     if data is None:
         data = build_data(cfg)
     model = build_model(cfg, data["num_classes"], device=device)
@@ -433,8 +471,8 @@ def run_train(cfg: ExperimentConfig, resume: bool = False,
 
     with ExperimentRun(cfg.run_root, cfg.run_name(), config=cfg,
                        resume=resume) as run:
-        print(f"[qfedx_tpu_torch] run dir: {run.dir}")
-        if plots:
+        say(f"[qfedx_tpu_torch] run dir: {run.dir}")
+        if plots and is_primary():
             from qfedx_tpu_torch.data.viz import (
                 save_class_distribution,
                 save_client_samples,
@@ -445,7 +483,7 @@ def run_train(cfg: ExperimentConfig, resume: bool = False,
                                 run.dir / "client_samples.png")
             save_class_distribution(data["stats"],
                                     run.dir / "class_distribution.png")
-        print(
+        say(
             f"[qfedx_tpu_torch] model={model.name} "
             f"clients={data['cx'].shape[0]} "
             f"samples/client≤{data['cx'].shape[1]} "
@@ -455,7 +493,7 @@ def run_train(cfg: ExperimentConfig, resume: bool = False,
         def on_round_end(r, m):
             run.on_round_end(r, m)
             if (r + 1) % 5 == 0:
-                print(f"[round {r + 1:3d}] " + json.dumps(m))
+                say(f"[round {r + 1:3d}] " + json.dumps(m))
 
         prof_dir = obs.profile.profile_dir(str(run.dir / "profile"))
         if profile and prof_dir is None:
@@ -497,7 +535,7 @@ def run_train(cfg: ExperimentConfig, resume: bool = False,
         finally:
             if bridge_set:
                 pins.clear_pin("QFEDX_TRACE_XLA")
-            if prof_dir is not None:
+            if prof_dir is not None and is_primary():
                 # Parsed on the crash path too: a killed run most needs
                 # its device timeline.
                 try:
@@ -507,10 +545,10 @@ def run_train(cfg: ExperimentConfig, resume: bool = False,
                     (run.dir / "profile_summary.json").write_text(
                         json.dumps(psum, indent=2))
                 except Exception as exc:  # noqa: BLE001 — reporting must
-                    print(f"[qfedx_tpu_torch] profile parse failed: {exc}")
+                    say(f"[qfedx_tpu_torch] profile parse failed: {exc}")
                     prof_parsed = None  # not mask the run's own outcome
                 else:
-                    print(
+                    say(
                         "[qfedx_tpu_torch] profile summary: "
                         f"{run.dir / 'profile_summary.json'} "
                         f"(ops={psum['ops_executed']}, "
@@ -533,18 +571,18 @@ def run_train(cfg: ExperimentConfig, resume: bool = False,
             "final_epsilon": result.epsilons[-1] if result.epsilons else None,
         }
         run.finish(**summary)
-        if obs.enabled():
+        if obs.enabled() and is_primary():
             # A parsed capture adds the device-op lane on the same clock.
             if prof_parsed is not None:
                 trace_path = obs.profile.write_merged_trace(
                     run.dir / "trace.json", prof_parsed)
-                print(f"[qfedx_tpu_torch] phase trace: {trace_path} "
-                      "(host spans + device lane; load in Perfetto)")
+                say(f"[qfedx_tpu_torch] phase trace: {trace_path} "
+                    "(host spans + device lane; load in Perfetto)")
             else:
                 trace_path = obs.write_chrome_trace(run.dir / "trace.json")
-                print(f"[qfedx_tpu_torch] phase trace: {trace_path} "
-                      "(load in Perfetto / chrome://tracing)")
-        print("[qfedx_tpu_torch] " + json.dumps(summary))
+                say(f"[qfedx_tpu_torch] phase trace: {trace_path} "
+                    "(load in Perfetto / chrome://tracing)")
+        say("[qfedx_tpu_torch] " + json.dumps(summary))
         return summary
 
 
@@ -573,12 +611,14 @@ def run_serve(args, device=None) -> dict:
     from qfedx_tpu_torch.utils import pins
     from qfedx_tpu_torch.utils.host import (
         install_sigterm_interrupt,
+        is_primary,
         restore_sigterm,
     )
 
     if args.trace:
         pins.set_pin("QFEDX_TRACE", "1")
         obs.reset()
+    say = _say()
     if getattr(args, "tuned", None) is not None:
         # Replay the `tune` winner as pins before the config resolves;
         # operator-set pins are skipped inside apply_best_config, and
@@ -586,10 +626,10 @@ def run_serve(args, device=None) -> dict:
         from qfedx_tpu_torch.tune import offline as tune_offline
 
         applied = tune_offline.apply_best_config(args.tuned or args.run_dir)
-        print("[qfedx_tpu_torch] tuned pins applied: "
-              + json.dumps(applied["applied"])
-              + (f" (operator kept: {sorted(applied['skipped'])})"
-                 if applied["skipped"] else ""), file=sys.stderr)
+        say("[qfedx_tpu_torch] tuned pins applied: "
+            + json.dumps(applied["applied"])
+            + (f" (operator kept: {sorted(applied['skipped'])})"
+               if applied["skipped"] else ""), file=sys.stderr)
     buckets = (
         tuple(int(b) for b in args.buckets.split(",")) if args.buckets
         else None
@@ -601,15 +641,15 @@ def run_serve(args, device=None) -> dict:
     engine, info = engine_from_run_dir(
         args.run_dir, round_idx=args.round, config=cfg, device=device
     )
-    print(f"[qfedx_tpu_torch] serving {info['model']} from "
-          f"{info['run_dir']} (round {info['round']}, "
-          f"{info['num_classes']} classes)", file=sys.stderr)
+    say(f"[qfedx_tpu_torch] serving {info['model']} from "
+        f"{info['run_dir']} (round {info['round']}, "
+        f"{info['num_classes']} classes)", file=sys.stderr)
     with obs.span("serve.warmup_all"):
         warm = engine.warmup()
-    print("[qfedx_tpu_torch] warm buckets: " + ", ".join(
+    say("[qfedx_tpu_torch] warm buckets: " + ", ".join(
         f"{b} ({v['wall_s']:.2f}s wall)" for b, v in warm["buckets"].items()
     ) + f"; kernel builds {warm['kernel_builds']}", file=sys.stderr)
-    print("[qfedx_tpu_torch] route: " + ", ".join(
+    say("[qfedx_tpu_torch] route: " + ", ".join(
         f"{k}={v}" for k, v in warm["route_resolved"].items()
     ), file=sys.stderr)
 
@@ -677,8 +717,8 @@ def run_serve(args, device=None) -> dict:
             window.pop(0)
             responses += 1
     except KeyboardInterrupt:
-        print("[qfedx_tpu_torch] interrupted — draining in-flight requests",
-              file=sys.stderr)
+        say("[qfedx_tpu_torch] interrupted — draining in-flight requests",
+            file=sys.stderr)
         flight.maybe_dump(reason="sigterm")
     finally:
         batcher.close(drain=True)
@@ -693,11 +733,11 @@ def run_serve(args, device=None) -> dict:
         if out_f is not sys.stdout:
             out_f.close()
         # In the finally, so a crash still leaves the completed spans.
-        if obs.enabled():
+        if obs.enabled() and is_primary():
             trace_path = obs.write_chrome_trace(
                 Path(args.run_dir) / "serve_trace.json")
-            print(f"[qfedx_tpu_torch] serve trace: {trace_path}",
-                  file=sys.stderr)
+            say(f"[qfedx_tpu_torch] serve trace: {trace_path}",
+                file=sys.stderr)
 
     def pct(q):  # the nearest-rank rule over log buckets (obs/histo.py)
         return round(lat_hist.percentile(q), 3) if lat_hist.count else None
@@ -711,8 +751,8 @@ def run_serve(args, device=None) -> dict:
         "p95_ms": pct(0.95),
         **{k: batcher.stats[k] for k in ("rejected", "shed", "batches")},
     }
-    print("[qfedx_tpu_torch] serve summary: " + json.dumps(summary),
-          file=sys.stderr)
+    say("[qfedx_tpu_torch] serve summary: " + json.dumps(summary),
+        file=sys.stderr)
     return summary
 
 
@@ -723,6 +763,7 @@ def run_tune(args, device=None) -> dict:
     as a ``best_config.json`` pin sidecar (tune/offline.py)."""
     from qfedx_tpu_torch.tune import offline as tune_offline
 
+    say = _say()
     bucket_sets = (
         tuple(
             tuple(int(b) for b in grp.split(","))
@@ -744,13 +785,13 @@ def run_tune(args, device=None) -> dict:
         out_path=args.out,
         device=device,
     )
-    print(f"[qfedx_tpu_torch] tuned {args.run_dir}: {len(record['cells'])} "
-          f"cells swept, winner pins {json.dumps(record['pins'])} "
-          f"(throughput_at_slo={record['score']['throughput_at_slo']}, "
-          f"p95={record['score']['p95_ms']}ms)")
-    print(f"[qfedx_tpu_torch] sidecar: {record['path']} — restore with "
-          "`serve --tuned`")
-    print("[qfedx_tpu_torch] " + json.dumps(
+    say(f"[qfedx_tpu_torch] tuned {args.run_dir}: {len(record['cells'])} "
+        f"cells swept, winner pins {json.dumps(record['pins'])} "
+        f"(throughput_at_slo={record['score']['throughput_at_slo']}, "
+        f"p95={record['score']['p95_ms']}ms)")
+    say(f"[qfedx_tpu_torch] sidecar: {record['path']} — restore with "
+        "`serve --tuned`")
+    say("[qfedx_tpu_torch] " + json.dumps(
         {k: record[k] for k in ("schema", "key", "pins", "score", "path")}
     ))
     return record
@@ -923,7 +964,7 @@ def run_bench_history(args) -> int:
     """``bench history``: the regression ledger. Exit 0 = no trend
     regression, 1 = regression (gate-able; ``--no-gate`` keeps it
     advisory), 2 = no BENCH files found."""
-    say = print
+    say = _say()
     bench_dir = Path(args.dir)
     rows = _bench_history_rows(bench_dir)
     if not rows:
@@ -978,7 +1019,7 @@ def run_inspect(run_dir) -> dict:
     key)."""
     from qfedx_tpu_torch.run.metrics import validate_metrics_record
 
-    say = print
+    say = _say()
     run_dir = Path(run_dir)
     metrics_path = run_dir / "metrics.jsonl"
     if not metrics_path.exists():
@@ -1182,13 +1223,48 @@ def run_inspect(run_dir) -> dict:
     return out
 
 
+def run_lint_cmd(args) -> int:
+    """``lint``: run the analysis engine, print text or JSON, exit
+    non-zero on any non-baselined finding (tests/test_torch_lint.py
+    gates the same engine)."""
+    from qfedx_tpu_torch import analysis
+    from qfedx_tpu_torch.analysis import engine as lint_engine
+
+    say = _say()
+    cfg = analysis.load_config()
+    if args.baseline:
+        cfg.baseline = args.baseline
+    rules = (
+        tuple(r.strip() for r in args.rules.split(",") if r.strip())
+        if args.rules else None
+    )
+    result = analysis.run_lint(config=cfg, rules=rules)
+    if args.update_baseline:
+        ctx = lint_engine.LintContext(cfg)
+        n = lint_engine.write_baseline(
+            cfg.baseline_path, ctx,
+            result.findings + result.baselined,
+            rules_run=result.rules_run,
+        )
+        say(f"[qfedx_tpu_torch] baseline rewritten: {cfg.baseline_path} "
+            f"({n} entries)")
+        return 0
+    if args.as_json:
+        say(analysis.render_json(result))
+    else:
+        say(analysis.render_text(
+            result, verbose_baselined=args.show_baselined
+        ))
+    return 0 if result.ok else 1
+
+
 
 def main(argv=None, device=None, devices=None):
     """Parse ``argv`` and run the subcommand on ``device`` (None = the
     card; the tests pass ``"cpu"``), ``train``'s and ``sweep``'s mesh on
     ``devices`` (None: ``parallel.mesh.local_devices()``). Returns the
-    subcommand's summary; ``bench history`` exits with its code, as the
-    reference's does."""
+    subcommand's summary; ``lint`` and ``bench history`` exit with their
+    codes, as the reference's do."""
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
     if args.cmd in _UNPORTED:
@@ -1198,6 +1274,9 @@ def main(argv=None, device=None, devices=None):
         )
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    if args.cmd == "lint":
+        # No torch, no device: lint is a pure AST pass, seconds.
+        raise SystemExit(run_lint_cmd(args))
     if args.cmd == "bench":
         # Pure file parsing over committed BENCH_r*.json snapshots.
         raise SystemExit(run_bench_history(args))
@@ -1209,8 +1288,8 @@ def main(argv=None, device=None, devices=None):
             from qfedx_tpu_torch.tune import offline as tune_offline
 
             applied = tune_offline.apply_best_config(args.tuned)
-            print("[qfedx_tpu_torch] tuned pins applied: "
-                  + json.dumps(applied["applied"]))
+            _say()("[qfedx_tpu_torch] tuned pins applied: "
+                   + json.dumps(applied["applied"]))
         return run_train(config_from_args(args), resume=args.resume,
                          device=device, profile=args.profile,
                          trace=args.trace, plots=args.plots,

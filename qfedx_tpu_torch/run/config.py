@@ -150,20 +150,20 @@ _SCAN_ENV_SAVED: list = []
 
 def _apply_scan_layers(scan_layers: bool | None) -> None:
     if scan_layers is not None:
-        cur = os.environ.get("QFEDX_SCAN_LAYERS")
+        cur = os.environ.get("QFEDX_SCAN_LAYERS")  # qfedx: ignore[QFX002] save/restore ledger — must observe the exact operator state, set or unset
         if not _SCAN_ENV_SAVED or cur != _SCAN_ENV_SAVED[1]:
             _SCAN_ENV_SAVED[:] = [cur, None]
         val = "1" if scan_layers else "0"
-        os.environ["QFEDX_SCAN_LAYERS"] = val
+        os.environ["QFEDX_SCAN_LAYERS"] = val  # qfedx: ignore[QFX002] save/restore ledger — raw write paired with the raw snapshot above
         _SCAN_ENV_SAVED[1] = val
     elif _SCAN_ENV_SAVED:
         saved, written = _SCAN_ENV_SAVED
         _SCAN_ENV_SAVED.clear()
-        if os.environ.get("QFEDX_SCAN_LAYERS") == written:
+        if os.environ.get("QFEDX_SCAN_LAYERS") == written:  # qfedx: ignore[QFX002] save/restore ledger — restore only fires while the env still holds our own write
             if saved is None:
-                os.environ.pop("QFEDX_SCAN_LAYERS", None)
+                os.environ.pop("QFEDX_SCAN_LAYERS", None)  # qfedx: ignore[QFX002] save/restore ledger — "restore unset" has no pins-helper spelling on purpose
             else:
-                os.environ["QFEDX_SCAN_LAYERS"] = saved
+                os.environ["QFEDX_SCAN_LAYERS"] = saved  # qfedx: ignore[QFX002] save/restore ledger — raw write paired with the raw snapshot above
 
 
 def build_model(cfg: ExperimentConfig, num_classes: int, device=None):

@@ -7,8 +7,10 @@ written at the end — the same files, the same schema (version 1) and
 the same field names as the reference's, so either package's readers
 take either package's runs.
 
-The port runs in one process, so the run directory's name is decided
-locally. A run translates SIGTERM into ``KeyboardInterrupt`` while it is
+Under a ``torch.distributed`` process group only the primary process
+(``utils/host.is_primary``, rank 0) writes: the others get the same
+directory name (rank 0 decides it) and a no-op logger, as in the
+reference. A run translates SIGTERM into ``KeyboardInterrupt`` while it is
 open (``utils/host``), so an orchestrator's TERM unwinds it like a
 Ctrl-C. A run wires the observability layer in as the reference does:
 the flight recorder dumps ``flight.json`` into the run directory
@@ -33,6 +35,7 @@ from typing import Any, Mapping
 
 from qfedx_tpu_torch.utils.host import (
     install_sigterm_interrupt,
+    is_primary,
     restore_sigterm,
 )
 
@@ -91,24 +94,35 @@ def _jsonable(x: Any) -> Any:
 
 def _agreed_run_dir_name(root: Path, name: str, resume: bool) -> str:
     """The run directory's name: ``name``, or ``name`` plus a timestamp
-    when that directory exists and this is not a resume. (The reference
-    broadcasts process 0's decision to every process; the port runs in
-    one.)"""
-    if (root / name).exists() and not resume:
-        return f"{name}-{time.strftime('%Y%m%d-%H%M%S')}"
-    return name
+    when that directory exists and this is not a resume. The primary
+    decides and a process group takes its decision: each process
+    deciding alone would race the primary's mkdir and could resume from
+    another directory than the primary's."""
+    import torch.distributed as dist
+
+    stamp = ""
+    if is_primary() and (root / name).exists() and not resume:
+        stamp = time.strftime("%Y%m%d-%H%M%S")
+    if dist.is_available() and dist.is_initialized():
+        box = [stamp]
+        dist.broadcast_object_list(box, src=0)
+        stamp = box[0]
+    return f"{name}-{stamp}" if stamp else name
 
 
 class MetricsLogger:
     """Append-only JSONL metrics stream; flushed AND fsynced per record,
     so a process or host killed between rounds leaves only whole JSON
-    lines behind. Appends from several threads stay whole lines."""
+    lines behind. Appends from several threads stay whole lines. Only
+    the primary process writes; the others log into a no-op."""
 
     def __init__(self, path: str | Path):
         self.path = Path(path)
         self._write_lock = threading.Lock()
-        self.path.parent.mkdir(parents=True, exist_ok=True)
-        self._fh = open(self.path, "a")
+        self._fh = None
+        if is_primary():
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            self._fh = open(self.path, "a")
 
     def log(self, record: Mapping[str, Any]) -> None:
         rec = dict(_jsonable(record))
@@ -116,7 +130,7 @@ class MetricsLogger:
         rec.setdefault("schema", METRICS_SCHEMA_VERSION)
         line = json.dumps(rec) + "\n"
         with self._write_lock:
-            if self._fh.closed:
+            if self._fh is None or self._fh.closed:
                 return
             self._fh.write(line)
             self._fh.flush()
@@ -124,7 +138,8 @@ class MetricsLogger:
 
     def close(self) -> None:
         with self._write_lock:
-            self._fh.close()
+            if self._fh is not None:
+                self._fh.close()
 
     def __enter__(self):
         return self
@@ -148,11 +163,12 @@ class ExperimentRun:
         self, root: str | Path, name: str, config: Any = None, resume: bool = False
     ):
         self.dir = Path(root) / _agreed_run_dir_name(Path(root), name, resume)
-        self.dir.mkdir(parents=True, exist_ok=True)
-        if config is not None:
-            (self.dir / "config.json").write_text(
-                json.dumps(_jsonable(config), indent=2)
-            )
+        if is_primary():
+            self.dir.mkdir(parents=True, exist_ok=True)
+            if config is not None:
+                (self.dir / "config.json").write_text(
+                    json.dumps(_jsonable(config), indent=2)
+                )
         self.metrics = MetricsLogger(self.dir / "metrics.jsonl")
         self._t0 = time.time()
         # The black box lands in THIS run's directory and the watchdog's
@@ -182,6 +198,8 @@ class ExperimentRun:
         return Checkpointer(self.dir / "checkpoints", every=every, keep=keep)
 
     def finish(self, **summary: Any) -> None:
+        if not is_primary():
+            return
         from qfedx_tpu_torch import obs
 
         summary = dict(summary)
@@ -204,7 +222,7 @@ class ExperimentRun:
         registry, so the trace parses. Never raises."""
         from qfedx_tpu_torch import obs
 
-        if not obs.enabled():
+        if not is_primary() or not obs.enabled():
             return
         try:
             obs.write_chrome_trace(self.dir / "trace.json")

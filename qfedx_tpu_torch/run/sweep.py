@@ -249,10 +249,10 @@ def _env_tag(device=None) -> str:
     type and count the cells ran on (``cuda1``, ``cpu1``)."""
     import torch
 
+    from qfedx_tpu_torch.utils.pins import resolve_device
+
     try:
-        dev = torch.device(device) if device is not None else (
-            torch.device("cuda") if torch.cuda.is_available()
-            else torch.device("cpu"))
+        dev = resolve_device(device)
         count = torch.cuda.device_count() if dev.type == "cuda" else 1
         return f"{dev.type}{count}"
     except Exception:  # noqa: BLE001
@@ -398,11 +398,16 @@ def run_sweep(
     """Run the grid on ``device`` (None = the card), each cell over the
     trainer's default mesh on ``devices`` (None:
     ``parallel.mesh.local_devices(device)``); returns {"cells": ...,
-    "aggregates": ..., "dir": ...}."""
+    "aggregates": ..., "dir": ...}. Under a process group only the
+    primary process prints and writes the results and plots."""
+    from qfedx_tpu_torch.utils.host import is_primary
+
+    say = print if is_primary() else (lambda *a, **k: None)
     cells = cells if cells is not None else preset_cells(preset)
     check_cells(cells, device, devices)
     out_dir = Path(root) / f"sweep-{preset}"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if is_primary():
+        out_dir.mkdir(parents=True, exist_ok=True)
 
     # 3–5 seeds: start at ``seeds``; if the accuracy spread over those is
     # wide (std > 0.1), run ALL the way to 5. The trigger is checked
@@ -417,7 +422,7 @@ def run_sweep(
             t0 = time.perf_counter()
             runs.append(_run_cell(cell, seed=42 + s, device=device,
                                   devices=devices))
-            print(
+            say(
                 f"[sweep {ci + 1}/{len(cells)}] {cell['name']} seed {s}: "
                 f"acc={runs[-1]['accuracy']:.3f} "
                 f"({time.perf_counter() - t0:.1f}s)"
@@ -440,9 +445,11 @@ def run_sweep(
         "runs": all_runs,
         "aggregates": aggs,
     }
-    (out_dir / "results.json").write_text(json.dumps(result, indent=2))
-    (out_dir / "results.md").write_text(_markdown_table(cells, aggs, device))
-    _plots(out_dir, cells, aggs)
+    if is_primary():
+        (out_dir / "results.json").write_text(json.dumps(result, indent=2))
+        (out_dir / "results.md").write_text(
+            _markdown_table(cells, aggs, device))
+        _plots(out_dir, cells, aggs)
     result["dir"] = str(out_dir)
-    print(f"[sweep] wrote {out_dir}/results.json, results.md, plots")
+    say(f"[sweep] wrote {out_dir}/results.json, results.md, plots")
     return result
