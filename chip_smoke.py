@@ -325,7 +325,16 @@ Phases (any failure raises and exits non-zero):
    SV_CLI_ATOL; each side's round cost its window over its rounds); ``[distributed]`` joins a one-rank
    NCCL process group and reruns [mesh-round]'s SGD rounds through
    ``torch.distributed.all_reduce`` (θ equal exactly; no two-GPU path
-   is measured on the one card). ``--only`` takes these names too;
+   is measured on the one card); ``[sv-processes]``, with W =
+   min(GPUs, SV_PROC_MAX) ≥ 2, starts W processes of this script
+   (``--sv-process``), one per GPU on NCCL, runs the n = 22 forward and
+   one SGD round on a (1, W) mesh whose sv group spans them, and with
+   W = 4 one round on a (2, 2) mesh at [mesh-round]'s widths, each held
+   against the same run on a lockstep mesh over the same W GPUs in this
+   process (SV_PROC_ATOL) and the forward against the dense ⟨Z⟩
+   (SV_WIDE_ATOL), and prints the times, the bytes a global-qubit gate
+   sends and the subgroup's size; with one GPU it runs nothing and says
+   so in one line. ``--only`` takes these names too;
 23. ``[lint]``: ``python3 -m qfedx_tpu_torch lint --json`` in a
    subprocess from the checkout's root, within LINT_TIMEOUT_S: exit 0,
    ``ok`` true and exactly the port's rule set (LINT_RULES) run — the
@@ -6002,7 +6011,7 @@ def tool_paths(tools: dict) -> dict:
 # --- the device mesh, the sharded statevector, the multi-device round -------
 
 MESH_PHASES = ("mesh-round", "sv-sharded", "sv-noise", "sv-cli",
-               "distributed")
+               "distributed", "sv-processes")
 # [mesh-round]: the CLI run's widths (n = 12, L = 3, 4 clients) in a
 # library round of 16 samples a client, batch 16: one local step a round.
 MESH_N, MESH_LAYERS, MESH_CLIENTS, MESH_SAMPLES, MESH_BATCH = 12, 3, 4, 16, 16
@@ -6403,6 +6412,319 @@ def phase_distributed(device, mesh_round: dict) -> dict:
                          for k in NO_LAUNCH}, "backend": got_backend}
 
 
+# [sv-processes]: one process per GPU, up to SV_PROC_MAX, NCCL; the
+# cross-process results against the one-process lockstep mesh.
+SV_PROC_MAX = 4
+SV_PROC_ATOL = 1e-5
+SV_PROC_TIMEOUT_S = 600
+
+
+def _sync_all(devices) -> None:
+    for d in {torch.device(d) for d in devices}:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _sv_wide_case(slot_devices, world: int, n: int) -> dict:
+    """The n-qubit, one-layer forward and one SGD round of 2 clients × 2
+    samples on a (1, ``world``) mesh of ``slot_devices`` (this process's
+    slots; under a process group every rank's): ⟨Z⟩, θ, the loss, the
+    walls, the bytes this process sends for one gate on global qubit 0,
+    and that gate's time against one on a local qubit."""
+    from qfedx_tpu_torch.circuits.ansatz import init_ansatz_params
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.fed.round import (
+        RoundDraws,
+        make_fed_round,
+        shard_client_data,
+    )
+    from qfedx_tpu_torch.models.vqc_sharded import (
+        make_sharded_vqc_classifier,
+    )
+    from qfedx_tpu_torch.parallel import fed_mesh, make_sharded_forward
+    from qfedx_tpu_torch.parallel.circuit import sharded_hea_state
+    from qfedx_tpu_torch.ops.cpx import CArray
+    from qfedx_tpu_torch.parallel.sharded import apply_gate_sharded
+
+    mesh = fed_mesh(sv_size=world, devices=slot_devices)
+    fwd, ctx = make_sharded_forward(n, mesh)
+    own = [ctx.device(j) for j in ctx.local_slots]
+    home = ctx.home
+    p = init_ansatz_params(5, n, 1, 0.2, home)
+    x = torch.linspace(0.05, 0.95, n, device=home)
+
+    def timed(fn, iters):
+        fn()
+        _sync_all(own)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn()
+        _sync_all(own)
+        return out, (time.perf_counter() - t0) * 1e3 / iters
+
+    gate = CArray(torch.tensor([[0.6, 0.8], [0.8, -0.6]], device=home), None)
+    with torch.no_grad():
+        z, fwd_ms = timed(lambda: fwd(p, x), 5)
+        state = sharded_hea_state(ctx, x, p)
+        # What this process sends to others for a gate on global qubit 0:
+        # a whole shard (re and im) per partner in another process.
+        gate_bytes = sum(
+            t.numel() * t.element_size() for j in ctx.local_slots
+            if not ctx.owns(j ^ ctx.device_mask(0))
+            for t in (state[j].re, state[j].im) if t is not None)
+        # One gate alone: on global qubit 0 (the exchange) and on the
+        # last, local qubit.
+        _, global_ms = timed(lambda: apply_gate_sharded(ctx, state, gate, 0),
+                             10)
+        _, local_ms = timed(lambda: apply_gate_sharded(ctx, state, gate,
+                                                       n - 1), 10)
+    clients, samples = 2, 2
+    rng = np.random.default_rng(3)
+    cx = rng.uniform(0, 1, (clients, samples, n)).astype(np.float32)
+    cy = (cx[..., 0] > 0.5).astype(np.int64)
+    cm = np.ones((clients, samples), np.float32)
+    cfg = FedConfig(local_epochs=1, batch_size=2, learning_rate=0.1,
+                    optimizer="sgd")
+    model = make_sharded_vqc_classifier(n, world, 1, 2, device=home)
+    params = model.init(0)
+    mesh2d = fed_mesh(sv_size=world, num_client_devices=1,
+                      devices=slot_devices)
+    rf = make_fed_round(model, cfg, clients, mesh=mesh2d)
+    data = shard_client_data(mesh2d, cx, cy, cm)
+    perms = torch.stack([torch.randperm(samples, generator=torch.Generator()
+                                        .manual_seed(c))[None]
+                         for c in range(clients)])
+    walls = []
+    for _ in range(2):  # the first round pays the subgroups' first use
+        _sync_all(own)
+        t0 = time.perf_counter()
+        got, stats = rf(params, *data, perms=perms, draws=RoundDraws(22, 0))
+        loss = float(stats.mean_loss)
+        _sync_all(own)
+        walls.append(time.perf_counter() - t0)
+    group = (1 if ctx.group is None else
+             torch.distributed.get_world_size(ctx.group))
+    return {"z": z.cpu(), "fwd_ms": fwd_ms, "theta": [
+        t.detach().cpu() for t in trees_leaves(got)], "loss": loss,
+        "round_ms": [w * 1e3 for w in walls], "gate_bytes": gate_bytes,
+        "global_ms": global_ms, "local_ms": local_ms,
+        "slots_here": len(own), "group_size": group}
+
+
+def _sv_grid_case(slot_devices) -> dict:
+    """[mesh-round]'s data and widths (n = 12, L = 3, 4 clients × 16
+    samples, batch 16) on a (2, 2) mesh of ``slot_devices`` (every
+    rank's: 4 slots): one SGD round's θ and loss, the walls of it and of
+    its repeat, and the held-out logits through ``host_apply``."""
+    from qfedx_tpu_torch.fed.config import FedConfig
+    from qfedx_tpu_torch.fed.round import (
+        RoundDraws,
+        make_fed_round,
+        shard_client_data,
+    )
+    from qfedx_tpu_torch.models.vqc_sharded import (
+        host_apply,
+        make_sharded_vqc_classifier,
+    )
+    from qfedx_tpu_torch.parallel import fed_mesh
+    from qfedx_tpu_torch.parallel.mesh import home_slot, is_member
+
+    mesh = fed_mesh(sv_size=2, devices=slot_devices)
+    group = next(g for g in mesh.sv_groups() if is_member(g))
+    home = home_slot(group).device
+    own = [s.device for g in mesh.sv_groups() for s in g
+           if is_member([s])]
+    model = make_sharded_vqc_classifier(MESH_N, 2, MESH_LAYERS, 2,
+                                        device=home)
+    params = model.init(16)
+    cx, cy, cm = _mesh_data()
+    cfg = FedConfig(local_epochs=1, batch_size=MESH_BATCH,
+                    learning_rate=0.1, optimizer="sgd")
+    perms = torch.stack([torch.randperm(
+        MESH_SAMPLES, generator=torch.Generator().manual_seed(c))[None]
+        for c in range(MESH_CLIENTS)])
+    rf = make_fed_round(model, cfg, MESH_CLIENTS, mesh=mesh)
+    data = shard_client_data(mesh, cx, cy, cm)
+    walls = []
+    for _ in range(2):  # the first round pays the subgroups' first use
+        _sync_all(own)
+        t0 = time.perf_counter()
+        got, stats = rf(params, *data, perms=perms, draws=RoundDraws(16, 0))
+        loss = float(stats.mean_loss)
+        _sync_all(own)
+        walls.append(time.perf_counter() - t0)
+    held = np.random.default_rng(17).uniform(
+        0, 1, (32, MESH_N)).astype(np.float32)
+    with torch.no_grad():
+        logits = host_apply(model, mesh)(got, held).cpu()
+    return {"theta": [t.detach().cpu() for t in trees_leaves(got)],
+            "loss": loss, "round_ms": [w * 1e3 for w in walls],
+            "logits": logits, "mesh": str(mesh.shape)}
+
+
+def sv_process_main(argv) -> int:
+    """``chip_smoke.py --sv-process <host:port> <world> <rank> <out dir>
+    <cuda|cpu> <n>``: one rank of [sv-processes]. It joins the process
+    group (NCCL bound to GPU ``rank`` for cuda, gloo for cpu), runs
+    ``_sv_wide_case`` on a (1, world) mesh of one slot a rank and, with
+    4 ranks, ``_sv_grid_case`` on a (2, 2) mesh, counts the kernel's
+    launches, and writes ``<out dir>/rank<rank>.pt``."""
+    import torch.distributed as dist
+
+    from qfedx_tpu_torch.ops import scan_body
+    from qfedx_tpu_torch.parallel.mesh import distributed_init
+
+    addr, world, rank, out_dir, kind, n = argv
+    world, rank = int(world), int(rank)
+    slots = None if kind == "cuda" else ["cpu"]
+    if slots:
+        torch.set_num_threads(1)  # a CPU rehearsal: one core a rank
+    distributed_init(addr, world, rank,
+                     devices=slots if slots else None)
+    scan_body.reset_counts()
+    res = {"backend": dist.get_backend(),
+           "wide": _sv_wide_case(slots, world, int(n))}
+    if world == 4:
+        res["grid"] = _sv_grid_case(slots)
+    res["launches"] = dict(scan_body.launch_counts)
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_sv_processes(device, world: int | None = None,
+                       n: int | None = None) -> dict:
+    """``[sv-processes]``: with W = min(GPUs, SV_PROC_MAX) ≥ 2, W
+    processes, one per GPU on NCCL (``sv_process_main``), run the n = 22
+    forward and one SGD round on a (1, W) mesh whose one sv group spans
+    them, and with W = 4 the (2, 2) mesh at [mesh-round]'s widths; each
+    held against the same run in this process on a lockstep mesh over
+    the same W GPUs (SV_PROC_ATOL), the forward also against the dense
+    ⟨Z⟩ (SV_WIDE_ATOL). With one GPU it runs nothing and says so. On the
+    CPU (a rehearsal) ``world`` gloo processes of one CPU slot each."""
+    from qfedx_tpu_torch.ops import statevector as sv
+    from qfedx_tpu_torch.circuits.ansatz import (
+        hardware_efficient,
+        init_ansatz_params,
+    )
+    from qfedx_tpu_torch.circuits.encoders import angle_encode
+    from qfedx_tpu_torch.ops import scan_body
+
+    n = SV_WIDE_N if n is None else n
+    cuda = device.type == "cuda"
+    if cuda:
+        world = min(torch.cuda.device_count(), SV_PROC_MAX)
+    if world < 2:
+        print(f"[sv-processes] ran nothing: {torch.cuda.device_count()} GPU"
+              " visible, and an sv group across processes needs a second "
+              "one (NCCL takes one rank per GPU); the cross-process path is"
+              " held on the CPU with gloo (tests/test_torch_sv_processes."
+              "py)")
+        return {"launches": dict(NO_LAUNCH), "ran": False}
+    slots = ([torch.device("cuda", i) for i in range(world)] if cuda
+             else ["cpu"] * world)
+    scan_body.reset_counts()
+    lock = {"wide": _sv_wide_case(slots, world, n)}
+    if world == 4:
+        lock["grid"] = _sv_grid_case(slots)
+    lock_launches = dict(scan_body.launch_counts)
+    d0 = torch.device(slots[0])
+    p = init_ansatz_params(5, n, 1, 0.2, d0)
+    x = torch.linspace(0.05, 0.95, n, device=d0)
+    with torch.no_grad():
+        zd = sv.expect_z_all(hardware_efficient(angle_encode(x), n, p),
+                             n).cpu()
+    out_dir = Path(tempfile.mkdtemp(prefix="qfedx-svp-"))
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sv-process",
+         f"localhost:{port}", str(world), str(r), str(out_dir),
+         "cuda" if cuda else "cpu", str(n)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        logs = [p.communicate(timeout=SV_PROC_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    spawn_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[sv-processes] rank {r} exited "
+                                 f"{p.returncode}:\n{log[-4000:]}")
+    ranks = [torch.load(out_dir / f"rank{r}.pt") for r in range(world)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    lw, w0 = lock["wide"], ranks[0]["wide"]
+    z_err = max(_max_err([r["wide"]["z"]], [lw["z"]]) for r in ranks)
+    dense_err = max(_max_err([r["wide"]["z"]], [zd]) for r in ranks)
+    theta_err = max(_max_err(r["wide"]["theta"], lw["theta"])
+                    for r in ranks)
+    loss_err = max(abs(r["wide"]["loss"] - lw["loss"]) for r in ranks)
+    gate_bytes = [r["wide"]["gate_bytes"] for r in ranks]
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in NO_LAUNCH}
+    print(f"[sv-processes] {world} processes, one "
+          f"{'GPU' if cuda else 'CPU slot'} each, {ranks[0]['backend']}; "
+          f"the sv group's process subgroup holds {w0['group_size']} ranks."
+          f" n={n} L=1 on a (1, {world}) mesh: <Z> max|processes-lockstep| "
+          f"{z_err:.3e} (atol {SV_PROC_ATOL:g}), vs dense {dense_err:.3e} "
+          f"(atol {SV_WIDE_ATOL:g}); forward {w0['fwd_ms']:.4f} ms across "
+          f"processes, {lw['fwd_ms']:.4f} ms lockstep in one process (one "
+          f"sample, rank 0's host clock, synchronised); one SGD round of 2 "
+          f"clients x 2 samples: theta max|processes-lockstep| "
+          f"{theta_err:.3e}, loss {w0['loss']!r} (lockstep "
+          f"{lw['loss']!r}); round walls {w0['round_ms']} ms across "
+          f"processes, {lw['round_ms']} ms lockstep (first, second); a gate "
+          f"on a global qubit sends {gate_bytes} bytes a rank (a whole "
+          f"shard; a SWAP for a 2-qubit gate half of one); one gate alone "
+          f"{w0['global_ms']:.4f} ms on global qubit 0, {w0['local_ms']:.4f}"
+          f" ms on local qubit {n - 1} across processes ({lw['global_ms']:.4f}"
+          f" / {lw['local_ms']:.4f} ms lockstep); launches "
+          f"{launches} (lockstep {lock_launches}); the {world} processes "
+          f"took {spawn_s:.2f} s from start to exit")
+    _require(z_err, SV_PROC_ATOL, "sv-processes <Z>, processes vs lockstep")
+    _require(dense_err, SV_WIDE_ATOL, "sv-processes <Z>, vs dense")
+    _require(theta_err, SV_PROC_ATOL,
+             "sv-processes round theta, processes vs lockstep")
+    _require(loss_err, SV_PROC_ATOL, "sv-processes round loss")
+    if w0["group_size"] != world:
+        raise AssertionError(f"[sv-processes] subgroup of "
+                             f"{w0['group_size']} ranks")
+    out = {"launches": launches, "ran": True, "world": world,
+           "z_err": z_err, "dense_err": dense_err, "theta_err": theta_err,
+           "fwd_ms": w0["fwd_ms"], "lock_fwd_ms": lw["fwd_ms"],
+           "round_ms": w0["round_ms"], "lock_round_ms": lw["round_ms"],
+           "gate_bytes": gate_bytes}
+    if world == 4:
+        lg = lock["grid"]
+        g_theta = max(_max_err(r["grid"]["theta"], lg["theta"])
+                      for r in ranks)
+        g_logits = max(_max_err([r["grid"]["logits"]], [lg["logits"]])
+                       for r in ranks)
+        g0 = ranks[0]["grid"]
+        print(f"[sv-processes] (2, 2) mesh {g0['mesh']} at n={MESH_N} "
+              f"L={MESH_LAYERS}, {MESH_CLIENTS} clients x {MESH_SAMPLES} "
+              f"samples, one SGD round: theta max|processes-lockstep| "
+              f"{g_theta:.3e}, held-out logits {g_logits:.3e} (atol "
+              f"{SV_PROC_ATOL:g}); loss {g0['loss']!r} (lockstep "
+              f"{lg['loss']!r}); round walls {g0['round_ms']} ms across "
+              f"processes, {lg['round_ms']} ms lockstep (first, repeat; "
+              "host clock)")
+        _require(g_theta, SV_PROC_ATOL, "sv-processes (2, 2) theta")
+        _require(g_logits, SV_PROC_ATOL, "sv-processes (2, 2) logits")
+        out.update(grid_theta_err=g_theta, grid_round_ms=g0["round_ms"],
+                   grid_lock_round_ms=lg["round_ms"])
+    if launches != NO_LAUNCH or lock_launches != NO_LAUNCH:
+        raise AssertionError(f"[sv-processes] launched {launches}")
+    return out
+
+
 # [lint]: the port's rule set (docs/TORCH_ANALYSIS.md) and the
 # subprocess's time limit (the engine answers in seconds).
 LINT_RULES = frozenset({
@@ -6442,7 +6764,8 @@ def phase_mesh(root, device) -> dict:
     out["sv-noise"] = phase_sv_noise(device)
     out["sv-cli"] = phase_sv_cli(root, device)
     out["distributed"] = phase_distributed(device, out["mesh-round"])
-    print(f"[mesh] the five mesh phases took "
+    out["sv-processes"] = phase_sv_processes(device)
+    print(f"[mesh] the six mesh phases took "
           f"{time.perf_counter() - t0:.2f} s")
     return out
 
@@ -6495,6 +6818,8 @@ def main_only(only: tuple) -> int:
                 phase_sv_noise(device)
             elif p == "sv-cli":
                 phase_sv_cli(root, device)
+            elif p == "sv-processes":
+                phase_sv_processes(device)
             else:
                 phase_distributed(device, done["mesh-round"])
     finally:
@@ -6526,6 +6851,8 @@ T_START = time.perf_counter()
 
 
 def main(argv=()) -> int:
+    if argv and argv[0] == "--sv-process":
+        return sv_process_main(list(argv[1:]))
     only = parse_only(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -6708,6 +7035,8 @@ def main(argv=()) -> int:
             mesh["sv-cli"]["launches"],
         "distributed (NCCL, 1 rank, 2 rounds)":
             mesh["distributed"]["launches"],
+        "sv-processes (an sv group across processes, NCCL)":
+            mesh["sv-processes"]["launches"],
     }
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -6925,6 +7254,7 @@ def main(argv=()) -> int:
           f"{tools['tune-cli']['theta_err']:.3e}; demo max|card-cpu| "
           f"{tools['demo']['err']:.3e}; bench history exit codes "
           f"{tools['bench-history']}")
+    svp = mesh["sv-processes"]
     print(f"[summary] mesh: 2-slot round theta max|err| "
           f"{mesh['mesh-round']['theta_err']:.3e} (Adam logits "
           f"{mesh['mesh-round']['adam_logit_err']:.3e}); n=22 on 8 sv "
@@ -6934,7 +7264,10 @@ def main(argv=()) -> int:
           f"{mesh['sv-sharded']['theta_err']:.3e}; sv trajectories logits "
           f"{mesh['sv-noise']['logit_err']:.3e}; sv-cli theta card vs cpu "
           f"{mesh['sv-cli']['theta_err']:.3e}; {mesh['distributed']['backend']}"
-          " group of one rank: theta equal; no two-GPU path measured")
+          " group of one rank: theta equal; sv group across processes: "
+          + (f"{svp['world']} GPUs, <Z> {svp['z_err']:.3e} and round theta "
+             f"{svp['theta_err']:.3e} vs lockstep" if svp["ran"] else
+             "not run (one GPU)"))
     print(f"[summary] lint: {lint['delta']} in {lint['seconds']:.2f} s; "
           f"whole script {time.perf_counter() - T_START:.1f} s")
     print(card_line())

@@ -553,19 +553,9 @@ def _cross_process(groups: list) -> bool:
 
 
 def _collective_ok(t: torch.Tensor) -> None:
-    import torch.distributed as dist
+    from qfedx_tpu_torch.parallel.mesh import check_backend
 
-    backend = dist.get_backend()
-    if t.is_cuda and backend == "gloo":
-        raise RuntimeError(
-            "a CUDA tensor never goes through gloo: join the process "
-            "group with the NCCL backend (parallel.mesh.distributed_init "
-            "picks it for CUDA slots)")
-    if not t.is_cuda and backend == "nccl":
-        raise RuntimeError(
-            "a CPU tensor never goes through NCCL: a mesh of CPU slots "
-            "joins the process group with gloo (parallel.mesh."
-            "distributed_init(devices=...) picks it for CPU slots)")
+    check_backend(t)
 
 
 def _all_reduce(tensors: list) -> list:
@@ -582,52 +572,62 @@ def _all_reduce(tensors: list) -> list:
     return out
 
 
-def _all_gather_clients(contrib: dict, weight: torch.Tensor):
-    """Every process's (W, …) client rows, rank-major (the order of the
-    mesh's client slots): the reference's ``all_gather(tiled=True)``."""
+def _zeros_out(o: _SlotOut) -> _SlotOut:
+    return _SlotOut(*(trees.tree_map(torch.zeros_like, f) for f in o))
+
+
+def _all_gather_clients(outs: list, n_groups: int, home):
+    """Every client slot's (W, …) client rows, in the mesh's client-slot
+    order, on every process: the reference's ``all_gather(tiled=True)``.
+    Each process fills the rows of the slots it leads into a zero table
+    of all ``n_groups`` slots and one all-reduce sums the tables, so a
+    group that spans processes is gathered once."""
     import torch.distributed as dist
 
+    contrib, width = outs[0][1].contrib, outs[0][1].weight.shape[0]
     leaves = trees.tree_leaves(contrib)
-    width = weight.shape[0]
-    rows = torch.cat([weight.reshape(width, 1).float()]
-                     + [x.reshape(width, -1).float() for x in leaves], dim=1)
-    _collective_ok(rows)
-    sizes = [torch.zeros(1, dtype=torch.int64, device=rows.device)
-             for _ in range(dist.get_world_size())]
-    dist.all_gather(sizes, torch.tensor([width], device=rows.device))
-    if len({int(x) for x in sizes}) != 1:
-        raise ValueError("every process must hold the same number of "
-                         "client slots for a cross-process robust combine")
-    parts = [torch.empty_like(rows) for _ in sizes]
-    dist.all_gather(parts, rows)
-    full = torch.cat(parts)
-    weight_all = full[:, 0].to(weight.dtype)
+    cols = 1 + sum(int(np.prod(x.shape[1:])) for x in leaves)
+    table = torch.zeros((n_groups * width, cols), device=home)
+    for d, o in outs:
+        table[d * width:(d + 1) * width] = torch.cat(
+            [o.weight.reshape(width, 1).float()]
+            + [x.reshape(width, -1).float()
+               for x in trees.tree_leaves(o.contrib)], dim=1).to(home)
+    _collective_ok(table)
+    dist.all_reduce(table)
+    weight_all = table[:, 0].to(outs[0][1].weight.dtype)
     out, i = [], 1
     for x in leaves:
         k = int(np.prod(x.shape[1:]))
-        out.append(full[:, i:i + k].reshape((-1,) + tuple(x.shape[1:]))
+        out.append(table[:, i:i + k].reshape((-1,) + tuple(x.shape[1:]))
                    .to(x.dtype))
         i += k
     it = iter(out)
     return trees.tree_map(lambda _: next(it), contrib), weight_all
 
 
-def _aggregate(outs: list, cfg: FedConfig, home,
-               cross: bool) -> RoundPartial:
-    """The wave's ``RoundPartial`` from its client slots' outputs: the
-    weighted sums and counts summed over the slots (in slot order), then
-    over processes; under a robust rule without masks the coordinate-wise
-    combine over every slot's clients, gathered across processes first."""
+def _aggregate(outs: list, cfg: FedConfig, home, cross: bool,
+               n_groups: int) -> RoundPartial:
+    """The wave's ``RoundPartial`` from this process's client slots'
+    outputs (``outs``: (slot index, whether this process leads the
+    slot's group, output)): the weighted sums and counts summed over the
+    slots (in slot order), then over processes, into which each group's
+    partial enters once, from its lead (the other members of a group
+    that spans processes enter zeros); under a robust rule without masks
+    the coordinate-wise combine over every slot's clients, gathered
+    across processes first."""
     agg = resolve_aggregator(cfg)
     robust_per_client = agg in ROBUST_AGGREGATORS and not cfg.secure_agg
+    outs = [(d, o if lead else _zeros_out(o)) for d, lead, o in outs]
     with torch.no_grad(), obs.span("fed.trace.aggregate"):
         if robust_per_client:
-            contrib = trees.tree_map(
-                lambda *cs: torch.cat([c.to(home) for c in cs]),
-                *(o.contrib for o in outs))
-            weight = torch.cat([o.weight.to(home) for o in outs])
             if cross:
-                contrib, weight = _all_gather_clients(contrib, weight)
+                contrib, weight = _all_gather_clients(outs, n_groups, home)
+            else:
+                contrib = trees.tree_map(
+                    lambda *cs: torch.cat([c.to(home) for c in cs]),
+                    *(o.contrib for _, o in outs))
+                weight = torch.cat([o.weight.to(home) for _, o in outs])
             # update_sum = combine · m keeps Σ wΔ / Σ w intact.
             combined, m, _ = robust_combine(
                 contrib, (weight > 0).float(), agg, cfg.trim_fraction)
@@ -637,11 +637,13 @@ def _aggregate(outs: list, cfg: FedConfig, home,
             update_sum = trees.tree_map(
                 lambda *cs: _slot_sum([torch.sum(c, dim=0) for c in cs],
                                       home),
-                *(o.contrib for o in outs))
-            weight_sum = _slot_sum([torch.sum(o.weight) for o in outs], home)
+                *(o.contrib for _, o in outs))
+            weight_sum = _slot_sum([torch.sum(o.weight) for _, o in outs],
+                                   home)
         counts = [
-            _slot_sum([torch.sum(o.weight * o.losses) for o in outs], home),
-            *(_slot_sum([getattr(o, f) for o in outs], home)
+            _slot_sum([torch.sum(o.weight * o.losses) for _, o in outs],
+                      home),
+            *(_slot_sum([getattr(o, f) for _, o in outs], home)
               for f in ("num_participants", "rejected_updates",
                         "dropped_clients", "clipped_clients"))]
         if cross:
@@ -659,14 +661,15 @@ def _aggregate(outs: list, cfg: FedConfig, home,
 
 def _client_slots(mesh, axis: str, num_clients: int):
     """The mesh's client groups (one per position on ``axis``, each the
-    sv group there) and the clients each runs; the reference's
-    divisibility ValueError, and NotImplementedError for an sv group
-    across processes. No mesh: (None, all the clients)."""
+    sv group there, its process subgroup made when it spans processes)
+    and the clients each runs; the reference's divisibility ValueError.
+    No mesh: (None, all the clients)."""
+    from qfedx_tpu_torch.parallel.mesh import sv_process_groups
+
     if mesh is None:
         return None, num_clients
     groups = mesh.client_groups(axis)
-    for g in groups:
-        mesh.group_rank(g)
+    sv_process_groups(groups)
     d = len(groups)
     if num_clients % d != 0:
         raise ValueError(
@@ -682,10 +685,18 @@ def _run_slots(model: Model, cfg: FedConfig, block, groups, width: int,
     """One wave over a mesh's client slots: client slot d runs ``block``
     on its ``width`` clients at cohort positions ``base + d·width``, with
     data, θ and draws on its slot's device (a sharded model on its sv
-    group), then ``_aggregate``. ``groups`` None: one slot, the
-    parameters' device in this process alone (no collective)."""
+    group; every member of a group that spans processes runs the block
+    on the same data and draws, in lockstep), then ``_aggregate``.
+    ``groups`` None: one slot, the parameters' device in this process
+    alone (no collective)."""
     from qfedx_tpu_torch.fed.client import resolve_perms
-    from qfedx_tpu_torch.parallel.mesh import Slot, process_index
+    from qfedx_tpu_torch.parallel.mesh import (
+        Slot,
+        group_lead,
+        home_slot,
+        is_member,
+        process_index,
+    )
     from qfedx_tpu_torch.parallel.sharded import sv_group
 
     home = trees.tree_leaves(params)[0].device
@@ -702,9 +713,9 @@ def _run_slots(model: Model, cfg: FedConfig, block, groups, width: int,
     perms = resolve_perms(cfg, wave_clients, samples, generator, perms, "cpu")
     outs = []
     for d, group in enumerate(groups):
-        if group[0].rank != me:
+        if not is_member(group, me):
             continue
-        dev = group[0].device
+        dev = home_slot(group, me).device
         lo = d * width
         if isinstance(cx, list):
             sx, sy, sm = cx[d], cy[d], cmask[d]
@@ -714,10 +725,12 @@ def _run_slots(model: Model, cfg: FedConfig, block, groups, width: int,
         ctx = (sv_group(group) if model.sv_size > 1
                else contextlib.nullcontext())
         with ctx:
-            outs.append(block(sp, sx, sy, sm, base + lo, None,
-                              perms[lo:lo + width].to(dev),
-                              wave=(base, wave_clients), **kw))
-    return _aggregate(outs, cfg, home, not own and _cross_process(groups))
+            outs.append((d, group_lead(group) == me, block(
+                sp, sx, sy, sm, base + lo, None,
+                perms[lo:lo + width].to(dev), wave=(base, wave_clients),
+                **kw)))
+    return _aggregate(outs, cfg, home, not own and _cross_process(groups),
+                      len(groups))
 
 
 def make_fed_round(model: Model, cfg: FedConfig, num_clients: int,
@@ -980,24 +993,24 @@ def make_fed_rounds(model: Model, cfg: FedConfig, num_clients: int,
 
 def shard_client_data(mesh, cx, cy, cmask, axis: str = "clients"):
     """Packed client arrays [C, …] → three lists over ``mesh``'s client
-    slots: slot d's C/D clients on its (first) device, None for another
-    process's slots. The mesh rounds take these in place of whole
-    arrays."""
-    from qfedx_tpu_torch.parallel.mesh import process_index
+    slots: slot d's C/D clients on this process's first slot of it (on
+    every member of a group that spans processes), None for a slot this
+    process holds no part of. The mesh rounds take these in place of
+    whole arrays."""
+    from qfedx_tpu_torch.parallel.mesh import home_slot, is_member
 
     groups, width = _client_slots(mesh, axis, int(np.shape(cx)[0]))
-    me = process_index()
     out = ([], [], [])
     for d, group in enumerate(groups):
         for lst, arr, dt in zip(out, (cx, cy, cmask),
                                 (torch.float32, None, torch.float32)):
-            if group[0].rank != me:
+            if not is_member(group):
                 lst.append(None)
                 continue
             t = torch.as_tensor(np.asarray(arr[d * width:(d + 1) * width])
                                 if not torch.is_tensor(arr)
                                 else arr[d * width:(d + 1) * width])
-            lst.append(t.to(device=group[0].device, dtype=dt))
+            lst.append(t.to(device=home_slot(group).device, dtype=dt))
     return out
 
 

@@ -7,10 +7,13 @@ circuit and readout of ``models/vqc.py`` (hardware-efficient ansatz,
 one device's dense ceiling (BASELINE.md config 5).
 
 ``apply`` runs on the slots ``parallel.sharded.sv_group`` names and
-raises outside one. ``fed/round.make_fed_round`` over a 2-D (clients,
-sv) mesh sets each client slot's group around its block, so the round
-runs data parallelism (clients) × state parallelism (sv); evaluation
-and serving wrap the model with ``host_apply(model, mesh)``. A sample's
+raises outside one; where the group spans processes each member runs
+it on the same inputs and ``parallel.sharded.pmean_grad`` makes the
+gradients exact, as the reference's does. ``fed/round.make_fed_round``
+over a 2-D (clients, sv) mesh sets each client slot's group around its
+block, so the round runs data parallelism (clients) × state
+parallelism (sv); evaluation and serving wrap the model with
+``host_apply(model, mesh)``. A sample's
 state spans the whole group, so samples batch as leading axes of every
 shard. The model has no ``apply_clients`` (the exchange choreography
 has no client-folded form), so the round takes its per-client path.
@@ -35,9 +38,10 @@ from qfedx_tpu_torch.models.vqc import wrap_delta
 from qfedx_tpu_torch.noise.trajectory import MAX_BRANCHES
 from qfedx_tpu_torch.parallel.circuit import sharded_hea_state
 from qfedx_tpu_torch.parallel.sharded import (
-    ShardCtx,
     current_group,
     expect_z_all_sharded,
+    pmean_grad,
+    shard_ctx,
     sv_group,
 )
 from qfedx_tpu_torch.utils import pins, trees
@@ -88,7 +92,7 @@ def make_sharded_vqc_classifier(
             "readout": init_readout_params(num_classes, dev),
         }
 
-    def _ctx() -> ShardCtx:
+    def _ctx():
         group = current_group()
         if group is None:
             raise ValueError(
@@ -99,13 +103,16 @@ def make_sharded_vqc_classifier(
         if len(group) != sv_size:
             raise ValueError(f"model {name} needs an sv group of {sv_size} "
                              f"slots, got {len(group)}")
-        return ShardCtx(sv_axis, n_qubits, n_global, group)
+        return shard_ctx(sv_axis, n_qubits, n_global, group)
 
     def _logits(params, x, nm, shot_u=None, chans=(), gumbel=None,
                 grad=True):
         ctx = _ctx()
-        home = ctx.device(0)
-        params = trees.tree_map(lambda p: p.to(home), params)
+        home = ctx.home
+        # Gradient correctness across processes: see pmean_grad (the
+        # identity inside one process).
+        params = pmean_grad(trees.tree_map(lambda p: p.to(home), params),
+                            ctx)
         x = torch.as_tensor(x, dtype=torch.float32, device=home)
         with torch.set_grad_enabled(torch.is_grad_enabled() and grad):
             state = sharded_hea_state(ctx, x, params["ansatz"], encoding,
@@ -141,7 +148,7 @@ def make_sharded_vqc_classifier(
             gumbel = None
             if circuit_noise:
                 gumbel = torch.as_tensor(draws["branch_gumbel"],
-                                         device=_ctx().device(0))
+                                         device=_ctx().home)
             # Shot counts carry no gradient: with shots only the
             # readout reaches the loss.
             return _logits(params, x, readout_noise,
@@ -166,15 +173,19 @@ def make_sharded_vqc_classifier(
 def host_apply(model: Model, mesh, sv_axis: str = "sv"):
     """``(params, x) -> logits`` for a sharded model, callable anywhere:
     the forward runs on the first of the mesh's sv groups that this
-    process owns. Evaluation (``fed/evaluate.make_evaluator(apply_fn=)``)
-    and serving (``ServeEngine(apply_fn=)``) take it."""
-    from qfedx_tpu_torch.parallel.mesh import process_index
+    process is a member of, in lockstep with the group's other members,
+    which call it on the same inputs (every rank builds it: the groups'
+    process subgroups are made here). Evaluation (``fed/evaluate.
+    make_evaluator(apply_fn=)``) and serving (``ServeEngine(apply_fn=)``)
+    take it."""
+    from qfedx_tpu_torch.parallel.mesh import is_member, sv_process_groups
 
-    me = process_index()
-    mine = [g for g in mesh.sv_groups(sv_axis)
-            if all(s.rank == me for s in g)]
+    groups = mesh.sv_groups(sv_axis)
+    sv_process_groups(groups)
+    mine = [g for g in groups if is_member(g)]
     if not mine:
-        raise ValueError("this process owns no sv group of the mesh")
+        raise ValueError("this process holds no slot of the mesh's sv "
+                         "groups")
     group = mine[0]
 
     def wrapped(params, x):

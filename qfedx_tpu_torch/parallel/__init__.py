@@ -1,6 +1,5 @@
 """Meshes of slots and the slot-sharded statevector (counterpart of
-``qfedx_tpu/parallel``; the reference's ``pmean_grad`` has no
-counterpart — ``parallel/sharded.py`` says why)."""
+``qfedx_tpu/parallel``), inside one process and across processes."""
 
 from qfedx_tpu_torch.parallel.sharded import (  # noqa: F401
     ShardCtx,
@@ -11,6 +10,7 @@ from qfedx_tpu_torch.parallel.sharded import (  # noqa: F401
     expect_z_sharded,
     from_dense,
     norm_sq_sharded,
+    pmean_grad,
     product_state_local,
     swap_global_local,
     zero_state_local,
@@ -23,4 +23,5 @@ from qfedx_tpu_torch.parallel.mesh import (  # noqa: F401
     distributed_init,
     fed_mesh,
     hybrid_fed_mesh,
+    sv_process_groups,
 )

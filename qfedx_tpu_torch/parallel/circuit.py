@@ -20,13 +20,16 @@ from qfedx_tpu_torch.circuits.ansatz import hea_layer_ops
 from qfedx_tpu_torch.circuits.encoders import angle_amplitudes
 from qfedx_tpu_torch.ops import fuse
 from qfedx_tpu_torch.ops.statevector import _LANE_BITS
+from qfedx_tpu_torch.parallel.mesh import is_member, sv_process_groups
 from qfedx_tpu_torch.parallel.sharded import (
     ShardCtx,
     amplitude_encode_local,
     apply_channel_all_sharded,
     apply_op_sharded,
     expect_z_all_sharded,
+    pmean_grad,
     product_state_local,
+    shard_ctx,
 )
 
 
@@ -52,7 +55,8 @@ def _apply_ops_sharded(ctx: ShardCtx, state: list, ops: list) -> list:
                                  tuple(ctx.local_axis(q) for q in o.qubits),
                                  o.coeffs) for o in run]
                 program = fuse.fuse_ops(local, ctx.n_local)
-                state = [fuse.apply_fused(s, program, ctx.n_local)
+                state = [None if s is None
+                         else fuse.apply_fused(s, program, ctx.n_local)
                          for s in state]
                 run.clear()
             return state
@@ -98,19 +102,24 @@ def sharded_hea_state(ctx: ShardCtx, features, params: dict,
 
 
 def make_sharded_forward(n_qubits: int, mesh, axis: str = "sv"):
-    """Build ``forward(params, x) -> ⟨Z⟩ per qubit`` on the mesh's first
-    sv group, with ``ctx``. ``x``: features (*lead, n_qubits); the axis
-    size must be a power of two leaving ≥ 2 local qubits."""
+    """Build ``forward(params, x) -> ⟨Z⟩ per qubit`` on the first of the
+    mesh's sv groups that this process is a member of, with ``ctx``
+    (every rank calls this: the groups' process subgroups are made
+    here). ``x``: features (*lead, n_qubits); the axis size must be a
+    power of two leaving ≥ 2 local qubits."""
     size = mesh.shape[axis]
     n_global = (size - 1).bit_length()
     if 1 << n_global != size:
         raise ValueError(f"mesh axis {axis} size {size} is not a power of two")
     if n_qubits - n_global < 2:
         raise ValueError("need ≥2 local qubits (mesh too large for qubit count)")
-    ctx = ShardCtx(axis=axis, n_qubits=n_qubits, n_global=n_global,
-                   devices=tuple(s.device for s in mesh.sv_groups(axis)[0]))
+    groups = mesh.sv_groups(axis)
+    sv_process_groups(groups)
+    ctx = shard_ctx(axis, n_qubits, n_global,
+                    next(g for g in groups if is_member(g)))
 
     def forward(params, x):
+        params = pmean_grad(params, ctx)
         return expect_z_all_sharded(ctx, sharded_hea_state(ctx, x, params))
 
     return forward, ctx

@@ -5,22 +5,29 @@ Counterpart of ``qfedx_tpu/parallel/mesh.py`` (``distributed_init``,
 axis policy kept:
 
 - ``sv`` (statevector sharding) exchanges half a state per gate on a
-  global qubit, so an sv group stays inside one process, contiguous;
+  global qubit, so an sv group is a contiguous run of slots and never
+  crosses a node (``hybrid_device_array``);
 - ``clients`` (federated data parallelism) communicates once per round
   (one all-reduce of |θ| floats), so it may cross processes, outermost.
 
 A ``Mesh`` is a 2-D array ``(clients, sv)`` of ``Slot``s. A slot is a
 ``torch.device`` plus the rank of the process that owns it, and a device
-may repeat: the CPU tests put eight slots on ``"cpu"``, the card's smoke
-eight on ``cuda:0``, a multi-GPU host one per GPU. Each process runs
-its own slots in lockstep (``parallel/sharded.py``); between processes
-only the clients axis crosses, through ``torch.distributed``
-(``fed/round.py``). An sv group that would span processes raises
-NotImplementedError (ROADMAP Queue 1 item 16, ``Mesh.group_rank``).
+may repeat inside one process: the CPU tests put eight slots on
+``"cpu"``, the card's smoke eight on ``cuda:0``. Each process runs its
+own slots in lockstep (``parallel/sharded.py``). An sv group may span
+processes, as a reference sv group spans the hosts of a slice: its
+members run the same program, each on its own slots, and
+``torch.distributed`` carries the exchanges and sums between them over
+the group's process subgroup (``sv_process_groups``; NCCL for CUDA
+slots, gloo for CPU ones). The clients axis meets in ``fed/round.py``.
 
-``devices=`` always lists THIS process's slots; with a process group up
-the global mesh repeats that list once per rank, rank-major, so every
-process builds the same mesh with no communication.
+``devices=`` always lists THIS process's slots. With a process group of
+more than one rank, ``global_slots`` gathers every rank's list once
+(one ``all_gather`` of host and device index), so every process builds
+the same mesh, and refuses two ranks on one GPU. Under a multi-rank
+NCCL group a process's own slots default to the GPU it is bound to
+(``distributed_init`` binds it), as a reference process's local devices
+are its own chips.
 """
 
 from __future__ import annotations
@@ -61,27 +68,164 @@ def process_count() -> int:
     return 1
 
 
+def _nccl_world() -> bool:
+    """Is a process group of more than one rank up on NCCL?"""
+    import torch.distributed as dist
+
+    return process_count() > 1 and dist.get_backend() == "nccl"
+
+
 def local_devices(device=None) -> list[torch.device]:
     """This process's devices of ``device``'s kind (None = the card, which
-    raises without CUDA): every visible GPU on CUDA, the one CPU device
-    otherwise."""
+    raises without CUDA): on CUDA every visible GPU, or under a
+    multi-rank NCCL group the one this rank is bound to; the one CPU
+    device otherwise."""
     dev = pins.resolve_device(device)
     if dev.type == "cuda":
+        if _nccl_world():
+            return [torch.device("cuda", torch.cuda.current_device())]
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [torch.device(dev.type)]
 
 
+def _indexed(d) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def check_distinct_gpus(ranks_slots: list) -> None:
+    """``ranks_slots[r]`` = (host, [(device type, index), …]) of rank r:
+    raise when two ranks name the same GPU of one host (NCCL takes one
+    rank per GPU; a process may repeat its own device)."""
+    seen: dict = {}
+    for r, (host, devs) in enumerate(ranks_slots):
+        for kind, index in devs:
+            if kind != "cuda":
+                continue
+            other = seen.setdefault((host, index), r)
+            if other != r:
+                raise ValueError(
+                    f"ranks {other} and {r} both hold cuda:{index} on host "
+                    f"{host!r}: a mesh takes one process per GPU. Bind each "
+                    "rank to its own card (parallel.mesh.distributed_init "
+                    "binds LOCAL_RANK, else process_id % device_count) or "
+                    "list that rank's own devices")
+
+
 def global_slots(devices=None, local_world_size: int | None = None
                  ) -> list[Slot]:
-    """Every process's slots, rank-major: ``devices`` (default
-    ``local_devices()``) once per rank, on node ``rank //
-    local_world_size`` (default: every process on one node)."""
-    local = local_devices() if devices is None else list(devices)
+    """Every process's slots, rank-major: each rank's ``devices``
+    (default ``local_devices()``), gathered from every rank under a
+    process group of more than one rank (every rank calls this), on
+    node ``rank // local_world_size`` (default: every process on one
+    node)."""
+    local = [_indexed(d) for d in
+             (local_devices() if devices is None else devices)]
     world = process_count()
     per_node = world if local_world_size is None else int(local_world_size)
-    return [Slot(torch.device(d), r, r // per_node, r * len(local) + i)
-            for r in range(world) for i, d in enumerate(local)]
+    per_rank = [local]
+    if world > 1:
+        import socket
+
+        import torch.distributed as dist
+
+        gathered = [None] * world
+        dist.all_gather_object(gathered, (socket.gethostname(), [
+            (d.type, d.index) for d in local]))
+        check_distinct_gpus(gathered)
+        per_rank = [[torch.device(kind) if index is None
+                     else torch.device(kind, index) for kind, index in devs]
+                    for _, devs in gathered]
+    slots = []
+    for r, devs in enumerate(per_rank):
+        for d in devs:
+            slots.append(Slot(d, r, r // per_node, len(slots)))
+    return slots
+
+
+def group_ranks(group) -> tuple:
+    """The ranks that own ``group``'s slots, ascending."""
+    return tuple(sorted({s.rank for s in group}))
+
+
+def group_lead(group) -> int:
+    """The group's lead rank: its lowest. It alone enters the group's
+    results into a sum over the world (``fed/round._aggregate``)."""
+    return group_ranks(group)[0]
+
+
+def is_member(group, rank: int | None = None) -> bool:
+    """Does ``rank`` (default this process) own a slot of ``group``?"""
+    me = process_index() if rank is None else rank
+    return any(s.rank == me for s in group)
+
+
+def home_slot(group, rank: int | None = None):
+    """``rank``'s (default this process's) first slot of ``group``."""
+    me = process_index() if rank is None else rank
+    return next(s for s in group if s.rank == me)
+
+
+# One torch.distributed subgroup per rank set of the sv groups that span
+# processes, created under the world group stored beside them.
+_SUBGROUPS: dict = {}
+
+
+def sv_process_groups(groups) -> None:
+    """Create, once per process group, the subgroup of every group in
+    ``groups`` whose slots span processes. ``new_group`` is a collective
+    of the WHOLE world: every rank calls this with the same groups in
+    the same order, members or not (the mesh round, ``host_apply`` and
+    ``make_sharded_forward`` do, as they are built)."""
+    import torch.distributed as dist
+
+    if process_count() == 1:
+        return
+    if _SUBGROUPS.get("world") is not dist.group.WORLD:
+        _SUBGROUPS.clear()
+        _SUBGROUPS["world"] = dist.group.WORLD
+    for g in groups:
+        ranks = group_ranks(g)
+        if len(ranks) > 1 and ranks not in _SUBGROUPS:
+            _SUBGROUPS[ranks] = dist.new_group(list(ranks))
+
+
+def process_subgroup(group):
+    """The subgroup of ``group``'s ranks (None when one process owns the
+    whole group). Built by ``sv_process_groups`` beforehand: a member
+    alone cannot create it."""
+    import torch.distributed as dist
+
+    ranks = group_ranks(group)
+    if len(ranks) == 1:
+        return None
+    if (_SUBGROUPS.get("world") is not dist.group.WORLD
+            or ranks not in _SUBGROUPS):
+        raise RuntimeError(
+            f"no process subgroup for ranks {ranks}: every rank calls "
+            "parallel.mesh.sv_process_groups(mesh.sv_groups()) first")
+    return _SUBGROUPS[ranks]
+
+
+def check_backend(t: torch.Tensor, group=None) -> None:
+    """A CUDA tensor never goes through gloo, a CPU tensor never through
+    NCCL: no quiet staging through the host."""
+    import torch.distributed as dist
+
+    backend = dist.get_backend(group)
+    if t.is_cuda and backend == "gloo":
+        raise RuntimeError(
+            "a CUDA tensor never goes through gloo: join the process "
+            "group with the NCCL backend (parallel.mesh.distributed_init "
+            "picks it for CUDA slots)")
+    if not t.is_cuda and backend == "nccl":
+        raise RuntimeError(
+            "a CPU tensor never goes through NCCL: a mesh of CPU slots "
+            "joins the process group with gloo (parallel.mesh."
+            "distributed_init(devices=...) picks it for CPU slots)")
 
 
 class Mesh:
@@ -114,16 +258,6 @@ class Mesh:
         arr = np.moveaxis(self.devices, self.axis_names.index(axis), -1)
         return [tuple(row) for row in arr.reshape(-1, arr.shape[-1])]
 
-    def group_rank(self, group: tuple) -> int:
-        """The process that owns ``group``; NotImplementedError when its
-        slots belong to more than one."""
-        ranks = {s.rank for s in group}
-        if len(ranks) != 1:
-            raise NotImplementedError(
-                "an sv group spans processes; the port keeps every sv group "
-                "inside one process (ROADMAP Queue 1 item 16)")
-        return ranks.pop()
-
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
 
@@ -140,8 +274,11 @@ def distributed_init(
     one ``process_id``. The backend follows the slots' devices
     (``devices``, this process's slots; default ``local_devices()``, the
     card's, which raises without CUDA): NCCL for CUDA slots, gloo for
-    CPU ones (``devices=["cpu"]``). A repeat call is a no-op, so library
-    code may call it defensively."""
+    CPU ones (``devices=["cpu"]``). Under NCCL the rank is bound to its
+    GPU before the group starts (``torch.cuda.set_device``): the one
+    indexed GPU ``devices`` names, else ``LOCAL_RANK`` (torchrun's),
+    else ``process_id % device_count``. A repeat call is a no-op, so
+    library code may call it defensively."""
     import torch.distributed as dist
 
     if dist.is_initialized():
@@ -152,6 +289,8 @@ def distributed_init(
     if len(types) != 1 or not types <= {"cuda", "cpu"}:
         raise ValueError(f"slots of one kind, CUDA or CPU; got {types}")
     backend = "nccl" if types == {"cuda"} else "gloo"
+    if backend == "nccl" and torch.cuda.device_count():
+        torch.cuda.set_device(_bound_gpu(devices, process_id))
     init = coordinator_address
     if init is not None and "://" not in init:
         init = f"tcp://{init}"
@@ -164,6 +303,18 @@ def distributed_init(
     )
 
 
+def _bound_gpu(devices, process_id: int | None) -> int:
+    named = {torch.device(d).index for d in devices}
+    if len(named) == 1 and None not in named:
+        return named.pop()
+    local = pins.str_pin("LOCAL_RANK")
+    if local is not None:
+        return int(local)
+    rank = process_id if process_id is not None else int(
+        pins.str_pin("RANK", "0"))
+    return int(rank) % torch.cuda.device_count()
+
+
 def fed_mesh(
     sv_size: int = 1,
     clients_axis: str = "clients",
@@ -173,8 +324,10 @@ def fed_mesh(
 ) -> Mesh:
     """(clients, sv) mesh over every process's slots (``devices`` lists
     this process's; default ``local_devices()``). Each sv group is a
-    contiguous run of slots; ``num_client_devices`` keeps the first
-    ``num_client_devices × sv_size`` of them."""
+    contiguous run of slots, across processes where a process holds
+    fewer than ``sv_size`` (its subgroup made here, every rank calling);
+    ``num_client_devices`` keeps the first ``num_client_devices ×
+    sv_size`` of them."""
     devs = global_slots(devices)
     n = len(devs)
     if num_client_devices is not None:
@@ -186,8 +339,7 @@ def fed_mesh(
         raise ValueError(f"{n} devices not divisible by sv_size={sv_size}")
     mesh = Mesh(_slot_array(devs, (n // sv_size, sv_size)),
                 (clients_axis, sv_axis))
-    for group in mesh.client_groups(clients_axis):
-        mesh.group_rank(group)
+    sv_process_groups(mesh.sv_groups(sv_axis))
     return mesh
 
 
@@ -239,6 +391,5 @@ def hybrid_fed_mesh(
     if len({getattr(d, "node_index", 0) for d in devs}) <= 1:
         return fed_mesh(sv_size, clients_axis, sv_axis, devices=devices)
     mesh = Mesh(hybrid_device_array(devs, sv_size), (clients_axis, sv_axis))
-    for group in mesh.client_groups(clients_axis):
-        mesh.group_rank(group)
+    sv_process_groups(mesh.sv_groups(sv_axis))
     return mesh

@@ -49,13 +49,17 @@ the reference drew (a dict by stream name).
 ``mesh`` (``parallel/mesh.py``), as the reference's: the client data is
 split over its client slots and each slot's block runs on its device
 (``fed/round.py``). Without one the trainer builds the reference's
-default (``default_mesh``) over ``parallel.mesh.local_devices()`` of the
-parameters' kind — every visible GPU, or the one CPU device: the
+default (``default_mesh``) over every process's
+``parallel.mesh.local_devices()`` of the parameters' kind — every
+visible GPU (under a multi-rank NCCL group the rank's own, so with one
+GPU a process an sv group spans ``sv_size`` processes), or the one CPU
+device: the
 largest client-slot count dividing the client count, and for an
 sv-sharded model (``model.sv_size > 1``) sv groups of ``sv_size``
 slots, raising the reference's ValueError when there are too few. A
-sharded model evaluates through ``models.vqc_sharded.host_apply``,
-and its chunks stop at each evaluation, as the reference caps
+sharded model evaluates through ``models.vqc_sharded.host_apply`` on
+every member of its sv group; checkpoints and rows stay the primary
+process's. Its chunks stop at each evaluation, as the reference caps
 ``rounds_per_call`` there.
 
 ``train_federated_streamed`` trains over a client registry in streamed

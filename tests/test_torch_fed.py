@@ -326,34 +326,19 @@ def test_min_participation_makes_the_round_the_identity():
             assert torch.equal(new[g][k], params[g][k])
 
 
-def _two_process_sv_mesh():
-    """A (1, 2) mesh whose one sv group spans ranks 0 and 1."""
-    from qfedx_tpu_torch.parallel.mesh import Mesh, Slot
+def test_mesh_refuses_two_ranks_on_one_gpu():
+    """The gathered slots of a mesh: two ranks naming one GPU of one host
+    raise the mesh's own error; one process repeating its GPU, the same
+    index on two hosts and CPU slots everywhere pass (a group across
+    processes runs: tests/test_torch_sv_processes.py)."""
+    from qfedx_tpu_torch.parallel.mesh import check_distinct_gpus
 
-    arr = np.empty((1, 2), dtype=object)
-    arr[0, 0] = Slot(torch.device("cpu"), 0, 0, 0)
-    arr[0, 1] = Slot(torch.device("cpu"), 1, 0, 1)
-    return Mesh(arr, ("clients", "sv"))
-
-
-@pytest.mark.parametrize(
-    "kwargs,mesh,call,match",
-    [
-        ({}, _two_process_sv_mesh, {}, "spans processes"),
-    ],
-    ids=["devices"],
-)
-def test_unported_round_options_raise(kwargs, mesh, call, match):
-    """The one round option still unported: a mesh whose sv group spans
-    processes (the round's client slots run over any slots of one
-    process: tests/test_torch_fed_mesh.py)."""
-    model = make_vqc_classifier(N, L, 2, device="cpu")
-    cfg = FedConfig(local_epochs=1, batch_size=BATCH, **kwargs)
-    with pytest.raises(NotImplementedError, match=match):
-        rf = make_fed_round(model, cfg, num_clients=C, mesh=mesh())
-        cx, cy, cm = (torch.as_tensor(a) for a in _data())
-        rf(model.init(0), cx, cy, cm, perms=torch.zeros(
-            (C, 1, S), dtype=torch.int64), **call)
+    check_distinct_gpus([("a", [("cuda", 0), ("cuda", 0)]),
+                         ("a", [("cuda", 1)]), ("b", [("cuda", 0)]),
+                         ("b", [("cpu", None)]), ("b", [("cpu", None)])])
+    with pytest.raises(ValueError, match="ranks 0 and 2 both hold cuda:1"):
+        check_distinct_gpus([("a", [("cuda", 1)]), ("a", [("cuda", 0)]),
+                             ("a", [("cuda", 1)])])
 
 
 def test_tree_helpers_match_reference():
